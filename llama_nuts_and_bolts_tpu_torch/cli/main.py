@@ -1,0 +1,274 @@
+"""Interactive CLI: prompt menu, streaming generation, live console repaint.
+
+Port of ``llama_nuts_and_bolts_tpu/cli/main.py`` for the single-request bf16
+path. Runs on ``cuda`` unless ``--device cpu`` is given.
+
+Run: ``python -m llama_nuts_and_bolts_tpu_torch.cli [flags]``
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from dataclasses import dataclass
+from typing import List, Optional
+
+from llama_nuts_and_bolts_tpu_torch.cli.console import AppState
+from llama_nuts_and_bolts_tpu_torch.device import resolve_device
+from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs, find_model_dir
+from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+from llama_nuts_and_bolts_tpu_torch.runtime.types import GenerationState
+from llama_nuts_and_bolts_tpu_torch.tokenizer import PromptPart
+from llama_nuts_and_bolts_tpu_torch.utils.logging import Logger, set_logger
+
+MODELS_DIR_NAME = "models-original"
+MODEL_NAME = "Meta-Llama-3.1-8B-Instruct"
+
+
+@dataclass
+class PromptInput:
+    prompt: str
+    system_prompt: str = ""
+    is_chat_mode: bool = False
+
+
+PREDEFINED_PROMPTS = [
+    PromptInput(is_chat_mode=False, prompt="Hello, my name is"),
+    PromptInput(is_chat_mode=True, system_prompt="You are Einstein",
+                prompt="Describe your theory."),
+    PromptInput(is_chat_mode=True,
+                system_prompt="Answer in 20 words, directly, and without an introduction",
+                prompt="Can you explain what is Theory of relativity?"),
+    PromptInput(is_chat_mode=True, system_prompt="You are a pirate",
+                prompt="Explain what is quantum computer in 20 words."),
+    PromptInput(is_chat_mode=True, system_prompt="Always answer with emojis",
+                prompt="How to go from Beijing to NY?"),
+    PromptInput(is_chat_mode=True, system_prompt="Answer with only one emoji",
+                prompt="What is the flag of Turkey?"),
+]
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        prog="llama_nuts_and_bolts_tpu_torch",
+        description="Llama 3.1 inference engine (PyTorch/CUDA port)")
+    p.add_argument("--model-dir", default=None,
+                   help="directory with consolidated.00.pth, params.json, tokenizer.model")
+    p.add_argument("--seq-len", type=int, default=200,
+                   help="total sequence length cap (the reference CLI uses 200)")
+    p.add_argument("--prompt", type=int, default=None, metavar="N",
+                   help="run predefined prompt N (1-6) non-interactively")
+    p.add_argument("--prompt-text", default=None,
+                   help="run this prompt text non-interactively")
+    p.add_argument("--chat", action="store_true",
+                   help="with --prompt-text: use chat template")
+    p.add_argument("--system-prompt", default="",
+                   help="with --chat: the system prompt")
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument("--prefill-chunk", type=int, default=0, metavar="C",
+                   help="process prompts longer than C tokens in C-token "
+                        "chunks (bounds prefill memory at long context; "
+                        "0 disables)")
+    p.add_argument("--attn-impl", choices=["auto", "plain", "flash"],
+                   default="auto",
+                   help="attention: auto (the CUDA kernels on a card when "
+                        "head_dim is a multiple of 128), plain (PyTorch), or "
+                        "flash (the CUDA kernels K1/K2)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the model runs (default cuda; no fallback)")
+    p.add_argument("--debug", action="store_true", help="write debug.log trace")
+    p.add_argument("--tiny", action="store_true",
+                   help="use a tiny random-weights model + synthetic tokenizer "
+                        "(no model files needed; for smoke-testing the stack)")
+    p.add_argument("--meta", action="store_true",
+                   help="print model metadata and exit")
+    return p.parse_args(argv)
+
+
+def discover_model_dir(flag_value: Optional[str]) -> str:
+    candidates = []
+    if flag_value:
+        candidates.append(flag_value)
+    for root in (".", "..", "../..", os.path.expanduser("~")):
+        candidates.append(os.path.join(root, MODELS_DIR_NAME, MODEL_NAME))
+        candidates.append(os.path.join(root, MODELS_DIR_NAME))
+    found = find_model_dir(candidates)
+    if found is None:
+        sys.exit(
+            f"error: model files not found. Searched: {candidates}\n"
+            "Expected consolidated.00.pth, params.json, tokenizer.model "
+            "(pass --model-dir, or --tiny for a weights-free demo)")
+    return found
+
+
+def load_tiny_model(device):
+    """Random tiny model + byte-level tokenizer: exercises the whole stack
+    (load → tokenize → generate → stream → repaint) without the 16 GB files."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import init_random_params
+    from llama_nuts_and_bolts_tpu_torch.models.llama.loader import LoadedModel
+    from llama_nuts_and_bolts_tpu_torch.tokenizer import TiktokenModel, Vocabulary
+    from llama_nuts_and_bolts_tpu_torch.tokenizer.tiktoken_io import build_special_tokens
+
+    ranks = {bytes([i]): i for i in range(256)}
+    special = build_special_tokens(len(ranks))
+    tk = TiktokenModel(
+        mergeable_ranks=ranks, special_tokens=special,
+        bos_id=special["<|begin_of_text|>"], eos_id=special["<|end_of_text|>"],
+        stop_token_ids=[special["<|eom_id|>"], special["<|eot_id|>"]])
+    vocab = Vocabulary.from_tiktoken(tk)
+    cfg = ModelArgs(dim=256, n_layers=4, n_heads=8, n_kv_heads=4,
+                    vocab_size=vocab.size, multiple_of=64,
+                    max_sequence_length=512)
+    params = init_random_params(cfg, seed=0, device=device)
+    return LoadedModel(params=params, cfg=cfg, vocab=vocab,
+                       mergeable_ranks=ranks, tensor_meta={})
+
+
+def ask_user_prompt_choice(model, out=sys.stdout) -> PromptInput:
+    from llama_nuts_and_bolts_tpu_torch.cli.meta import format_meta
+
+    n = len(PREDEFINED_PROMPTS)
+    while True:
+        out.write("\x1b[1mSelect from our predefined prompts (latest two are for manual input):\x1b[0m\n")
+        out.write(f"{0:2d}. {'':<17} Print model metadata (tensor list, hyperparameters, etc...)\n")
+        for i, pp in enumerate(PREDEFINED_PROMPTS):
+            if pp.is_chat_mode:
+                system = pp.system_prompt or "(empty)"
+                out.write(f"{i+1:2d}. {'[Chat mode]':<17} \x1b[1mSystem Prompt:\x1b[0m {system}\n"
+                          f"{'':22}\x1b[1mPrompt:\x1b[0m {pp.prompt}\n")
+            else:
+                out.write(f"{i+1:2d}. {'[Text completion]':<17} \x1b[1mPrompt:\x1b[0m {pp.prompt}\n")
+        out.write(f"{n+1:2d}. {'[Text completion]':<17} Other, manual input\n")
+        out.write(f"{n+2:2d}. {'[Chat mode]':<17} Other, manual input\n")
+        out.write(f"\n\x1b[1mYour choice (choose 0 to {n+2} and press Enter):\x1b[0m ")
+        out.flush()
+        try:
+            choice = input().strip()
+        except EOFError:
+            sys.exit("\nno input; exiting")
+        try:
+            num = int(choice)
+        except ValueError:
+            out.write("\nNot a valid number.\n\n")
+            continue
+        if num < 0 or num > n + 2:
+            out.write(f"\nChoice must be between 0 and {n+2}.\n\n")
+            continue
+        if num == 0:
+            out.write(format_meta(model))
+            out.write("\nModel metadata was printed.\n\n")
+            continue
+        if num <= n:
+            return PREDEFINED_PROMPTS[num - 1]
+        is_chat = num == n + 2
+        system_prompt = ""
+        if is_chat:
+            out.write("\x1b[1mWrite down your \"system prompt\" (optional) and press Enter:\x1b[0m ")
+            out.flush()
+            system_prompt = input().rstrip("\r\n")
+            out.write("\x1b[1mWrite down your prompt (chat) and press Enter:\x1b[0m ")
+        else:
+            out.write("\x1b[1mWrite down your prompt and press Enter:\x1b[0m ")
+        out.flush()
+        prompt = input().rstrip("\r\n")
+        if not prompt:
+            out.write("\nThe prompt you entered is empty.\n")
+            continue
+        return PromptInput(prompt=prompt, system_prompt=system_prompt, is_chat_mode=is_chat)
+
+
+def prompt_tokens(engine: InferenceEngine, prompt_input: PromptInput) -> List[int]:
+    if prompt_input.is_chat_mode:
+        parts: List[PromptPart] = [
+            PromptPart("system", prompt_input.system_prompt),
+            PromptPart("user", prompt_input.prompt),
+        ]
+        return engine.tokenize(parts)
+    text = prompt_input.prompt
+    if not text.endswith(" "):
+        text += " "
+    return [engine.model.vocab.bos_id] + engine.tokenize_string(text)
+
+
+def run_generation(engine: InferenceEngine, prompt_input: PromptInput,
+                   app: AppState) -> GenerationState:
+    tokens = prompt_tokens(engine, prompt_input)
+    prompt_pieces, prompt_text = engine.token_batch_to_string(tokens)
+    app.begin_generation(prompt_pieces, prompt_text, engine.seq_len)
+    for part in engine.generate_string(tokens):
+        app.consume(part)
+    app.finish_generation()
+    return app.generation_state
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    print("Welcome to Llama 3.1 Nuts and Bolts (PyTorch/CUDA port)!")
+    print("=================================\n\n")
+
+    set_logger(Logger(debug_path="debug.log" if args.debug else None))
+
+    if args.tiny:
+        from llama_nuts_and_bolts_tpu_torch.models.llama import fuse_decode_params
+
+        model = load_tiny_model(device)
+        # the fused decode layout is the default for plain bf16 weights
+        model.params = fuse_decode_params(model.params)
+        print("Tiny random-weights demo model loaded.\n")
+    else:
+        from llama_nuts_and_bolts_tpu_torch.models.llama.loader import load_llama_model
+
+        model_dir = discover_model_dir(args.model_dir)
+        print(f'Found model files in "{model_dir}"...')
+        model = load_llama_model(model_dir, max_sequence_length=args.seq_len,
+                                 fused=True, device=device)
+        print(f'Model "{model_dir}" was loaded.\n')
+
+    if args.meta:
+        from llama_nuts_and_bolts_tpu_torch.cli.meta import format_meta
+
+        print(format_meta(model))
+        return 0
+
+    app = AppState()
+
+    def live_log(fmt, *a):
+        # surfaces engine progress in the "Running for next token" line
+        app.latest_log_text = (fmt % a) if a else fmt
+        if app.prompt_text:
+            app.update_output()
+
+    engine = InferenceEngine(
+        model,
+        InferenceArgs(sequence_length=args.seq_len, temperature=args.temperature,
+                      top_k=args.top_k, top_p=args.top_p,
+                      prefill_chunk=args.prefill_chunk,
+                      attn_impl=args.attn_impl),
+        log_fn=live_log,
+        device=device,
+    )
+
+    if args.prompt is not None:
+        prompt_input = PREDEFINED_PROMPTS[args.prompt - 1]
+    elif args.prompt_text is not None:
+        prompt_input = PromptInput(prompt=args.prompt_text,
+                                   system_prompt=args.system_prompt,
+                                   is_chat_mode=args.chat)
+    else:
+        prompt_input = ask_user_prompt_choice(model)
+
+    state = run_generation(engine, prompt_input, app)
+    reason = {
+        GenerationState.FINISHED_BY_REACHING_EOS: "reaching EOS token",
+        GenerationState.FINISHED_BY_REACHING_SEQ_LEN: "reaching sequence length",
+    }.get(state, "unknown")
+    print(f"\n\nFinished \x1b[1mby {reason}\x1b[0m.")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

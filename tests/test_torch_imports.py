@@ -1,0 +1,69 @@
+"""The PyTorch port stands alone: neither its package nor chip_smoke.py
+imports JAX, Flax or anything of the JAX package (an AST scan, so dynamic
+imports inside functions count too), and its entry points default to the
+card with no silent CPU fallback."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from llama_nuts_and_bolts_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "llama_nuts_and_bolts_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "llama_nuts_and_bolts_tpu")
+
+
+def imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, node.args[0].value
+
+
+def test_port_and_chip_smoke_import_nothing_of_jax():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
+           for f in files for line, mod in imported_modules(f)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_scanner_sees_every_import_form(tmp_path):
+    src = tmp_path / "probe.py"
+    src.write_text("import jax.numpy as jnp\nfrom llama_nuts_and_bolts_tpu.ops import x\n"
+                   "def f():\n    import flax\n    importlib.import_module('jaxlib')\n"
+                   "from llama_nuts_and_bolts_tpu_torch import ops\n")
+    roots = sorted(m.split(".")[0] for _, m in imported_modules(src))
+    assert roots == ["flax", "jax", "jaxlib", "llama_nuts_and_bolts_tpu",
+                     "llama_nuts_and_bolts_tpu_torch"]
+
+
+def test_default_device_is_cuda_and_cuda_never_falls_back():
+    assert DEFAULT_DEVICE == "cuda"
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        for dev in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                resolve_device(dev)
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_numerics_match_the_jax_package_fp32_accumulation():
+    resolve_device("cpu")
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
