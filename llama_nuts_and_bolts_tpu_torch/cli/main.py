@@ -1,7 +1,8 @@
 """Interactive CLI: prompt menu, streaming generation, live console repaint.
 
-Port of ``llama_nuts_and_bolts_tpu/cli/main.py`` for the single-request bf16
-path. Runs on ``cuda`` unless ``--device cpu`` is given.
+Port of ``llama_nuts_and_bolts_tpu/cli/main.py`` for the single-request
+path, with bf16, int8 or int4 weights (``--quant``) and a bf16 or int8 KV
+cache (``--kv-cache``). Runs on ``cuda`` unless ``--device cpu`` is given.
 
 Run: ``python -m llama_nuts_and_bolts_tpu_torch.cli [flags]``
 """
@@ -68,6 +69,13 @@ def parse_args(argv=None):
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument("--quant", choices=["none", "int8", "int4"], default="none",
+                   help="weight-only quantization: int8 per output channel, or "
+                        "int4 in groups of 256 (the K8 kernel decodes it)")
+    p.add_argument("--kv-cache", choices=["bf16", "int8"], default="bf16",
+                   help="KV cache dtype: int8 halves the cache's bytes; it "
+                        "decodes through the K4 kernel when the context is a "
+                        "multiple of 128, else on the plain path")
     p.add_argument("--prefill-chunk", type=int, default=0, metavar="C",
                    help="process prompts longer than C tokens in C-token "
                         "chunks (bounds prefill memory at long context; "
@@ -76,7 +84,7 @@ def parse_args(argv=None):
                    default="auto",
                    help="attention: auto (the CUDA kernels on a card when "
                         "head_dim is a multiple of 128), plain (PyTorch), or "
-                        "flash (the CUDA kernels K1/K2)")
+                        "flash (the CUDA kernels K1/K2, K4 for an int8 cache)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the model runs (default cuda; no fallback)")
     p.add_argument("--debug", action="store_true", help="write debug.log trace")
@@ -212,20 +220,32 @@ def main(argv=None) -> int:
 
     set_logger(Logger(debug_path="debug.log" if args.debug else None))
 
+    quant = None if args.quant == "none" else args.quant
     if args.tiny:
-        from llama_nuts_and_bolts_tpu_torch.models.llama import fuse_decode_params
-
         model = load_tiny_model(device)
-        # the fused decode layout is the default for plain bf16 weights
-        model.params = fuse_decode_params(model.params)
-        print("Tiny random-weights demo model loaded.\n")
+        if quant is not None:
+            from llama_nuts_and_bolts_tpu_torch.quant import (
+                quantize_params,
+                quantize_params_q4,
+            )
+
+            qfn = quantize_params_q4 if quant == "int4" else quantize_params
+            model.params = qfn(model.params)
+            print(f"Tiny demo model loaded ({quant}-quantized).\n")
+        else:
+            from llama_nuts_and_bolts_tpu_torch.models.llama import fuse_decode_params
+
+            # the fused decode layout is the default for plain bf16 weights
+            model.params = fuse_decode_params(model.params)
+            print("Tiny random-weights demo model loaded.\n")
     else:
         from llama_nuts_and_bolts_tpu_torch.models.llama.loader import load_llama_model
 
         model_dir = discover_model_dir(args.model_dir)
         print(f'Found model files in "{model_dir}"...')
+        # only unquantized weights take the fused decode layout
         model = load_llama_model(model_dir, max_sequence_length=args.seq_len,
-                                 fused=True, device=device)
+                                 fused=quant is None, device=device, quant=quant)
         print(f'Model "{model_dir}" was loaded.\n')
 
     if args.meta:
@@ -246,6 +266,7 @@ def main(argv=None) -> int:
         model,
         InferenceArgs(sequence_length=args.seq_len, temperature=args.temperature,
                       top_k=args.top_k, top_p=args.top_p,
+                      kv_cache_dtype=args.kv_cache,
                       prefill_chunk=args.prefill_chunk,
                       attn_impl=args.attn_impl),
         log_fn=live_log,

@@ -1,17 +1,22 @@
-// K2: S=1 flash decode attention over a stacked bf16 KV cache (head_dim 128).
+// K2 and K3: S=1 flash decode attention over a stacked KV cache (head_dim 128),
+// bf16 (K2) or int8 with per-position bf16 scales (K3).
 //
 // Replaces the Pallas kernel llama_nuts_and_bolts_tpu/kernels/decode_attention.py
-// (flash_decode_attention, blocked=True, fold_heads=False, bf16 cache ->
-// _decode_kernel_blocked). Batch row b attends cache slots t <= start_pos[b]
-// of layer `layer` of a [L, B, KV, T, D] cache; tiles past a row's position
-// are never read. Online fp32 softmax, the G query heads of one KV head share
-// each K/V tile, p rounded to bf16 before the PV product, masked scores at
-// -1e30, l floored at 1e-30.
+// (flash_decode_attention, blocked=True, fold_heads=False ->
+// _decode_kernel_blocked) for a bf16 and an int8 cache. Batch row b attends
+// cache slots t <= start_pos[b] of layer `layer` of a [L, B, KV, T, D] cache;
+// tiles past a row's position are never read. An int8 element is dequantized
+// to bf16(bf16(int8) * bf16(scale[t])) as the tile is loaded, as the Pallas
+// kernel does, so both caches reach the products as bf16 tiles. Online fp32
+// softmax, the G query heads of one KV head share each K/V tile, p rounded to
+// bf16 before the PV product, masked scores at -1e30, l floored at 1e-30.
 //
 // What bounds it on the H100: bytes. Each visible cache row is read once
-// (2 * KV * (pos + 1) * D * 2 bytes per call) against 4 * H * D * (pos + 1)
-// FLOPs, about one FLOP per byte -- far below the ~295 FLOP/byte ridge, so
-// the cache read is the whole cost and tensor cores would not help.
+// (2 * KV * (pos + 1) * D bytes per call for int8, twice that for bf16, plus
+// 4 bytes of scales per position and head for int8) against
+// 4 * H * D * (pos + 1) FLOPs, one or two FLOPs per byte -- far below the
+// ~295 FLOP/byte ridge, so the cache read is the whole cost and tensor cores
+// would not help.
 //
 // What the design does about it: the TPU kernel ran the tile axis as a
 // sequential grid dimension carrying the softmax state in VMEM; here the tile
@@ -22,7 +27,9 @@
 // SMs, so a call reaches only a fraction of the card's memory rate; a split
 // of the tile loop over more blocks plus a combine pass fixes it.
 //
-// The tile size is mirrored in kernels/decode_attention.py (K2_BLOCK_K).
+// The tile size is mirrored in kernels/decode_attention.py (K2_BLOCK_K). K4's
+// bf16 and int8-dequantizing modes (fold_heads=True) launch this kernel too:
+// folding the KV heads has no numerical meaning.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,10 +45,25 @@ constexpr int G = 4;            // query heads per KV head: Llama-3.1-8B's 32 / 
 constexpr int KPAD = D + 2;     // shared row stride in bf16: 65 words, conflict-free columns
 constexpr float NEG_INF = -1e30f;
 
+// A tile row of 16 int8 values dequantized with its position's scale:
+// bf16(float(int8) * float(scale)) is the bf16 product, exactly rounded.
+__device__ __forceinline__ void dequant16(const uint4 raw, const float s,
+                                          __nv_bfloat16* dst) {
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    d2[i] = __floats2bfloat162_rn((float)e[2 * i] * s, (float)e[2 * i + 1] * s);
+}
+
+// CacheT is __nv_bfloat16 (K2) or int8_t (K3, with k_scale / v_scale).
+template <typename CacheT>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, 1, H, D]
-                    const __nv_bfloat16* __restrict__ k,   // [L, B, KV, T, D]
-                    const __nv_bfloat16* __restrict__ v,   // [L, B, KV, T, D]
+                    const CacheT* __restrict__ k,          // [L, B, KV, T, D]
+                    const CacheT* __restrict__ v,          // [L, B, KV, T, D]
+                    const __nv_bfloat16* __restrict__ k_scale,  // [L, B, KV, T] (int8)
+                    const __nv_bfloat16* __restrict__ v_scale,
                     const int* __restrict__ start_pos,     // [B]
                     __nv_bfloat16* __restrict__ out,       // [B, 1, H, D]
                     int B, int H, int KV, int T, int layer, float scale) {
@@ -67,24 +89,36 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, 1, H, D]
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g] = 0.f;
 
-  const size_t head_off = (((size_t)layer * B + b) * KV + kvh) * (size_t)T * D;
-  const __nv_bfloat16* kh = k + head_off;
-  const __nv_bfloat16* vh = v + head_off;
+  const size_t head = ((size_t)layer * B + b) * KV + kvh;
+  const CacheT* kh = k + head * (size_t)T * D;
+  const CacheT* vh = v + head * (size_t)T * D;
+  constexpr int PER_LOAD = 16 / sizeof(CacheT);        // elements per 16-byte load
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int t0 = kt * BLOCK_K;
     __syncthreads();  // previous tile's reads of ks/vs/ps are done
-    for (int idx = tid; idx < BLOCK_K * (D / 8); idx += THREADS) {
-      const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    for (int idx = tid; idx < BLOCK_K * (D / PER_LOAD); idx += THREADS) {
+      const int r = idx / (D / PER_LOAD), c = (idx % (D / PER_LOAD)) * PER_LOAD;
       uint4 kval = make_uint4(0, 0, 0, 0), vval = make_uint4(0, 0, 0, 0);
-      if (t0 + r < n_keys) {
+      const bool visible = t0 + r < n_keys;
+      if (visible) {
         kval = *reinterpret_cast<const uint4*>(kh + (size_t)(t0 + r) * D + c);
         vval = *reinterpret_cast<const uint4*>(vh + (size_t)(t0 + r) * D + c);
       }
-      uint32_t* kd = reinterpret_cast<uint32_t*>(&ks[r][c]);
-      uint32_t* vd = reinterpret_cast<uint32_t*>(&vs[r][c]);
-      kd[0] = kval.x; kd[1] = kval.y; kd[2] = kval.z; kd[3] = kval.w;
-      vd[0] = vval.x; vd[1] = vval.y; vd[2] = vval.z; vd[3] = vval.w;
+      if constexpr (sizeof(CacheT) == 1) {
+        float sk = 0.f, sv = 0.f;
+        if (visible) {
+          sk = __bfloat162float(k_scale[head * T + t0 + r]);
+          sv = __bfloat162float(v_scale[head * T + t0 + r]);
+        }
+        dequant16(kval, sk, &ks[r][c]);
+        dequant16(vval, sv, &vs[r][c]);
+      } else {
+        uint32_t* kd = reinterpret_cast<uint32_t*>(&ks[r][c]);
+        uint32_t* vd = reinterpret_cast<uint32_t*>(&vs[r][c]);
+        kd[0] = kval.x; kd[1] = kval.y; kd[2] = kval.z; kd[3] = kval.w;
+        vd[0] = vval.x; vd[1] = vval.y; vd[2] = vval.z; vd[3] = vval.w;
+      }
     }
     __syncthreads();
 
@@ -149,20 +183,39 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, 1, H, D]
     oh[g * D + tid] = __float2bfloat16(acc[g] / fmaxf(l_s[g], 1e-30f));
 }
 
+template <typename CacheT>
+int launch(const void* q, const void* k, const void* v, const void* k_scale,
+           const void* v_scale, const void* start_pos, void* out, int B, int H,
+           int KV, int T, int layer, float scale, void* stream) {
+  if (H != KV * G) return (int)cudaErrorInvalidValue;
+  dim3 grid(KV, B);
+  flash_decode_kernel<CacheT><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const CacheT*>(k),
+      static_cast<const CacheT*>(v), static_cast<const __nv_bfloat16*>(k_scale),
+      static_cast<const __nv_bfloat16*>(v_scale), static_cast<const int*>(start_pos),
+      static_cast<__nv_bfloat16*>(out), B, H, KV, T, layer, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Returns a cudaError_t (0 = launched). Shapes are checked by the Python
+// Each returns a cudaError_t (0 = launched). Shapes are checked by the Python
 // wrapper; H / KV must be G.
 extern "C" int lnb_flash_decode_attention(const void* q, const void* k,
                                           const void* v, const void* start_pos,
                                           void* out, int B, int H, int KV,
                                           int T, int layer, float scale,
                                           void* stream) {
-  if (H != KV * G) return (int)cudaErrorInvalidValue;
-  dim3 grid(KV, B);
-  flash_decode_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(start_pos),
-      static_cast<__nv_bfloat16*>(out), B, H, KV, T, layer, scale);
-  return (int)cudaGetLastError();
+  return launch<__nv_bfloat16>(q, k, v, nullptr, nullptr, start_pos, out, B, H, KV,
+                               T, layer, scale, stream);
+}
+
+extern "C" int lnb_flash_decode_attention_q8(const void* q, const void* k,
+                                             const void* v, const void* k_scale,
+                                             const void* v_scale,
+                                             const void* start_pos, void* out,
+                                             int B, int H, int KV, int T,
+                                             int layer, float scale, void* stream) {
+  return launch<int8_t>(q, k, v, k_scale, v_scale, start_pos, out, B, H, KV, T,
+                        layer, scale, stream);
 }

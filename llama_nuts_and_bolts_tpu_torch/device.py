@@ -7,9 +7,12 @@ nothing falls back to the CPU.
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
+_CONSTANTS: Dict[Tuple[torch.device, torch.dtype, float], torch.Tensor] = {}
 
 
 def configure_numerics() -> None:
@@ -19,6 +22,19 @@ def configure_numerics() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def exact_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as an IEEE division on every device. On a card PyTorch
+    divides by a Python number by multiplying with its reciprocal, an ulp
+    off for a few percent of elements, where the JAX package, numpy and the
+    kernels divide; dividing by a 0-d tensor of ``c`` on ``x``'s device (made
+    once) keeps the division."""
+    key = (x.device, x.dtype, c)
+    const = _CONSTANTS.get(key)
+    if const is None:
+        const = _CONSTANTS[key] = torch.full((), c, dtype=x.dtype, device=x.device)
+    return x / const
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,17 +1,34 @@
-"""K2: S=1 flash decode attention over a stacked bf16 KV cache.
+"""K2, K3, K4: S=1 flash decode attention over a stacked bf16 or int8 KV cache.
 
 Port of ``llama_nuts_and_bolts_tpu/kernels/decode_attention.py::flash_decode_attention``
-with ``blocked=True``, ``fold_heads=False`` and a bf16 cache (its
-``_decode_kernel_blocked``). Batch row ``b`` attends cache slots
-``t <= start_pos[b]`` of layer ``layer``; tiles past a row's position are
-never read. The CUDA kernel is ``csrc/decode_attention.cu`` (its header says
-what bounds it and how it is laid out); :func:`flash_decode_attention_plain`
-computes the same function with the same tiles in PyTorch.
+with ``blocked=True``. Batch row ``b`` attends cache slots ``t <= start_pos[b]``
+of layer ``layer``; tiles past a row's position are never read. Three CUDA
+kernels serve it, each with a plain PyTorch version beside it that CPU
+tensors take:
 
-In PyTorch ``cache.k[li]`` is a free view, so the JAX ``layer`` prefetch
-scalar has no job left; ``layer=`` is kept so that both packages are called
-alike. The int8 cache (K3), ``fold_heads=True`` (K4) and ``blocked=False``
-(K5) are other kernels, not yet ported: the wrapper raises on them.
+  * K2, a bf16 cache (``_decode_kernel_blocked``): ``csrc/decode_attention.cu``;
+    counted in ``flash_decode_attention.launches``.
+  * K3, an int8 cache with per-position bf16 scales ``[L, B, KV, T]``, each
+    element dequantized to ``bf16(bf16(int8) * bf16(scale))`` before the
+    products: the same kernel built for int8 tiles; counted in
+    ``flash_decode_attention_q8.launches``.
+    :func:`flash_decode_attention_plain` computes K2's and K3's function.
+  * K4, ``fold_heads=True`` (``_decode_kernel_blocked_heads``). Folding the KV
+    heads into one program amortises TPU grid steps and has no numerical
+    meaning, so its bf16 mode and its int8 dequantizing mode compute K2's and
+    K3's functions, and launch those kernels (only the tile partition of the
+    online softmax differs). Its ``int8_mxu`` mode -- every decode step on an
+    int8 cache -- is a kernel of its own, ``csrc/decode_attention_int8.cu``:
+    q quantized per row, int8 x int8 -> int32 dots, the v scales folded into
+    p before p is quantized per row over the whole tile
+    (``kernels/quant_attn_math.py``). Its numerics depend on the tile, so the
+    kernel, :func:`flash_decode_attention_int8_mxu_plain` and the wrapper all
+    take it from :func:`decode_block_k`; counted in
+    ``flash_decode_attention_int8_mxu.launches``.
+
+``blocked=False`` (K5) is not ported yet: the wrapper raises on it. In
+PyTorch ``cache.k[li]`` is a free view, so the JAX ``layer`` prefetch scalar
+has no job left; ``layer=`` is kept so that both packages are called alike.
 """
 
 from __future__ import annotations
@@ -24,16 +41,22 @@ from typing import List, Optional, Tuple
 import torch
 
 from llama_nuts_and_bolts_tpu_torch.kernels.build import check_launch, library
+from llama_nuts_and_bolts_tpu_torch.kernels.quant_attn_math import (
+    int8_pv,
+    int8_scores,
+    quantize_q_rows,
+)
 
 NEG_INF = -1e30
 HEAD_DIM = 128        # the only head width on the main path
-K2_BLOCK_K = 64       # cache positions per tile
-K2_GROUP = 4          # H / KV the kernel is built for: Llama-3.1-8B's 32 / 8
+K2_BLOCK_K = 64       # cache positions per tile (K2, K3)
+K2_GROUP = 4          # H / KV the kernels are built for: Llama-3.1-8B's 32 / 8
+FOLD_TILE_BYTES = 2 * 1024 * 1024
 
 
 @dataclass(frozen=True)
 class K2Geometry:
-    """Launch arithmetic shared by the kernel and the plain version."""
+    """Launch arithmetic shared by the K2/K3 kernel and the plain version."""
 
     grid: Tuple[int, int]         # (kv heads, batch)
     k_tiles: List[int]            # tiles streamed by each batch row
@@ -47,6 +70,29 @@ def k2_geometry(B: int, KV: int, T: int, positions: List[int]) -> K2Geometry:
                       k_tiles=[-(-min(p + 1, T) // K2_BLOCK_K) for p in positions])
 
 
+def decode_block_k(T: int, kv_heads: int, head_dim: int, quantized: bool,
+                   block_k: Optional[int] = None) -> int:
+    """K4's cache tile. With ``block_k=None`` the model's choice first
+    (``models/llama/model.py:204-211`` of the JAX package: the largest of
+    2048..128 that divides T), then the folded kernel's 2 MB rule
+    (``kernels/decode_attention.py:311-313,335-339``). An int8 cache at
+    KV=8, D=128 gets 2048, a bf16 one 1024, a 256-slot cache 256."""
+    if block_k is None:
+        block_k = next((b for b in (2048, 1024, 512, 256, 128) if T % b == 0), T)
+        if block_k == T and T > 2048:
+            raise ValueError(f"flash decode needs a cache length divisible by 128 "
+                             f"(got {T}); use attn_impl='plain' or a padded buffer")
+    block_k = min(block_k, T)
+    if T % block_k:
+        raise ValueError(f"cache length {T} must be a multiple of block_k={block_k}")
+    per_slot = kv_heads * head_dim * (1 if quantized else 2)
+    while block_k * per_slot > FOLD_TILE_BYTES and block_k > 128:
+        block_k //= 2
+    if T % block_k:
+        block_k = next((b for b in (512, 256, 128) if T % b == 0), T)
+    return block_k
+
+
 def _positions(start_pos, B: int, device: torch.device) -> torch.Tensor:
     """A ``[B]`` int32 tensor on ``device``; an int broadcasts to every row."""
     if isinstance(start_pos, int):
@@ -54,25 +100,21 @@ def _positions(start_pos, B: int, device: torch.device) -> torch.Tensor:
             raise ValueError(f"negative start_pos {start_pos}")
         return torch.full((B,), start_pos, dtype=torch.int32, device=device)
     if not isinstance(start_pos, torch.Tensor) or start_pos.dtype != torch.int32:
-        raise TypeError("K2 takes an int or an int32 [B] tensor of positions")
+        raise TypeError("decode attention takes an int or an int32 [B] tensor of "
+                        "positions")
     if start_pos.shape != (B,) or start_pos.device != device:
         raise ValueError(f"positions must be [B={B}] on {device}, got "
                          f"{tuple(start_pos.shape)} on {start_pos.device}")
     return start_pos.contiguous()
 
 
-def _check(q, k, v, k_scale, v_scale, blocked, layer, fold_heads, int8_mxu):
-    if k_scale is not None or v_scale is not None or k.dtype == torch.int8:
-        raise NotImplementedError("int8 KV cache decode is K3/K4 (ROADMAP.md), "
-                                  "not ported yet")
-    if fold_heads or int8_mxu:
-        raise NotImplementedError("fold_heads/int8_mxu is K4 (ROADMAP.md), "
-                                  "not ported yet")
+def _check(q, k, v, k_scale, v_scale, blocked, layer):
     if not blocked:
         raise NotImplementedError("blocked=False is K5 (ROADMAP.md), not "
                                   "ported yet")
     if q.dim() != 4 or q.shape[1] != 1:
-        raise ValueError(f"K2 is the S=1 kernel: q [B,1,H,D], got {tuple(q.shape)}")
+        raise ValueError(f"decode attention is the S=1 kernel: q [B,1,H,D], got "
+                         f"{tuple(q.shape)}")
     if k.dim() != 5 or v.shape != k.shape:
         raise ValueError(f"expected stacked k/v [L,B,KV,T,D], got "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -81,25 +123,47 @@ def _check(q, k, v, k_scale, v_scale, blocked, layer, fold_heads, int8_mxu):
     if Bk != B or Dk != D or H % KV:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
     if D != HEAD_DIM:
-        raise ValueError(f"K2 supports head_dim {HEAD_DIM}, got {D}")
+        raise ValueError(f"decode attention supports head_dim {HEAD_DIM}, got {D}")
     if not isinstance(layer, int) or not 0 <= layer < L:
         raise ValueError(f"layer must be an int in [0, {L}), got {layer!r}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"K2 takes bf16 {name}, got {t.dtype}")
+    quantized = k.dtype == torch.int8
+    if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("an int8 cache comes with k_scale and v_scale, a bf16 "
+                         "cache without")
+    cache_dtype = torch.int8 if quantized else torch.bfloat16
+    named = [("q", q, torch.bfloat16), ("k", k, cache_dtype), ("v", v, cache_dtype)]
+    if quantized:
+        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(s.shape) != tuple(k.shape[:-1]):
+                raise ValueError(f"{name} must be [L,B,KV,T] = {tuple(k.shape[:-1])}, "
+                                 f"got {tuple(s.shape)}")
+        named += [("k_scale", k_scale, torch.bfloat16), ("v_scale", v_scale, torch.bfloat16)]
+    for name, t, dtype in named:
+        if t.dtype != dtype:
+            raise TypeError(f"decode attention takes {dtype} {name}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"K2 takes a contiguous {name}")
+            raise ValueError(f"decode attention takes a contiguous {name}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"K2 takes a 16-byte aligned {name}")
+        if t.data_ptr() % 16 and name in ("q", "k", "v"):
+            raise ValueError(f"decode attention takes a 16-byte aligned {name}")
+
+
+def _dequant_tile(t: torch.Tensor, s: Optional[torch.Tensor]) -> torch.Tensor:
+    """A cache tile as the kernels' products see it: bf16, or for int8
+    ``bf16(bf16(int8) * bf16(scale))`` per element; returned in fp32."""
+    if s is None:
+        return t.float()
+    return (t.to(torch.bfloat16) * s[..., None]).float()
 
 
 def flash_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, positions: torch.Tensor,
-                                 layer: int = 0) -> torch.Tensor:
-    """The kernel's function in PyTorch: per batch row, the same tiles up to
-    its position, the same online fp32 softmax and bf16 rounding of p."""
+                                 layer: int = 0, k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2's (bf16 cache) and K3's (int8 cache with scales) function in
+    PyTorch: per batch row, the same 64-key tiles up to its position, the
+    same online fp32 softmax and bf16 rounding of p."""
     B, _, H, D = q.shape
     KV, T = k.shape[2], k.shape[3]
     G = H // KV
@@ -114,7 +178,10 @@ def flash_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
         l = torch.zeros(KV, G, 1, device=q.device)
         for kb in range(geo.k_tiles[b]):
             t0, t1 = kb * K2_BLOCK_K, min(T, (kb + 1) * K2_BLOCK_K)
-            kt = k[layer, b, :, t0:t1].float()
+            sl = (layer, b, slice(None), slice(t0, t1))
+            ks = None if k_scale is None else k_scale[sl]
+            vs = None if v_scale is None else v_scale[sl]
+            kt, vt = _dequant_tile(k[sl], ks), _dequant_tile(v[sl], vs)
             s = (qb @ kt.transpose(-1, -2)) * scale                # [KV,G,tile]
             k_pos = torch.arange(t0, t1, device=q.device)
             s = torch.where(k_pos <= pos[b], s, NEG_INF)
@@ -122,52 +189,163 @@ def flash_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
             p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p.to(torch.bfloat16).float() @ v[layer, b, :, t0:t1].float()
+            acc = acc * corr + p.to(torch.bfloat16).float() @ vt
             m = m_new
         out[b, 0] = (acc / l.clamp_min(1e-30)).reshape(H, D).to(q.dtype)
     return out
 
 
-def flash_decode_attention(
-    q: torch.Tensor,          # [B, 1, H, D] bf16
-    k: torch.Tensor,          # [L, B, KV, T, D] bf16 with layer, else [B, KV, T, D]
-    v: torch.Tensor,
-    start_pos,                # int, or int32 [B] tensor of per-row positions
-    k_scale=None,
-    v_scale=None,
-    blocked: bool = True,
-    layer: Optional[int] = None,
-    fold_heads: bool = False,
-    int8_mxu: bool = False,
-) -> torch.Tensor:
-    """Returns ``[B, 1, H, D]`` bf16. CUDA tensors launch the kernel (and
-    count it in ``launches``); CPU tensors take
-    :func:`flash_decode_attention_plain`."""
-    if layer is None:
-        k, v, layer = k[None], v[None], 0       # a one-layer stack, free view
-    _check(q, k, v, k_scale, v_scale, blocked, layer, fold_heads, int8_mxu)
+def flash_decode_attention_int8_mxu_plain(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_scale: torch.Tensor,
+        v_scale: torch.Tensor, positions: torch.Tensor, layer: int,
+        block_k: int) -> torch.Tensor:
+    """K4's ``int8_mxu`` function in PyTorch, as the Pallas kernel computes it:
+    per batch row and ``block_k`` tile up to its position, every KV head's
+    scores from int8 dots, the online fp32 softmax, and p folded with the v
+    scales and quantized per row over the whole tile."""
     B, _, H, D = q.shape
     KV, T = k.shape[2], k.shape[3]
-    positions = _positions(start_pos, B, q.device)
-    if q.device.type == "cpu":
-        return flash_decode_attention_plain(q, k, v, positions, layer)
-    if q.device.type != "cuda":
-        raise ValueError(f"K2 runs on cuda or cpu tensors, got {q.device}")
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    for b, p_b in enumerate(positions.tolist()):
+        q_i, qs = quantize_q_rows(q[b, 0].reshape(KV, G, D))       # per head row
+        acc = torch.zeros(KV, G, D, device=q.device)
+        m = torch.full((KV, G, 1), NEG_INF, device=q.device)
+        l = torch.zeros(KV, G, 1, device=q.device)
+        for kb in range(-(-min(p_b + 1, T) // block_k)):
+            sl = (layer, b, slice(None), slice(kb * block_k, (kb + 1) * block_k))
+            s = int8_scores(q_i, qs, k[sl], k_scale[sl].float(), scale)
+            k_pos = kb * block_k + torch.arange(block_k, device=q.device)
+            s = torch.where(k_pos <= p_b, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + int8_pv(p, v[sl], v_scale[sl].float())
+            m = m_new
+        out[b, 0] = (acc / l.clamp_min(1e-30)).reshape(H, D).to(q.dtype)
+    return out
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _require_group(H: int, KV: int) -> None:
     if H // KV != K2_GROUP:
-        raise ValueError(f"the K2 kernel is built for G = H/KV = {K2_GROUP}, "
+        raise ValueError(f"the decode kernels are built for G = H/KV = {K2_GROUP}, "
                          f"got {H // KV}")
+
+
+def _launch_k2(q, k, v, positions, layer) -> torch.Tensor:
+    """K2: the bf16 cache kernel."""
+    B, _, H, D = q.shape
+    KV, T = k.shape[2], k.shape[3]
+    _require_group(H, KV)
     out = torch.empty_like(q)
     fn = library("decode_attention").lnb_flash_decode_attention
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(),
-                 out.data_ptr(), B, H, KV, T, layer, 1.0 / math.sqrt(D), stream)
+                 out.data_ptr(), B, H, KV, T, layer, 1.0 / math.sqrt(D),
+                 _stream(q.device))
     check_launch(err, "flash_decode_attention")
     flash_decode_attention.launches += 1
     return out
 
 
+def flash_decode_attention_q8(q, k, v, k_scale, v_scale, positions,
+                              layer: int) -> torch.Tensor:
+    """K3: the int8 cache kernel (K2's, built for int8 tiles and their
+    per-position scales). Arguments as :func:`flash_decode_attention`'s,
+    already checked, with ``[B]`` int32 positions on the card."""
+    B, _, H, D = q.shape
+    KV, T = k.shape[2], k.shape[3]
+    _require_group(H, KV)
+    out = torch.empty_like(q)
+    fn = library("decode_attention").lnb_flash_decode_attention_q8
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+                 v_scale.data_ptr(), positions.data_ptr(), out.data_ptr(), B, H, KV,
+                 T, layer, 1.0 / math.sqrt(D), _stream(q.device))
+    check_launch(err, "flash_decode_attention_q8")
+    flash_decode_attention_q8.launches += 1
+    return out
+
+
+def flash_decode_attention_int8_mxu(q, k, v, k_scale, v_scale, positions,
+                                    layer: int, block_k: int) -> torch.Tensor:
+    """K4 ``int8_mxu``: the int8-dot kernel over ``block_k`` tiles.
+    Arguments as :func:`flash_decode_attention`'s, already checked."""
+    B, _, H, D = q.shape
+    KV, T = k.shape[2], k.shape[3]
+    _require_group(H, KV)
+    if T % block_k:
+        raise ValueError(f"cache length {T} must be a multiple of block_k={block_k}")
+    out = torch.empty_like(q)
+    fn = library("decode_attention_int8").lnb_flash_decode_int8_mxu
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+                 v_scale.data_ptr(), positions.data_ptr(), out.data_ptr(), B, H, KV,
+                 T, layer, block_k, 1.0 / math.sqrt(D), _stream(q.device))
+    check_launch(err, "flash_decode_attention_int8_mxu")
+    flash_decode_attention_int8_mxu.launches += 1
+    return out
+
+
+def flash_decode_attention(
+    q: torch.Tensor,          # [B, 1, H, D] bf16
+    k: torch.Tensor,          # [L, B, KV, T, D] bf16/int8 with layer, else [B, KV, T, D]
+    v: torch.Tensor,
+    start_pos,                # int, or int32 [B] tensor of per-row positions
+    k_scale=None,             # bf16 [L, B, KV, T] ([B, KV, T] without layer) for int8
+    v_scale=None,
+    blocked: bool = True,
+    layer: Optional[int] = None,
+    fold_heads: bool = False,
+    int8_mxu: bool = False,
+    block_k: Optional[int] = None,
+) -> torch.Tensor:
+    """Returns ``[B, 1, H, D]`` bf16. CUDA tensors launch K2, K3 or K4 as the
+    module docstring says; CPU tensors take the plain version of the same
+    function. ``block_k`` matters to K4's ``int8_mxu`` mode only: ``None``
+    takes the model's tile (:func:`decode_block_k`)."""
+    if layer is None:
+        k, v, layer = k[None], v[None], 0       # a one-layer stack, free view
+        if k_scale is not None and v_scale is not None:
+            k_scale, v_scale = k_scale[None], v_scale[None]
+    _check(q, k, v, k_scale, v_scale, blocked, layer)
+    B, _, H, D = q.shape
+    KV, T = k.shape[2], k.shape[3]
+    quantized = k.dtype == torch.int8
+    positions = _positions(start_pos, B, q.device)
+    if fold_heads:
+        bk = decode_block_k(T, KV, D, quantized, block_k)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode attention runs on cuda or cpu tensors, got {q.device}")
+    cpu = q.device.type == "cpu"
+    if fold_heads and int8_mxu and quantized:
+        if cpu:
+            return flash_decode_attention_int8_mxu_plain(q, k, v, k_scale, v_scale,
+                                                         positions, layer, bk)
+        return flash_decode_attention_int8_mxu(q, k, v, k_scale, v_scale, positions,
+                                               layer, bk)
+    if cpu:
+        return flash_decode_attention_plain(q, k, v, positions, layer, k_scale, v_scale)
+    if quantized:
+        return flash_decode_attention_q8(q, k, v, k_scale, v_scale, positions, layer)
+    return _launch_k2(q, k, v, positions, layer)
+
+
 flash_decode_attention.launches = 0
+flash_decode_attention_q8.launches = 0
+flash_decode_attention_int8_mxu.launches = 0

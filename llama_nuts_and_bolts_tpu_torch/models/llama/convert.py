@@ -5,7 +5,11 @@ as a dict of stacked arrays, ``norm``, ``output``, ``rope_cos``,
 ``rope_sin``), each a numpy array, e.g. ``np.asarray`` of a JAX array. bf16
 arrays (numpy dtype named ``bfloat16``) cross through a ``uint16`` view, so
 both packages hold bit-identical weights. Either layout is accepted: the
-fused one is recognised by its ``wqkv`` key, as ``forward`` does.
+fused one is recognised by its ``wqkv`` key, as ``forward`` does. A
+quantized leaf -- an object or a dict with ``q``/``scale`` (int8) or
+``packed``/``scale`` (int4), e.g. the JAX package's ``QTensor`` and
+``Q4Tensor`` -- becomes the port's ``QTensor`` or ``Q4Tensor`` with the same
+bytes.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 
 from llama_nuts_and_bolts_tpu_torch.device import resolve_device
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import LlamaParams
+from llama_nuts_and_bolts_tpu_torch.quant import Q4Tensor, QTensor
 
 
 def tensor_from_numpy(arr: np.ndarray, device) -> torch.Tensor:
@@ -40,14 +45,27 @@ def tensor_to_numpy(t: torch.Tensor, bf16_dtype=None) -> np.ndarray:
     return t.numpy()
 
 
+def weight_from_numpy(leaf, device):
+    """A plain array, or a quantized leaf (object or dict with ``q``/``scale``
+    or ``packed``/``scale``), bit-exact on ``device``."""
+    def field(name):
+        return leaf.get(name) if isinstance(leaf, dict) else getattr(leaf, name, None)
+
+    for key, cls in (("packed", Q4Tensor), ("q", QTensor)):
+        if field(key) is not None:
+            return cls(**{key: tensor_from_numpy(np.asarray(field(key)), device),
+                          "scale": tensor_from_numpy(np.asarray(field("scale")), device)})
+    return tensor_from_numpy(leaf, device)
+
+
 def params_from_numpy(leaves: Dict, device=None) -> LlamaParams:
     dev = resolve_device(device)
     return LlamaParams(
         tok_embeddings=tensor_from_numpy(leaves["tok_embeddings"], dev),
-        layers={name: tensor_from_numpy(a, dev)
+        layers={name: weight_from_numpy(a, dev)
                 for name, a in leaves["layers"].items()},
         norm=tensor_from_numpy(leaves["norm"], dev),
-        output=tensor_from_numpy(leaves["output"], dev),
+        output=weight_from_numpy(leaves["output"], dev),
         rope_cos=tensor_from_numpy(leaves["rope_cos"], dev),
         rope_sin=tensor_from_numpy(leaves["rope_sin"], dev),
     )

@@ -1,12 +1,15 @@
 """Checkpoint → device params: name/shape validation, stacking, placement.
 
-Port of ``llama_nuts_and_bolts_tpu/models/llama/loader.py`` for plain bf16
-weights. The checkpoint is read with PyTorch's own ingest,
-``torch.load(path, mmap=True, weights_only=True, map_location="cpu")``: the
-tensors stay memory-mapped, and each layer's view is copied straight into
-its slot of the stacked ``[L, ...]`` tensor on the device, so no whole
-weight group is ever copied on the host. Meta's multi-shard format and
-int8/int4 weights are later items of ROADMAP.md.
+Port of ``llama_nuts_and_bolts_tpu/models/llama/loader.py``. The checkpoint
+is read with PyTorch's own ingest, ``torch.load(path, mmap=True,
+weights_only=True, map_location="cpu")``: the tensors stay memory-mapped, and
+each layer's view is copied straight into its slot of the stacked
+``[L, ...]`` tensor on the device, so no whole weight group is ever copied on
+the host. ``quant="int8"`` / ``"int4"`` quantizes each layer's view on the
+host (``quant/``) before it goes to the device, output head included, so the
+card only ever holds the quantized bytes; they are the bytes the JAX
+package's loader makes. Meta's multi-shard format is a later item of
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -85,13 +88,31 @@ def validate_checkpoint(tensors: Dict[str, torch.Tensor], cfg: ModelArgs) -> Non
                 f"tensor {name}: checkpoint shape {got} != expected {shape}")
 
 
+def _host_quantize(host: torch.Tensor, quant: str):
+    """One weight quantized on the host: the fields of a ``QTensor``
+    (``quant="int8"``) or ``Q4Tensor`` (``"int4"``), as CPU tensors."""
+    from llama_nuts_and_bolts_tpu_torch.quant import host_quantize_q4, quantize_tensor
+
+    if quant == "int4":
+        packed, scale = host_quantize_q4(host)
+        return {"packed": packed, "scale": scale}
+    qt = quantize_tensor(host.to("cpu"))
+    return {"q": qt.q, "scale": qt.scale}
+
+
 def build_params_from_checkpoint(tensors: Dict[str, torch.Tensor],
                                  cfg: ModelArgs, fused: bool = False,
-                                 device=None,
-                                 dtype=torch.bfloat16) -> LlamaParams:
+                                 device=None, dtype=torch.bfloat16,
+                                 quant: Optional[str] = None) -> LlamaParams:
     """Stack per-layer checkpoint tensors to ``[L, ...]`` on ``device``
     (default ``cuda``). ``fused=True`` assembles the fused decode layout
-    (``model.fused_layer_weight_shapes``) from the same views."""
+    (``model.fused_layer_weight_shapes``) from the same views;
+    ``quant="int8"|"int4"`` quantizes the matmul weights and the head."""
+    if quant not in (None, "int8", "int4"):
+        raise ValueError(f"unsupported quant mode {quant!r}")
+    if fused and quant is not None:
+        raise ValueError("the fused decode layout is for plain bf16 weights "
+                         "(quantized layouts keep their own packing)")
     validate_checkpoint(tensors, cfg)
     dev = resolve_device(device)
     log = get_logger()
@@ -100,12 +121,30 @@ def build_params_from_checkpoint(tensors: Dict[str, torch.Tensor],
     def view(key: str, i: int) -> torch.Tensor:
         return tensors[CKPT_LAYER_NAMES[key].format(i=i)]
 
-    def stacked(key: str) -> torch.Tensor:
+    def stacked(key: str):
+        if quant is not None and not key.endswith("norm"):
+            return stacked_quantized(key)
         first = view(key, 0)
         out = torch.empty((L,) + tuple(first.shape), dtype=dtype, device=dev)
         for i in range(L):
             out[i].copy_(view(key, i))
         return out
+
+    def quantized(fields):
+        from llama_nuts_and_bolts_tpu_torch.quant import Q4Tensor, QTensor
+
+        return (Q4Tensor if "packed" in fields else QTensor)(**fields)
+
+    def stacked_quantized(key: str):
+        out = None
+        for i in range(L):
+            fields = _host_quantize(view(key, i), quant)
+            if out is None:
+                out = {f: torch.empty((L,) + tuple(t.shape), dtype=t.dtype, device=dev)
+                       for f, t in fields.items()}
+            for f, t in fields.items():
+                out[f][i].copy_(t)
+        return quantized(out)
 
     layers: Dict[str, torch.Tensor] = {}
     layers["attn_norm"] = stacked("attn_norm")
@@ -131,14 +170,18 @@ def build_params_from_checkpoint(tensors: Dict[str, torch.Tensor],
 
     # tied output head (Llama-3.2 1B/3B): reuse the embedding matrix
     head = tensors.get("output.weight", tensors["tok_embeddings.weight"])
-    if fused:
-        head = head.t()                       # head stored [dim, vocab]
+    if quant is not None:
+        output = quantized({f: t.to(dev) for f, t in _host_quantize(head, quant).items()})
+    elif fused:
+        output = head.t().to(dev, dtype).contiguous()     # head stored [dim, vocab]
+    else:
+        output = head.to(dev, dtype).contiguous()
     cos, sin = rope_tables(cfg, dev)
     return LlamaParams(
         tok_embeddings=tensors["tok_embeddings.weight"].to(dev, dtype),
         layers=layers,
         norm=tensors["norm.weight"].to(dev, dtype),
-        output=head.to(dev, dtype).contiguous(),
+        output=output,
         rope_cos=cos,
         rope_sin=sin,
     )
@@ -162,9 +205,10 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 def load_llama_model(model_dir: str, max_sequence_length: Optional[int] = None,
                      include_tensors: bool = True, fused: bool = False,
-                     device=None) -> LoadedModel:
+                     device=None, quant: Optional[str] = None) -> LoadedModel:
     """Load a Meta-format model dir: consolidated.00.pth + params.json +
-    tokenizer.model, with the vocab-size cross-check."""
+    tokenizer.model, with the vocab-size cross-check. ``quant`` as for
+    :func:`build_params_from_checkpoint`."""
     log = get_logger()
     dev = resolve_device(device)
     tk_model = load_tiktoken_model(os.path.join(model_dir, "tokenizer.model"))
@@ -189,7 +233,8 @@ def load_llama_model(model_dir: str, max_sequence_length: Optional[int] = None,
         tensors = load_torch_checkpoint(os.path.join(model_dir, "consolidated.00.pth"))
         tensor_meta = {n: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
                        for n, t in tensors.items()}
-        params = build_params_from_checkpoint(tensors, cfg, fused=fused, device=dev)
+        params = build_params_from_checkpoint(tensors, cfg, fused=fused, device=dev,
+                                              quant=quant)
         log.info("Loaded %d tensors.", len(tensors))
     return LoadedModel(params=params, cfg=cfg, vocab=vocab,
                        mergeable_ranks=tk_model.mergeable_ranks,

@@ -1,32 +1,39 @@
 """Llama transformer forward pass over stacked per-layer weights.
 
-Port of ``llama_nuts_and_bolts_tpu/models/llama/model.py`` for bf16 weights,
-a bf16 KV cache and a scalar ``start_pos``:
+Port of ``llama_nuts_and_bolts_tpu/models/llama/model.py`` for a scalar
+``start_pos``:
 
   * per-layer weights are stacked to ``[n_layers, ...]`` as in the JAX
-    package, and the block loop is a Python loop over layer views;
+    package, and the block loop is a Python loop over layer views; weights
+    may be bf16, int8 ``QTensor`` or int4 ``Q4Tensor`` (``quant/``), whose
+    layer views ``ops.linear`` takes as they are;
   * the KV cache is written IN PLACE (``cache.k[li, :, :, p:p+S] = k``): this
     takes the place of the JAX package's donated scan carry, so a step's
     cache traffic is the S new rows, never a copy of the buffer;
+  * the cache is bf16, or int8 with a bf16 scale per (position, head)
+    (``quantize_kv_rows``), quantized once as it is written;
   * cache slot ``t`` is visible to query row ``s`` iff ``t <= start_pos + s``;
-  * bf16 weights and activations, fp32 accumulation, fp32 norm statistics
-    and softmax, fp32 logits.
+  * bf16 activations, fp32 accumulation, fp32 norm statistics and softmax,
+    fp32 logits.
 
 ``attn_impl="plain"`` (the JAX ``"xla"`` path) runs ``ops.gqa_attention``
-with the additive mask; ``"flash"`` runs K1 for S>1 and K2 for S==1
-(``kernels/``).
+with the additive mask, on the dequantized layer for an int8 cache.
+``"flash"`` runs K1 for S>1 and, for S==1, K2 on a bf16 cache and K4's
+int8-dot mode on an int8 cache; ``"flash_folded"`` (S==1 only) runs K4 on
+either cache (``kernels/``). An int8 cache takes ``"flash"`` for decode
+only: its prefill runs the plain path.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from llama_nuts_and_bolts_tpu_torch.device import resolve_device
+from llama_nuts_and_bolts_tpu_torch.device import exact_div, resolve_device
 from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
 from llama_nuts_and_bolts_tpu_torch.kernels.attention import flash_gqa_attention
 from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
@@ -45,7 +52,7 @@ from llama_nuts_and_bolts_tpu_torch.ops import (
     swiglu,
 )
 
-ATTN_IMPLS = ("plain", "flash")
+ATTN_IMPLS = ("plain", "flash", "flash_folded")
 
 
 @dataclass
@@ -54,9 +61,9 @@ class LlamaParams:
     ``rope_cos/rope_sin`` are the fp32 tables on the weights' device."""
 
     tok_embeddings: torch.Tensor        # [vocab, dim] bf16
-    layers: Dict[str, torch.Tensor]     # each [L, ...] bf16
+    layers: Dict[str, Any]              # each [L, ...] bf16, QTensor or Q4Tensor
     norm: torch.Tensor                  # [dim] bf16
-    output: torch.Tensor                # [vocab, dim] bf16 ([dim, vocab] fused)
+    output: Any                         # [vocab, dim] ([dim, vocab] fused)
     rope_cos: torch.Tensor              # [2*max_seq, head_dim//2] fp32
     rope_sin: torch.Tensor
 
@@ -67,35 +74,57 @@ class LlamaParams:
 
 @dataclass
 class KVCache:
-    """Preallocated bf16 cache, k/v of shape [n_layers, batch, kv_heads,
-    max_seq, head_dim] (kv-heads-major, as the kernels stream it)."""
+    """Preallocated cache, k/v of shape [n_layers, batch, kv_heads, max_seq,
+    head_dim] (kv-heads-major, as the kernels stream it). ``dtype=torch.int8``
+    stores rows quantized per (position, head) with bf16 scales
+    ``k_scale/v_scale`` [n_layers, batch, kv_heads, max_seq]."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None     # bf16 iff k is int8
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, cfg: ModelArgs, batch: int, max_seq: int,
                device=None, dtype=torch.bfloat16) -> "KVCache":
-        if dtype != torch.bfloat16:
-            raise NotImplementedError(
-                "only the bf16 KV cache is ported; the int8 cache is a later "
-                "item of ROADMAP.md")
+        if dtype not in (torch.bfloat16, torch.int8):
+            raise ValueError(f"the KV cache is bf16 or int8, got {dtype}")
         shape = (cfg.n_layers, batch, cfg.kv_heads, max_seq, cfg.head_dim)
         dev = resolve_device(device)
-        return cls(k=torch.zeros(shape, dtype=dtype, device=dev),
-                   v=torch.zeros(shape, dtype=dtype, device=dev))
+        cache = cls(k=torch.zeros(shape, dtype=dtype, device=dev),
+                    v=torch.zeros(shape, dtype=dtype, device=dev))
+        if dtype == torch.int8:
+            cache.k_scale = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev)
+            cache.v_scale = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev)
+        return cache
 
     def truncated(self, max_seq: int) -> "KVCache":
         """An independent copy of the first ``max_seq`` positions (a full
         copy when the buffer is no longer): a prefix-cache snapshot stays
         unchanged while the copy is written in place."""
         max_seq = min(max_seq, self.max_seq)
+        cut = lambda t: None if t is None else t[..., :max_seq].clone()  # noqa: E731
         return KVCache(k=self.k[:, :, :, :max_seq].clone(),
-                       v=self.v[:, :, :, :max_seq].clone())
+                       v=self.v[:, :, :, :max_seq].clone(),
+                       k_scale=cut(self.k_scale), v_scale=cut(self.v_scale))
 
     @property
     def max_seq(self) -> int:
         return self.k.shape[3]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
+
+
+def quantize_kv_rows(rows: torch.Tensor):
+    """Per-(..., position) symmetric int8 over the head dim: (int8 rows,
+    bf16 scales with the last axis dropped). Rows are divided by the fp32
+    scale, which is stored rounded to bf16, as in the JAX package."""
+    r32 = rows.float()
+    s = exact_div(r32.abs().amax(dim=-1).clamp_min(1e-8), 127.0)
+    q = torch.round(r32 / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s.to(torch.bfloat16)
 
 
 def forward(
@@ -122,8 +151,16 @@ def forward(
     if start_pos + S > T:
         raise ValueError(f"positions {start_pos}..{start_pos + S} exceed the "
                          f"cache length {T}")
+    if attn_impl == "flash_folded" and S != 1:
+        raise ValueError("attn_impl='flash_folded' is the folded-heads DECODE "
+                         "kernel (S=1); use 'flash' for prefill")
+    quantized = cache.quantized
+    if quantized and attn_impl == "flash" and S != 1:
+        raise ValueError("int8 KV cache + flash is decode-only (S=1); use "
+                         "attn_impl='plain' for prefill")
+    fold = quantized or attn_impl == "flash_folded"
     fused = "wqkv" in params.layers
-    flash = attn_impl == "flash"
+    flash = attn_impl in ("flash", "flash_folded")
 
     x = params.tok_embeddings[tokens.long()]                    # [B,S,dim] bf16
     cos = params.rope_cos[start_pos:start_pos + S]
@@ -147,13 +184,29 @@ def forward(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         # in place: only the S new rows of this layer are written
-        cache.k[li, :, :, start_pos:start_pos + S] = k.transpose(1, 2)
-        cache.v[li, :, :, start_pos:start_pos + S] = v.transpose(1, 2)
+        rows = slice(start_pos, start_pos + S)
+        if quantized:
+            kq, ks = quantize_kv_rows(k)
+            vq, vs = quantize_kv_rows(v)
+            cache.k[li, :, :, rows] = kq.transpose(1, 2)
+            cache.v[li, :, :, rows] = vq.transpose(1, 2)
+            cache.k_scale[li, :, :, rows] = ks.transpose(1, 2)
+            cache.v_scale[li, :, :, rows] = vs.transpose(1, 2)
+        else:
+            cache.k[li, :, :, rows] = k.transpose(1, 2)
+            cache.v[li, :, :, rows] = v.transpose(1, 2)
 
         if flash and S == 1:
-            att = flash_decode_attention(q, cache.k, cache.v, positions, layer=li)
+            att = flash_decode_attention(q, cache.k, cache.v, positions,
+                                         k_scale=cache.k_scale, v_scale=cache.v_scale,
+                                         layer=li, fold_heads=fold, int8_mxu=quantized)
         elif flash:
             att = flash_gqa_attention(q, cache.k[li], cache.v[li], start_pos)
+        elif quantized:
+            # the plain path dequantizes the layer in bf16 before the einsum
+            ck = cache.k[li].to(torch.bfloat16) * cache.k_scale[li][..., None]
+            cv = cache.v[li].to(torch.bfloat16) * cache.v_scale[li][..., None]
+            att = gqa_attention(q, ck, cv, mask)
         else:
             att = gqa_attention(q, cache.k[li], cache.v[li], mask)
 
@@ -219,6 +272,8 @@ def fuse_decode_params(params: LlamaParams) -> LlamaParams:
     lw = params.layers
     if "wqkv" in lw:
         return params
+    if any(hasattr(w, "q") or hasattr(w, "packed") for w in lw.values()):
+        raise ValueError("fuse_decode_params supports plain (bf16) weights only")
     t = lambda a: a.transpose(1, 2).contiguous()  # noqa: E731
     layers = {
         "attn_norm": lw["attn_norm"],

@@ -1,22 +1,39 @@
-"""bf16 linear projections with fp32 accumulation and one rounding.
+"""Linear projections with fp32 accumulation and one rounding.
 
-Port of ``llama_nuts_and_bolts_tpu/ops/linear.py`` (plain bf16 weights only;
-int8/int4 weights are a later slice). ``linear`` takes checkpoint-layout
-``w[out, in]``, ``linear_t`` the fused decode layout ``w[in, out]``.
+Port of ``llama_nuts_and_bolts_tpu/ops/linear.py``. ``linear`` takes
+checkpoint-layout ``w[out, in]``, ``linear_t`` the fused decode layout
+``w[in, out]``.
 
-On a card the product goes to cuBLAS with fp32 accumulation
+On a card a bf16 product goes to cuBLAS with fp32 accumulation
 (``device.configure_numerics``); an fp32 result (the logits head) comes from
 ``torch.mm(..., out_dtype=torch.float32)`` so it never passes through bf16.
 The CPU build has no ``aten::mm.dtype`` kernel, so on the CPU both operands
 are upcast to fp32 first: bf16 products are exact in fp32, so this is the
 same fp32 accumulation with a single rounding at the end.
+
+``w`` may also be quantized, recognised by its fields so that this module
+needs nothing of ``quant/`` (which imports the model, which imports this):
+
+  * ``QTensor`` (``q``/``scale``, int8): the int8 matrix is cast to bf16 for
+    the product and the scale multiplies the fp32 result. As in the JAX
+    package this is plain tensor code, so on the card every call makes a
+    bf16 copy of the weight (PERF.md).
+  * ``Q4Tensor`` (``packed``/``scale``, int4): K8 (``kernels/q4_matmul.py``)
+    on a CUDA tensor for decode-shaped calls (at most 32 rows, one layer's
+    3-D ``packed``, ``K/2`` and ``out`` multiples of 128); otherwise, on the
+    card and on the CPU alike, ``unpack_q4`` and a dense product.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+
+# rows under which a Q4Tensor product runs K8 on the card (decode steps, the
+# logits head, prefill buckets of 16 and 32)
+_Q4_KERNEL_MAX_ROWS = 32
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor,
@@ -34,10 +51,32 @@ def _matmul(x: torch.Tensor, w: torch.Tensor,
     return out.reshape(*lead, w.shape[-1])
 
 
-def linear(x: torch.Tensor, w: torch.Tensor,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``x @ w.T`` for ``x[..., in]`` and ``w[out, in]``."""
+def linear(x: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x @ w.T`` for ``x[..., in]`` and ``w[out, in]`` (plain, ``QTensor``
+    or ``Q4Tensor``)."""
+    if hasattr(w, "packed"):
+        return _linear_q4(x, w, out_dtype)
+    if hasattr(w, "q"):
+        out = _matmul(x, w.q.to(x.dtype).t(), torch.float32) * w.scale.float()
+        return out.to(out_dtype or x.dtype)
     return _matmul(x, w.t(), out_dtype)
+
+
+def _linear_q4(x: torch.Tensor, w, out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    lead = x.shape[:-1]
+    rows = math.prod(lead)
+    G, out_dim, half = w.packed.shape[-3:]
+    if (x.device.type == "cuda" and w.packed.dim() == 3
+            and rows <= _Q4_KERNEL_MAX_ROWS and half % 128 == 0 and out_dim % 128 == 0):
+        from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import q4_matmul
+
+        out = q4_matmul(x.reshape(rows, x.shape[-1]), w.packed, w.scale)
+        out = out.reshape(*lead, out_dim)
+    else:
+        from llama_nuts_and_bolts_tpu_torch.quant.int4 import unpack_q4
+
+        out = _matmul(x, unpack_q4(w, x.dtype).t(), torch.float32)
+    return out.to(out_dtype or x.dtype)
 
 
 def linear_t(x: torch.Tensor, w: torch.Tensor,

@@ -2,14 +2,14 @@
 
 Port of the plain path of ``llama_nuts_and_bolts_tpu/runtime/engine.py``:
 power-of-two prefill buckets (``prefill_chunk`` included), request cache
-buckets, the prefix cache, per-token greedy/sampled decode and streaming
-detokenization. PyTorch runs eagerly, so there are no executables to cache;
-the buckets are kept because they bound the cache each request allocates
-and keep the kernels' shapes few.
+buckets, the prefix cache, a bf16 or int8 KV cache, per-token greedy/sampled
+decode and streaming detokenization. PyTorch runs eagerly, so there are no
+executables to cache; the buckets are kept because they bound the cache each
+request allocates and keep the kernels' shapes few.
 
-Speculation, the ``probe`` attention choice, the int8 KV cache and
-multi-step decode dispatch (the CUDA-graph counterpart of ``decode_chunk``)
-are later items of ROADMAP.md: asking for them raises.
+Speculation, the ``probe`` attention choice and multi-step decode dispatch
+(the CUDA-graph counterpart of ``decode_chunk``) are later items of
+ROADMAP.md: asking for them raises.
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ from llama_nuts_and_bolts_tpu_torch.tokenizer import (
 from llama_nuts_and_bolts_tpu_torch.utils.logging import get_logger
 
 MIN_PREFILL_BUCKET = 16
-ATTN_CHOICES = ("auto", "plain", "flash")
+ATTN_CHOICES = ("auto", "plain", "flash", "flash_folded")
+KV_CACHE_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
 
 
 def prefill_bucket(prompt_len: int, cap: int) -> int:
@@ -54,9 +55,9 @@ def _check_args(args: InferenceArgs) -> None:
     if args.speculate_k > 0:
         raise NotImplementedError("speculative decoding is a later item of "
                                   "ROADMAP.md (queue 1, speculation)")
-    if args.kv_cache_dtype != "bf16":
-        raise NotImplementedError("the int8 KV cache is a later item of "
-                                  "ROADMAP.md (queue 1, int8 KV cache)")
+    if args.kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise ValueError(f"kv_cache_dtype must be one of {tuple(KV_CACHE_DTYPES)}, "
+                         f"got {args.kv_cache_dtype!r}")
     if args.attn_impl == "probe":
         raise NotImplementedError("attn_impl='probe' is a later item of "
                                   "ROADMAP.md (queue 1, probe)")
@@ -83,10 +84,10 @@ class InferenceEngine:
         self._generator = torch.Generator(device=self.device).manual_seed(self.args.seed)
         # prefix cache: token-tuple -> KVCache snapshot (see cache_prefix)
         self._prefix_cache: Dict[tuple, KVCache] = {}
-        if self.args.attn_impl == "flash" and not self._kernels_viable():
+        if self.args.attn_impl.startswith("flash") and not self._kernels_viable():
             raise ValueError(
-                f"attn_impl='flash' needs head_dim % 128 == 0 (the kernels' "
-                f"width); this model has head_dim {model.cfg.head_dim}")
+                f"attn_impl={self.args.attn_impl!r} needs head_dim % 128 == 0 "
+                f"(the kernels' width); this model has head_dim {model.cfg.head_dim}")
 
     # ------------------------------------------------------------ tokenize
 
@@ -105,10 +106,12 @@ class InferenceEngine:
         return token_batch_to_string(self.model.vocab, token_ids)
 
     def new_cache(self, batch: int = 1, max_seq: Optional[int] = None) -> KVCache:
-        """Fresh bf16 KV cache; ``max_seq`` bounds the buffer below the
-        engine context (request bucketing — see cache_bucket)."""
+        """Fresh KV cache of ``args.kv_cache_dtype`` (bf16 | int8);
+        ``max_seq`` bounds the buffer below the engine context (request
+        bucketing — see cache_bucket)."""
         return KVCache.create(self.model.cfg, batch, max_seq or self.seq_len,
-                              device=self.device)
+                              device=self.device,
+                              dtype=KV_CACHE_DTYPES[self.args.kv_cache_dtype])
 
     def cache_bucket(self, prompt_len: int, max_new_tokens: Optional[int]) -> int:
         """Cache-buffer length for a request: the smallest power of two from
@@ -124,21 +127,36 @@ class InferenceEngine:
     def _kernels_viable(self) -> bool:
         return self.model.cfg.head_dim % 128 == 0
 
-    def _attn_impl(self) -> str:
-        """``auto`` takes the CUDA kernels on a card (K1 for every prefill,
-        K2 for every decode step, at every cache bucket) when the model's
-        head_dim fits them, and the plain path otherwise."""
-        if self.args.attn_impl != "auto":
-            return self.args.attn_impl
-        if self.device.type == "cuda" and self._kernels_viable():
-            return "flash"
-        return "plain"
+    def _attn_impl(self, seq_len: int = 1, cache_len: Optional[int] = None) -> str:
+        """The attention path of a forward over ``seq_len`` new rows into a
+        cache of ``cache_len`` slots. ``auto`` on a card, when the model's
+        head_dim fits the kernels: a bf16 cache takes the kernels for every
+        prefill (K1) and decode step (K2) at every bucket; an int8 cache, as
+        in the JAX package, takes them only to decode (K4) and only when
+        ``cache_len`` is a multiple of 128 (the kernel's tiles must divide
+        it), and prefills on the plain path. A forced ``flash`` or
+        ``flash_folded`` runs the kernels where they can run: an int8 cache
+        prefills on the plain path, a bf16 one on K1 (the JAX engine hands
+        ``flash_folded`` to its prefill, which refuses it)."""
+        forced = self.args.attn_impl
+        int8 = self.args.kv_cache_dtype == "int8"
+        if forced != "auto":
+            if forced.startswith("flash") and seq_len > 1:
+                return "plain" if int8 else "flash"
+            return forced
+        if not (self.device.type == "cuda" and self._kernels_viable()):
+            return "plain"
+        if int8:
+            bucket = cache_len or self.seq_len
+            return "flash" if seq_len == 1 and bucket % 128 == 0 else "plain"
+        return "flash"
 
     def _forward(self, tokens: List[List[int]], start_pos: int, cache: KVCache,
                  logits_at: Optional[int] = None):
         tok = torch.tensor(tokens, dtype=torch.int32, device=self.device)
         return forward(self.model.params, self.model.cfg, tok, start_pos, cache,
-                       attn_impl=self._attn_impl(), logits_at=logits_at)
+                       attn_impl=self._attn_impl(tok.shape[1], cache.max_seq),
+                       logits_at=logits_at)
 
     def _select_token(self, logits_row: torch.Tensor) -> int:
         return int(sample_token(logits_row, self._generator, self.args.temperature,

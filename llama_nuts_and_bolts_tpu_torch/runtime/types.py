@@ -68,14 +68,16 @@ class InferenceArgs:
     top_p: float = 1.0
     seed: int = 0
     # "auto" (the CUDA kernels on a card when head_dim is a multiple of 128,
-    # else the plain path) | "plain" | "flash" (the CUDA kernels K1/K2)
+    # else the plain path; engine._attn_impl) | "plain" | "flash" (the CUDA
+    # kernels K1 and K2, or K4 for an int8 cache) | "flash_folded" (K4 to
+    # decode)
     attn_impl: str = "auto"
     # decode steps per dispatch: 0 and 1 both mean one step per token; more
     # waits for the decode CUDA graph (ROADMAP.md)
     decode_chunk: int = 0
     # n-gram prompt-lookup speculative decoding (ROADMAP.md; 0 disables)
     speculate_k: int = 0
-    # "bf16"; "int8" waits for the int8 KV cache (ROADMAP.md)
+    # "bf16" | "int8" (rows quantized per position and head, bf16 scales)
     kv_cache_dtype: str = "bf16"
     # process prompts longer than this many tokens in fixed-size chunks:
     # bounds prefill activation/attention memory at long context (0 = off)

@@ -22,11 +22,20 @@ def test_tiny_cpu_chat_with_chunked_prefill_and_plain_attention(capsys):
     assert "Finished \x1b[1mby reaching" in capsys.readouterr().out
 
 
+def test_tiny_cpu_int4_weights_int8_cache_runs_to_the_finish_line(capsys):
+    assert main(["--tiny", "--device", "cpu", "--quant", "int4", "--kv-cache", "int8",
+                 "--seq-len", "256", "--prompt-text", "hi"]) == 0
+    out = capsys.readouterr().out
+    assert "Tiny demo model loaded (int4-quantized)." in out
+    assert "Finished \x1b[1mby " in out
+
+
 def test_meta_and_defaults(capsys):
     assert main(["--tiny", "--device", "cpu", "--meta"]) == 0
     assert "N_Heads (attention head count)" in capsys.readouterr().out
     args = parse_args([])
     assert (args.device, args.attn_impl, args.seq_len) == ("cuda", "auto", 200)
+    assert (args.quant, args.kv_cache) == ("none", "bf16")
     with pytest.raises(SystemExit):
         parse_args(["--attn-impl", "xla"])
 

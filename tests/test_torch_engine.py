@@ -159,8 +159,9 @@ def test_random_weights_prefill_and_first_decode_logits_match_jax():
 def test_attention_choice_and_refusals():
     eng, _ = engines(False)
     assert eng._attn_impl() == "plain"           # CPU, head_dim 16
+    assert eng._attn_impl(7, 256) == "plain"
     for bad, exc in (({"speculate_k": 2}, NotImplementedError),
-                     ({"kv_cache_dtype": "int8"}, NotImplementedError),
+                     ({"kv_cache_dtype": "fp8"}, ValueError),
                      ({"attn_impl": "probe"}, NotImplementedError),
                      ({"decode_chunk": 4}, NotImplementedError),
                      ({"attn_impl": "xla"}, ValueError),
@@ -170,3 +171,25 @@ def test_attention_choice_and_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             InferenceEngine(eng.model, InferenceArgs())
+
+
+@pytest.mark.parametrize("kv,impl,want", [
+    # (kv cache, attn_impl) -> {(seq_len, cache_len): path} on a card
+    ("bf16", "auto", {(1, 256): "flash", (64, 256): "flash", (1, 200): "flash"}),
+    ("int8", "auto", {(1, 256): "flash", (64, 256): "plain", (1, 200): "plain"}),
+    ("int8", "flash", {(1, 200): "flash", (64, 256): "plain"}),
+    ("bf16", "flash_folded", {(1, 256): "flash_folded", (64, 256): "flash"}),
+    ("int8", "flash_folded", {(1, 256): "flash_folded", (64, 256): "plain"}),
+    ("int8", "plain", {(1, 256): "plain"})])
+def test_attention_rules_follow_the_jax_engine(kv, impl, want):
+    """engine.py:173-188 of the JAX package: an int8 cache decodes on the
+    kernel only at S = 1 with a cache length that is a multiple of 128 and
+    prefills on the plain path, even when flash is forced. The rules are read
+    for a card: the engine's device is set to one without running on it."""
+    eng, _ = engines(False, kv_cache_dtype=kv, attn_impl="plain")
+    eng.args.attn_impl = impl
+    eng.device = torch.device("cuda", 0)
+    eng.model.cfg = dataclasses.replace(eng.model.cfg, dim=512)     # head_dim 128
+    assert eng._kernels_viable()
+    for (seq_len, cache_len), path in want.items():
+        assert eng._attn_impl(seq_len, cache_len) == path

@@ -77,6 +77,40 @@ def test_load_matches_jax_loader_bit_for_bit(model_dir, fused):
                                       raw(getattr(want.params, name)))
 
 
+@pytest.mark.parametrize("quant", ["int4", "int8"])
+def test_load_quantized_matches_jax_loader_bit_for_bit(model_dir, quant):
+    """quant= quantizes each layer's memory-mapped view on the host: the
+    packed bytes and scales equal the JAX loader's, head included."""
+    want = jax_load_llama_model(str(model_dir), max_sequence_length=48, quant=quant)
+    got = load_llama_model(str(model_dir), max_sequence_length=48, device="cpu",
+                           quant=quant)
+    fields = ("packed", "scale") if quant == "int4" else ("q", "scale")
+    for name, w in got.params.layers.items():
+        jw = want.params.layers[name]
+        if name.endswith("norm"):
+            np.testing.assert_array_equal(tensor_to_numpy(w), raw(jw))
+            continue
+        for f in fields:
+            np.testing.assert_array_equal(tensor_to_numpy(getattr(w, f)), raw(getattr(jw, f)))
+    for f in fields:
+        np.testing.assert_array_equal(tensor_to_numpy(getattr(got.params.output, f)),
+                                      raw(getattr(want.params.output, f)))
+    assert got.params.layers["wq"][1].shape == (CFG.n_heads * CFG.head_dim, CFG.dim)
+    with pytest.raises(ValueError, match="fused"):
+        load_llama_model(str(model_dir), device="cpu", quant=quant, fused=True)
+    with pytest.raises(ValueError, match="quant mode"):
+        load_llama_model(str(model_dir), device="cpu", quant="int2")
+    # a tied head is quantized through the same path
+    tied = build_params_from_checkpoint(checkpoint(CFG, tie_head=True), CFG,
+                                        device="cpu", quant=quant)
+    emb = tied.tok_embeddings
+    from llama_nuts_and_bolts_tpu_torch import quant as q
+
+    again = (q.quantize_tensor_q4 if quant == "int4" else q.quantize_tensor)(emb)
+    for f in fields:
+        assert torch.equal(getattr(tied.output, f), getattr(again, f))
+
+
 def test_tied_head_and_validation_errors():
     sd = checkpoint(CFG, tie_head=True)
     params = build_params_from_checkpoint(sd, CFG, device="cpu")

@@ -136,8 +136,10 @@ def test_logits_at_and_bad_arguments():
         model.forward(params, cfg, toks, 0, cache, attn_impl="xla")
     with pytest.raises(ValueError, match="cache length"):
         model.forward(params, cfg, toks, 14, cache)
-    with pytest.raises(NotImplementedError):
-        model.KVCache.create(cfg, 1, 16, device="cpu", dtype=torch.int8)
+    int8 = model.KVCache.create(cfg, 1, 16, device="cpu", dtype=torch.int8)
+    assert int8.quantized and int8.k_scale.shape == int8.k.shape[:-1]
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        model.KVCache.create(cfg, 1, 16, device="cpu", dtype=torch.float16)
 
 
 def test_init_random_params_shapes_and_seed():
