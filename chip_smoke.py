@@ -3,13 +3,16 @@
 Builds the CUDA kernels from ``llama_nuts_and_bolts_tpu_torch/csrc``, holds
 each against its plain PyTorch version at Llama-3.1-8B widths and at the
 main paths' own shapes, checks the forward pass with the kernels against the
-plain path on 2-layer full-width models, and drives the two main paths --
-greedy streaming chat through ``InferenceEngine.generate_string`` on the
-full 32-layer 8B architecture with seeded random weights: bf16 weights with
-a bf16 KV cache (K1, K2), then int4 weights with an int8 KV cache (K8, K4),
-with a last request on int8 weights -- and times the kernels. Every limit is
-also read against planted faults, which must fail it. Any failed check
-exits non-zero.
+plain path on 2-layer full-width models, and drives the main paths on the
+full 32-layer 8B architecture with seeded random weights: greedy streaming
+chat through ``InferenceEngine.generate_string`` with bf16 weights and
+cache (K1, K2), then int4 weights with an int8 cache (K8, K4), with a last
+request on int8 weights; then the OpenAI-compatible server
+(``LlamaHTTPServer``) over the paged continuous batcher, with concurrent
+HTTP requests on a bf16 pool (K6) and an int8 pool (K6's int8 mode) -- and
+times the kernels (K5 and K7 too, which serve no path). Every limit is also
+read against planted faults, which must fail it. Any failed check exits
+non-zero.
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it is
@@ -281,15 +284,20 @@ def group_dropped_params(params):
 
 
 def counters():
-    """Every kernel's wrapper, whose ``launches`` counts its kernel."""
+    """Every kernel's wrapper, whose ``launches`` counts its kernel (K6's
+    bf16 and int8 modes apart)."""
     from llama_nuts_and_bolts_tpu_torch.kernels.attention import flash_gqa_attention
     from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
         flash_decode_attention, flash_decode_attention_int8_mxu,
-        flash_decode_attention_q8)
+        flash_decode_attention_q8, flash_decode_attention_whole_head)
+    from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
+        paged_flash_decode, paged_flash_decode_int8, paged_flash_decode_per_head)
     from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import q4_matmul
 
     return {"K1": flash_gqa_attention, "K2": flash_decode_attention,
             "K3": flash_decode_attention_q8, "K4": flash_decode_attention_int8_mxu,
+            "K5": flash_decode_attention_whole_head, "K6": paged_flash_decode,
+            "K6i8": paged_flash_decode_int8, "K7": paged_flash_decode_per_head,
             "K8": q4_matmul}
 
 
@@ -1180,6 +1188,711 @@ def profile_decode(engine, prompt, steps: int = 8):
                 ours=ours)
 
 
+# ---------------------------------------------------------------- phase 6
+
+BS = 32                          # the paged pool's block size (DEFAULT_BLOCK_SIZE)
+# K6/K7/K5 against their plain versions: the kernel limits above. K6 (bf16)
+# and K7 follow the Pallas kernels' softmax spans, K5 K2's 64-key tiles, and
+# K6's int8 mode the per-block quantization of p, in both versions.
+# Flash (K6) against the gather path's logits on 2 full-width layers,
+# relative L2 per logits row: the two paths round p at different places, as
+# K2 and the dense plain path do (LOGITS_REL_L2's reasoning); K6's int8 mode
+# also quantizes q and p. Both limits sit between the sound reading and the
+# nearest planted fault's (PERF.md), and every run reads both again.
+PAGED_LOGITS_REL_L2 = 3e-2
+PAGED_INT8_LOGITS_REL_L2 = 3e-2
+# paged_prefill_shared (a prefix-cache hit: only the suffix is projected, the
+# prefix's rows are read back from the pool) against paged_prefill of the
+# whole prompt, relative L2 of the logits row on 2 layers. The same values
+# in both (an int8 pool attends the dequantized rows either way); only the
+# matmuls' row counts and the attention's key axis differ, so only the
+# summation order. The limit sits between the sound reading and the planted
+# fault's (shared_len one block short; PERF.md), and every run reads both.
+SHARED_PREFILL_REL_L2 = 1e-2
+SERVE_SLOTS, SERVE_BLOCKS, SERVE_CONTEXT = 4, 257, 2048   # 1 + 4 x 64 blocks
+
+
+def scattered_tables(B: int, M: int, n_blocks: int, seed: int) -> torch.Tensor:
+    """Row b's block table: a slice of one seeded permutation of the pool's
+    blocks 1..n_blocks-1 (block 0 is trash)."""
+    perm = torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    return perm[:B * M].reshape(B, M).to(torch.int32).cuda()
+
+
+def neighbour_tables(tables: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Planted fault: each row's last used table entry read from the next
+    row's table."""
+    out = tables.clone()
+    for b, p in enumerate(positions.tolist()):
+        out[b, p // BS] = tables[(b + 1) % tables.shape[0], p // BS]
+    return out
+
+
+def paged_work(positions, int8: bool):
+    """Bytes and operations of K6/K7: every visible row of k and v read once
+    (int8 rows with their bf16 scales; the rows of the last used block past
+    the position are not part of the function), q in and out in bf16; 4 H D
+    operations per visible key."""
+    rows = sum(p + 1 for p in positions)
+    per_row = KV * (D + 2) if int8 else KV * D * 2
+    nbytes = 2 * len(positions) * H * D * 2 + 2 * rows * per_row
+    ops = 4.0 * H * D * rows
+    return nbytes, ops * (BF16_FLOPS_PER_S / INT8_OPS_PER_S if int8 else 1.0)
+
+
+def check_paged_kernels():
+    """K6 (bf16 and int8 pools), K7 and K5 against their plain versions at
+    8B widths and bs 32: B = 1, 4, 8, positions at 0, 31, 32, 2047 and 8191,
+    scattered tables up to M = 256 over a 32-layer stacked pool read at
+    varying layers. Planted faults, read in every run: the mask off by one,
+    the last used block (K5: key tile) skipped, and a table entry read from
+    the neighbouring row."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
+        K2_BLOCK_K, flash_decode_attention, flash_decode_attention_plain)
+    from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
+        paged_chunk, paged_flash_decode, paged_flash_decode_int8_plain,
+        paged_flash_decode_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    errs = {"K5": 0.0, "K6": 0.0, "K6i8": 0.0, "K7": 0.0}
+    cases = [(1, 256, 17, [8191]), (4, 64, 0, [0, 31, 32, 2047]),
+             (8, 16, 31, [5, 511, 100, 64, 33, 0, 300, 480])]
+    for B, M, layer, positions in cases:
+        n_blocks, L = B * M + 1, 32
+        tables = scattered_tables(B, M, n_blocks, seed=B)
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        q = randn((B, 1, H, D), gen)
+        what = f"B={B} M={M} layer={layer}/{L} pos={positions}"
+        faults = {"mask off by one": (tables, pos - 1),
+                  "last used block skipped": (tables, pos // BS * BS - 1)}
+        if B > 1:
+            faults["neighbour row's table entry"] = (neighbour_tables(tables, pos), pos)
+        k, v = randn((L, n_blocks, KV, BS, D), gen), randn((L, n_blocks, KV, BS, D), gen)
+        chunk = paged_chunk(M, BS)
+        got = paged_flash_decode(q, k, v, tables, pos, layer=layer)
+        torch.cuda.synchronize()
+        ref = paged_flash_decode_plain(q, k, v, tables, pos, layer, chunk)
+        errs["K6"] = max(errs["K6"], kernel_err(got, ref, f"K6 bf16 (span {chunk}) " + what))
+        for name, (tbl, p) in faults.items():
+            kernel_err(paged_flash_decode(q, k, v, tbl, p, layer=layer), ref,
+                       f"K6 bf16 {what}, {name}", planted=True)
+        # K7: the same layer as a single-layer pool, one update per block
+        got = paged_flash_decode(q, k[layer], v[layer], tables, pos, fold_heads=False)
+        torch.cuda.synchronize()
+        ref = paged_flash_decode_plain(q, k[layer:layer + 1], v[layer:layer + 1], tables,
+                                       pos, 0, 1)
+        errs["K7"] = max(errs["K7"], kernel_err(got, ref, "K7 " + what))
+        for name, (tbl, p) in faults.items():
+            kernel_err(paged_flash_decode(q, k[layer], v[layer], tbl, p, fold_heads=False),
+                       ref, f"K7 {what}, {name}", planted=True)
+        del k, v
+        (k, ks), (v, vs) = (int8_cache((L, n_blocks, KV, BS, D), gen) for _ in range(2))
+        got = paged_flash_decode(q, k, v, tables, pos, layer=layer, pool_ks=ks, pool_vs=vs)
+        torch.cuda.synchronize()
+        ref = paged_flash_decode_int8_plain(q, k, v, ks, vs, tables, pos, layer)
+        errs["K6i8"] = max(errs["K6i8"], kernel_err(got, ref, "K6 int8 " + what))
+        for name, (tbl, p) in faults.items():
+            kernel_err(paged_flash_decode(q, k, v, tbl, p, layer=layer, pool_ks=ks,
+                                          pool_vs=vs), ref, f"K6 int8 {what}, {name}",
+                       planted=True)
+        del k, v, ks, vs
+
+        # K5: blocked=False over a single-layer [B, KV, T, D] cache
+        T = {1: 8192, 4: 2048, 8: 1024}[B]
+        for int8 in (False, True):
+            if int8:
+                (kc, kcs), (vc, vcs) = (int8_cache((B, KV, T, D), gen) for _ in range(2))
+                kw = dict(k_scale=kcs, v_scale=vcs)
+                ref = flash_decode_attention_plain(q, kc[None], vc[None], pos, 0,
+                                                   kcs[None], vcs[None])
+            else:
+                kc, vc = randn((B, KV, T, D), gen), randn((B, KV, T, D), gen)
+                kw = {}
+                ref = flash_decode_attention_plain(q, kc[None], vc[None], pos, 0)
+            got = flash_decode_attention(q, kc, vc, pos, blocked=False, **kw)
+            torch.cuda.synchronize()
+            w5 = f"K5 {'int8' if int8 else 'bf16'} B={B} T={T} pos={positions}"
+            errs["K5"] = max(errs["K5"], kernel_err(got, ref, w5))
+            for name, p in (("mask off by one", pos - 1),
+                            ("last key tile skipped", pos // K2_BLOCK_K * K2_BLOCK_K - 1)):
+                kernel_err(flash_decode_attention(q, kc, vc, p, blocked=False, **kw), ref,
+                           f"{w5}, {name}", planted=True)
+            del kc, vc
+    torch.cuda.empty_cache()
+    return errs
+
+
+@contextlib.contextmanager
+def planted_paged_fault(fault):
+    """``paged_decode_step``'s K6 wrapper swapped for a planted fault."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import paged as mod
+
+    saved = mod.paged_flash_decode
+    mod.paged_flash_decode = fault
+    try:
+        yield
+    finally:
+        mod.paged_flash_decode = saved
+
+
+def shared_prefill_err(params, cfg, pool, prompt, table, spare, ref, kind: str) -> float:
+    """A prefix-cache hit at full width: ``paged_prefill_shared`` of
+    ``prompt`` over the first two blocks that ``paged_prefill`` wrote into
+    ``table``, its suffix written into ``spare``'s blocks of a copy of the
+    pool, against the full prefill's logits ``ref``; planted fault:
+    ``shared_len`` one block short."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import paged
+
+    n, shared = prompt.shape[1], 2 * BS
+    row = torch.cat([table[:2], spare[2:]])
+    suffix = torch.zeros((1, -(-(n - shared) // BS) * BS), dtype=torch.int32, device="cuda")
+    suffix[0, :n - shared] = prompt[0, shared:]
+
+    def run(shared_len):
+        work = paged.PagedKVPool(*(t.clone() for t in pool.buffers()))
+        return paged.paged_prefill_shared(params, cfg, suffix, shared_len, n - shared - 1,
+                                          work, row)[0]
+
+    what = f"2-layer paged {kind} prefill of {n} tokens, {shared} shared, vs the full prefill"
+    rel = logits_err(run(shared), ref, SHARED_PREFILL_REL_L2, what)
+    logits_err(run(shared - BS), ref, SHARED_PREFILL_REL_L2,
+               f"{what}, shared_len one block short", planted=True)
+    return rel
+
+
+def check_paged_model_path(tk, vocab):
+    """Two full-width layers over a paged pool: two requests (100 and 37
+    tokens) prefilled into scattered blocks, the first again as a
+    prefix-cache hit (suffix only, over its first two blocks) against its
+    full prefill's logits, then 4 batched decode steps with
+    K6 against the gather path on the same weights and the plain path's
+    greedy tokens, for a bf16 and an int8 pool; planted K6 faults read
+    against the same limits. Then exact greedy tokens on the cyclic model:
+    the paged batcher (K6) and the dense batcher (K2, per-row positions)
+    against the sequential engine."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import paged_flash_decode
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel, init_random_params
+    from llama_nuts_and_bolts_tpu_torch.models.llama import paged
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.runtime.continuous import ContinuousBatcher
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+
+    cfg = cfg_8b(2)
+    params = init_random_params(cfg, seed=2, device="cuda")       # split layout
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lens = (100, 37)
+    M = 256 // BS
+    n_blocks = 3 * M + 1
+    tables = scattered_tables(3, M, n_blocks, seed=5)
+    tables, spare = tables[:2], tables[2]          # spare: the cache hit's own blocks
+    prompts = [torch.randint(0, 128000, (1, n), device="cuda", generator=gen) for n in lens]
+    faults = {
+        "K6 mask off by one": lambda q, k, v, t, p, **kw: paged_flash_decode(q, k, v, t, p - 1,
+                                                                             **kw),
+        "K6 last used block skipped": lambda q, k, v, t, p, **kw: paged_flash_decode(
+            q, k, v, t, p // BS * BS - 1, **kw)}
+    readings = {}
+    for int8, limit in ((False, PAGED_LOGITS_REL_L2), (True, PAGED_INT8_LOGITS_REL_L2)):
+        pool = paged.PagedKVPool.create(cfg, n_blocks, BS, torch.int8 if int8 else
+                                        torch.bfloat16, device="cuda")
+        full = []
+        for b, (tok, n) in enumerate(zip(prompts, lens)):
+            padded = torch.zeros((1, -(-n // BS) * BS), dtype=torch.int32, device="cuda")
+            padded[0, :n] = tok[0]
+            full.append(paged.paged_prefill(params, cfg, padded, n - 1, pool, tables[b])[0])
+        kind = "int8" if int8 else "bf16"
+        readings[f"{kind} shared prefill"] = shared_prefill_err(
+            params, cfg, pool, prompts[0], tables[0], spare, full[0], kind)
+
+        def run(impl, feed, fault=None):
+            work = paged.PagedKVPool(*(t.clone() for t in pool.buffers()))
+            out, toks = [], torch.tensor([[7], [9]], dtype=torch.int32, device="cuda")
+            with (planted_paged_fault(fault) if fault else contextlib.nullcontext()):
+                for step in range(4):
+                    if feed is not None:
+                        toks = feed[step]
+                    positions = torch.tensor([n + step for n in lens], dtype=torch.int32,
+                                             device="cuda")
+                    logits, _ = paged.paged_decode_step(params, cfg, toks, positions, work,
+                                                        tables, impl)
+                    out.append(logits)
+                    toks = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            return out
+
+        plain = run("plain", None)
+        feed = [torch.tensor([[7], [9]], dtype=torch.int32, device="cuda")] + [
+            torch.argmax(lg, -1).to(torch.int32)[:, None] for lg in plain[:-1]]
+        reset_counts()
+        flash = run("flash", feed)
+        counts = read_counts()
+        want = {"K6i8" if int8 else "K6": 4 * cfg.n_layers}
+        if {k: n for k, n in counts.items() if n} != want:
+            check_failed(f"2-layer paged {kind} decode launched {counts}, expected {want}")
+        readings[kind] = [logits_err(got, ref, limit, f"2-layer paged {kind} decode step "
+                                     f"{step} logits, K6 vs gather")
+                          for step, (got, ref) in enumerate(zip(flash, plain))]
+        for name, fault in faults.items():
+            for step, (got, ref) in enumerate(zip(run("flash", feed, fault), plain)):
+                logits_err(got, ref, limit, f"2-layer paged {kind} decode step {step} "
+                           f"logits, {name}", planted=True)
+        del pool
+
+    cycle = 8
+    model = LoadedModel(params=cyclic_params(params, cycle), cfg=cfg, vocab=vocab,
+                        mergeable_ranks=tk.mergeable_ranks, tensor_meta={})
+    engine = InferenceEngine(model, InferenceArgs(sequence_length=512), device="cuda")
+    requests = [(list(range(cycle)) * 3, 40), ([3, 4, 5], 24), (list(range(cycle)) * 9, 33),
+                ([6, 7], 12)]
+    expect = [[(p[-1] + 1 + i) % cycle for i in range(n)] for p, n in requests]
+    seq = [[t for _, t in engine.generate_tokens(p, max_new_tokens=n)] for p, n in requests]
+    if seq != expect:
+        fail(f"cyclic model, sequential engine: {seq}, expected {expect}")
+    for name, batcher, tag in (
+            ("paged batcher", PagedBatcher(engine, n_slots=2, n_blocks=33), "K6"),
+            ("dense batcher", ContinuousBatcher(engine, n_slots=2), "K2")):
+        reset_counts()
+        reqs = [batcher.submit(p, max_new_tokens=n) for p, n in requests]
+        batcher.run_until_idle()
+        torch.cuda.synchronize()
+        got = [[t for _, t in r.tokens(timeout=60)] for r in reqs]
+        counts = read_counts()
+        if got != seq:
+            fail(f"cyclic model, {name}: {got}, sequential engine {seq}")
+        if counts[tag] != cfg.n_layers * batcher.decode_steps:
+            check_failed(f"cyclic model, {name}: {counts}, expected {tag} = "
+                         f"{cfg.n_layers} x {batcher.decode_steps} steps")
+        log(f"cyclic 2-layer model, {name}: {len(reqs)} requests on 2 slots, tokens equal "
+            f"the sequential engine's; {batcher.decode_steps} steps, launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        del batcher
+    del params, model, engine
+    torch.cuda.empty_cache()
+    return readings
+
+
+def sse_request(url, body, stream):
+    """One POST; returns (status, text, seconds to the first non-empty chunk
+    or to the whole response, seconds to the end, and the completion tokens,
+    or for a stream its chunks)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if not stream:
+            out = json.loads(resp.read())
+            t = time.perf_counter() - t0
+            choice = out["choices"][0]
+            text = choice["message"]["content"] if "message" in choice else choice["text"]
+            return resp.status, text, t, t, out["usage"]["completion_tokens"]
+        text, t_first, n_chunks = "", None, 0
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            choice = json.loads(line[6:])["choices"][0]
+            piece = choice["delta"]["content"] if "delta" in choice else choice["text"]
+            if t_first is None and piece:
+                t_first = time.perf_counter() - t0
+            text += piece
+            n_chunks += 1
+        return resp.status, text, t_first, time.perf_counter() - t0, n_chunks
+
+
+LONG_LOG = " ".join(
+    f"At {h // 2:02d}:{h % 2 * 30:02d} the ship held course two-seven-zero at twelve knots, "
+    f"wind north-west force {h % 9 + 1}, swell {h % 4 + 2} metres; deck cargo lashed and dry."
+    for h in range(24))
+LONG_PROMPT_TOKENS = (1536, SERVE_CONTEXT - 64)   # > 3 of K6's 512-key spans; + 64 new
+
+
+def serving_requests(int8: bool):
+    """The served traffic: greedy chat streamed and blocking on one prompt,
+    two chats that share a system prompt of more than two blocks, one seeded
+    sampled completion sent twice, a long chat (a watch log of ~1,850 tokens,
+    64 new: K6 walks four 512-key spans and the request grows blocks near
+    the context's end), and more requests than slots. Chat A's
+    prompt fits in one block, so neither copy can revive the other's blocks:
+    both prefill alike whichever is admitted first, and a random model's
+    near-tied greedy tokens cannot part on a prefix-cache hit's suffix-only
+    prefill (another summation order)."""
+    ship = ("You are the navigator of a cargo ship crossing the North Atlantic in "
+            "winter. Answer every question with the ship's position, the weather, the "
+            "state of the sea and the cargo, in plain sentences, and end with the watch. ")
+
+    def chat(system, user, **kw):
+        messages = [{"role": "system", "content": system}] if system else []
+        return "/v1/chat/completions", {
+            "messages": messages + [{"role": "user", "content": user}], "max_tokens": 48,
+            **kw}
+
+    done = {"prompt": "The quick brown fox", "max_tokens": 48, "temperature": 0.8,
+            "top_p": 0.95, "seed": 1234}
+    reqs = [("chat A, stream", *chat(None, "Where are we?", stream=True), True),
+            ("chat A, blocking", *chat(None, "Where are we?"), False),
+            ("chat B, shared system prompt", *chat(ship, "How is the cargo?",
+                                                    stream=True), True),
+            ("chat B2, shared system prompt", *chat(ship, "What is the weather?",
+                                                     stream=True), True),
+            ("sampled, seed 1234 (1)", "/v1/completions", dict(done, stream=True), True),
+            ("sampled, seed 1234 (2)", "/v1/completions", dict(done, stream=True), True),
+            ("long chat, watch log", *chat(None, LONG_LOG + " Summarise the watch.",
+                                           max_tokens=64, stream=True), True)]
+    if not int8:
+        reqs += [("chat C", *chat("You are a terse assistant.", "Name three rivers.",
+                                  stream=True), True),
+                 ("completion D", "/v1/completions", {"prompt": "Once upon a time",
+                                                      "max_tokens": 64, "stream": True},
+                  True),
+                 ("completion E, logprobs", "/v1/completions",
+                  {"prompt": "The capital of France is", "max_tokens": 32,
+                   "logprobs": 2}, False)]
+    return reqs
+
+
+class AllocatorClock:
+    """The paged batcher's host allocator under a clock: the host time of
+    every call into it (and of the prefix hashing) from ``start()`` on, and
+    the op stream from the batcher's start, which ``replay_ms`` runs again
+    on a fresh allocator of either backend."""
+
+    OPS = ("alloc", "release", "free", "lookup", "register")
+
+    def __init__(self, batcher):
+        from llama_nuts_and_bolts_tpu_torch.runtime import paged as mod
+
+        self.mod, self.alloc = mod, batcher.allocator
+        self.n_blocks, self.bs = batcher.allocator.n_blocks, batcher.block_size
+        self.ops, self.seconds, self.calls, self.hash_seconds = [], 0.0, 0, 0.0
+        for name in self.OPS:
+            setattr(self.alloc, name, self._timed(name, getattr(self.alloc, name)))
+        self.hashes = mod.chain_block_hashes
+        mod.chain_block_hashes = self._hash
+
+    def _timed(self, name, fn):
+        def call(*args):
+            args = tuple(list(a) if isinstance(a, list) else a for a in args)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.ops.append((name, args, out))
+            return out
+        return call
+
+    def _hash(self, *args):
+        t0 = time.perf_counter()
+        out = self.hashes(*args)
+        self.hash_seconds += time.perf_counter() - t0
+        return out
+
+    def start(self):
+        self.seconds, self.calls, self.hash_seconds = 0.0, 0, 0.0
+
+    def stop(self):
+        for name in self.OPS:
+            delattr(self.alloc, name)
+        self.mod.chain_block_hashes = self.hashes
+
+    def replay_ms(self, backend: str) -> float:
+        """The recorded op stream on a fresh allocator; fails if any call
+        returns another result than it did in the served run."""
+        from llama_nuts_and_bolts_tpu_torch.runtime.block_pool import PrefixBlockAllocator
+
+        fresh = PrefixBlockAllocator(self.n_blocks, self.bs, backend=backend)
+        ops = list(self.ops)
+        calls = [(getattr(fresh, name), args) for name, args, _ in ops]
+        t0 = time.perf_counter()
+        outs = [fn(*args) for fn, args in calls]
+        ms = (time.perf_counter() - t0) * 1e3
+        if outs != [out for *_, out in ops]:
+            fail(f"the served run's allocator op stream replays differently on {backend}")
+        return ms
+
+
+def profile_batched_step(batcher, steps: int = 8):
+    """Batched decode steps of the paged batcher with every slot busy: the
+    host clock per step without the profiler, then the device time under
+    torch.profiler -- the device's idle share and the kernels taking its
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = list(range(100, 100 + 3 * BS))
+    reqs = [batcher.submit(prompt, max_new_tokens=4 * steps + 4) for _ in range(batcher.n_slots)]
+    batcher.step()                                         # admit every slot
+    batcher.step()
+
+    def run():
+        for _ in range(steps):
+            batcher.step()
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    positions = batcher._pos.copy()
+    tables = batcher.tables.copy()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    for r in reqs:
+        r.cancel()
+    batcher.run_until_idle()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    ours = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / steps
+            for name in ("paged_decode_kernel", "paged_decode_int8_kernel")}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    log(f"batched decode step ({batcher.n_slots} slots, positions {positions.tolist()}): "
+        f"wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
+        f"({1 - device_ms / wall_ms:.1%} idle), "
+        f"{sum(e.count for e in kernels) // steps} kernels/step, K6 "
+        f"{max(ours.values()):.3f} ms/step")
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
+            f"{e.count // steps:5d} calls/step  {e.key[:90]}")
+    return dict(wall_ms=wall_ms, device_ms=device_ms, k6_ms=max(ours.values()),
+                kernels_per_step=sum(e.count for e in kernels) // steps,
+                top=[(e.key[:90], e.self_device_time_total / 1e3 / steps) for e in top]), \
+        torch.from_numpy(positions[:batcher.n_slots].copy()).cuda(), \
+        torch.from_numpy(tables).cuda()
+
+
+def serving_path(tk, vocab, int8: bool):
+    """The serving path at full width: Llama-3.1-8B, 32 layers, bf16 split
+    weights from seed 0, context 2048, 4 slots over a paged pool of 257
+    blocks (bf16, or int8 with attn_impl "flash": K6's int8 mode), through
+    LlamaHTTPServer.start_background on an ephemeral port, with the requests
+    of ``serving_requests`` sent from threads at once. Every launch count is
+    set to 0 after the warm-up request and read after the traffic."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel, init_random_params
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.serving.server import LlamaHTTPServer
+
+    kind = "int8 pool" if int8 else "bf16 pool"
+    cfg = cfg_8b(32)
+    t0 = time.perf_counter()
+    params = init_random_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"8B random init (split layout): {time.perf_counter() - t0:.1f}s")
+    model = LoadedModel(params=params, cfg=cfg, vocab=vocab,
+                        mergeable_ranks=tk.mergeable_ranks, tensor_meta={})
+    engine = InferenceEngine(model, InferenceArgs(
+        sequence_length=SERVE_CONTEXT, kv_cache_dtype="int8" if int8 else "bf16",
+        attn_impl="flash" if int8 else "auto"), device="cuda")
+    srv = LlamaHTTPServer(engine, continuous_slots=SERVE_SLOTS, paged_blocks=SERVE_BLOCKS)
+    batcher = srv.batcher
+    clock = AllocatorClock(batcher)
+    if batcher.attn_impl != "flash":
+        fail(f"serving, {kind}: the paged batcher chose {batcher.attn_impl!r}, not K6")
+    log(f"serving, {kind}: pool {SERVE_BLOCKS} blocks of {BS}, "
+        f"{sum(t.numel() * t.element_size() for t in batcher.pool.buffers()) / 2**30:.2f} "
+        f"GiB; prewarm {srv.prewarm():.1f}s")
+    url = f"http://127.0.0.1:{srv.start_background()}"
+    reqs = serving_requests(int8)
+    chat_a = len(srv._tokens_for_chat(reqs[0][2]["messages"]))
+    if chat_a > BS:
+        fail(f"serving, {kind}: chat A's prompt is {chat_a} tokens, more than one block")
+    long_len = len(srv._tokens_for_chat(
+        next(body for name, _, body, _ in reqs if name.startswith("long"))["messages"]))
+    if not LONG_PROMPT_TOKENS[0] <= long_len <= LONG_PROMPT_TOKENS[1]:
+        fail(f"serving, {kind}: the long chat's prompt is {long_len} tokens, outside "
+             f"{LONG_PROMPT_TOKENS}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock.start()
+    reset_counts()
+    steps0 = batcher.decode_steps
+    tokens0 = srv.metrics["tokens_generated_total"]
+    t_start = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(reqs)) as pool:
+        futures = [pool.submit(sse_request, url + path, body, stream)
+                   for _, path, body, stream in reqs]
+        results = [f.result() for f in futures]
+    wall = time.perf_counter() - t_start
+    torch.cuda.synchronize()
+    counts = read_counts()
+    clock.stop()
+    steps = batcher.decode_steps - steps0
+    peak = torch.cuda.max_memory_allocated()
+    metrics = srv.render_metrics()
+    hits = float(next(line.split()[1] for line in metrics.splitlines()
+                      if line.startswith("llama_prefix_cache_hits_total ")))
+    out = {"requests": {}, "decode_steps": steps, "wall_s": wall,
+           "peak_memory_gib": peak / 2**30, "prefix_hits": hits, "launches": counts}
+    tokens = srv.metrics["tokens_generated_total"] - tokens0
+    for (name, _, _, stream), (status, text, t_first, t_end, n) in zip(reqs, results):
+        out["requests"][name] = dict(status=status, ttft_ms=t_first * 1e3,
+                                     end_ms=t_end * 1e3, tokens_or_chunks=n)
+        log(f"serving, {kind}, {name}: status {status}, {n} {'chunks' if stream else 'tokens'}, "
+            f"{'TTFT' if stream else 'response'} {t_first * 1e3:.1f} ms, end "
+            f"{t_end * 1e3:.1f} ms; text[:50]={text[:50]!r}")
+        if status != 200 or not text:
+            fail(f"serving, {kind}, {name}: status {status}, text {text!r}")
+    out["aggregate_tok_s"] = tokens / wall
+    texts = {name: res[1] for (name, *_), res in zip(reqs, results)}
+    if texts["chat A, stream"] != texts["chat A, blocking"]:
+        fail(f"serving, {kind}: streamed {texts['chat A, stream']!r} != blocking "
+             f"{texts['chat A, blocking']!r}")
+    if texts["sampled, seed 1234 (1)"] != texts["sampled, seed 1234 (2)"]:
+        fail(f"serving, {kind}: the seeded sampled request changed its text")
+    if hits < 1:
+        fail(f"serving, {kind}: /metrics shows {hits} prefix-cache hits")
+    tag = "K6i8" if int8 else "K6"
+    want = {tag: cfg.n_layers * steps}
+    if {k: n for k, n in counts.items() if n} != want:
+        check_failed(f"serving, {kind}: launches {counts} over {steps} batched decode "
+                     f"steps, expected {want}")
+    log(f"serving, {kind}: {len(reqs)} requests on {SERVE_SLOTS} slots in {wall:.2f}s, "
+        f"{tokens} tokens, aggregate {tokens / wall:.2f} tok/s, {steps} batched decode "
+        f"steps, launches { {k: n for k, n in counts.items() if n} } "
+        f"({cfg.n_layers} x {steps}), prefix-cache hits {hits:.0f}, peak device memory "
+        f"{peak / 2**30:.2f} GiB; the long chat's prompt {long_len} tokens")
+    from llama_nuts_and_bolts_tpu_torch.runtime.block_pool import native_available
+
+    replay = {b: clock.replay_ms(b) for b in ("python", "native")
+              if b == "python" or native_available()}
+    out["allocator"] = dict(backend=batcher.allocator.backend, calls=clock.calls,
+                            ms=clock.seconds * 1e3, hash_ms=clock.hash_seconds * 1e3,
+                            share_of_wall=(clock.seconds + clock.hash_seconds) / wall,
+                            ops_recorded=len(clock.ops), replay_ms=replay)
+    log(f"serving, {kind}: allocator ({batcher.allocator.backend}) {clock.calls} calls, "
+        f"{clock.seconds * 1e3:.3f} ms, prefix hashing {clock.hash_seconds * 1e3:.3f} ms: "
+        f"{out['allocator']['share_of_wall']:.3%} of the traffic's wall; the "
+        f"{len(clock.ops)} calls since the batcher's start replayed on a fresh allocator: "
+        + ", ".join(f"{b} {ms:.3f} ms" for b, ms in replay.items()))
+    srv.shutdown()
+    out["profile"], positions, tables = profile_batched_step(batcher)
+    rows = time_paged_kernels(batcher.pool, tables, positions, int8)
+    del srv, batcher, engine, model, params
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+def time_paged_kernels(pool, tables, positions, int8: bool):
+    """K6 (or its int8 mode) on the serving run's own pool, tables and
+    positions, cycling the 32 layers so that each launch reads from outside
+    L2; for a bf16 pool also K7 on the single-layer views and K5 on dense
+    single-layer caches of the context's length at the same positions. Each
+    beside its plain version, its bound and, for K6/K7, the gather path's
+    time (the plain decode attention, not one library call)."""
+    import torch.nn.functional as F
+
+    from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
+        flash_decode_attention, flash_decode_attention_plain)
+    from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
+        paged_chunk, paged_flash_decode, paged_flash_decode_int8_plain,
+        paged_flash_decode_plain)
+    from llama_nuts_and_bolts_tpu_torch.models.llama.paged import _gathered_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, M = tables.shape
+    L = pool.k.shape[0]
+    q = randn((B, 1, H, D), gen)
+    state = {"li": 0}
+
+    def cycled(fn):
+        def call():
+            state["li"] = (state["li"] + 1) % L
+            return fn(state["li"])
+        return call
+
+    shape = (f"B={B} L={L} n_blocks={pool.k.shape[1]} M={M} bs={BS} "
+             f"pos={positions.tolist()} H={H} KV={KV} D={D}")
+    pos_list = positions.tolist()
+    rows = []
+    scales = dict(pool_ks=pool.k_scale, pool_vs=pool.v_scale) if int8 else {}
+    # K6 with every row at the context's last position, over a scattered
+    # permutation of all B x M blocks: the pool full, as under long traffic
+    full_tables = scattered_tables(B, M, pool.k.shape[1], seed=11)
+    full_pos = torch.full((B,), M * BS - 1, dtype=torch.int32, device="cuda")
+    full_ms, _ = cuda_ms(cycled(lambda li: paged_flash_decode(
+        q, pool.k, pool.v, full_tables, full_pos, layer=li, **scales)), iters=64)
+    full_bound = bound_ms(*paged_work(full_pos.tolist(), int8))[0]
+    log(f"K6 {'int8' if int8 else 'bf16'}, every row at position {M * BS - 1}: "
+        f"{full_ms:.4f} ms (bound {full_bound:.4f} by bytes)")
+    full = dict(ms_full_context=full_ms, bound_ms_full_context=full_bound)
+    if int8:
+        ms, got = cuda_ms(cycled(lambda li: paged_flash_decode(
+            q, pool.k, pool.v, tables, positions, layer=li, **scales)), iters=64)
+        plain, _ = cuda_ms(lambda: paged_flash_decode_int8_plain(
+            q, pool.k, pool.v, pool.k_scale, pool.v_scale, tables, positions, 0),
+            iters=1, warmup=1)
+        gather, _ = cuda_ms(cycled(lambda li: _gathered_attention(
+            q, pool.k[li], pool.v[li], tables, positions, pool.k_scale[li],
+            pool.v_scale[li])), iters=16)
+        b_ms, b_by = bound_ms(*paged_work(pos_list, int8=True))
+        log(f"K6 int8 {shape}: {ms:.4f} ms (plain {plain:.2f}, gather path {gather:.4f}, "
+            f"bound {b_ms:.4f} by {b_by})")
+        rows.append(dict(tag="K6i8", name="paged_flash_decode, int8 pool (K6)", route="cuda",
+                         source="llama_nuts_and_bolts_tpu_torch/csrc/paged_attention.cu",
+                         replaces="llama_nuts_and_bolts_tpu/kernels/paged_attention.py:89",
+                         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, gather_path_ms=gather, shape=shape + " int8",
+                         **full))
+        return rows
+
+    chunk = paged_chunk(M, BS)
+    ms, _ = cuda_ms(cycled(lambda li: paged_flash_decode(q, pool.k, pool.v, tables,
+                                                         positions, layer=li)), iters=64)
+    plain, _ = cuda_ms(lambda: paged_flash_decode_plain(q, pool.k, pool.v, tables, positions,
+                                                        0, chunk), iters=1, warmup=1)
+    gather, _ = cuda_ms(cycled(lambda li: _gathered_attention(
+        q, pool.k[li], pool.v[li], tables, positions)), iters=16)
+    b_ms, b_by = bound_ms(*paged_work(pos_list, int8=False))
+    log(f"K6 bf16 {shape}: {ms:.4f} ms (plain {plain:.2f}, gather path {gather:.4f}, "
+        f"bound {b_ms:.4f} by {b_by})")
+    rows.append(dict(tag="K6", name="paged_flash_decode (K6)", route="cuda",
+                     source="llama_nuts_and_bolts_tpu_torch/csrc/paged_attention.cu",
+                     replaces="llama_nuts_and_bolts_tpu/kernels/paged_attention.py:89",
+                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     gather_path_ms=gather, shape=shape, **full))
+    ms, _ = cuda_ms(cycled(lambda li: paged_flash_decode(q, pool.k[li], pool.v[li], tables,
+                                                         positions, fold_heads=False)),
+                    iters=64)
+    plain, _ = cuda_ms(lambda: paged_flash_decode_plain(q, pool.k[:1], pool.v[:1], tables,
+                                                        positions, 0, 1), iters=1, warmup=1)
+    log(f"K7 {shape}, single-layer views: {ms:.4f} ms (plain {plain:.2f}, gather path "
+        f"{gather:.4f}, bound {b_ms:.4f} by {b_by})")
+    rows.append(dict(tag="K7", name="paged_flash_decode, fold_heads=False (K7)",
+                     route="cuda",
+                     source="llama_nuts_and_bolts_tpu_torch/csrc/paged_attention.cu",
+                     replaces="llama_nuts_and_bolts_tpu/kernels/paged_attention.py:44",
+                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     gather_path_ms=gather, shape=shape + " single-layer"))
+
+    # K5 on dense single-layer caches of the context's length, 32 of them
+    T = SERVE_CONTEXT
+    kc, vc = randn((L, B, KV, T, D), gen), randn((L, B, KV, T, D), gen)
+    ms, _ = cuda_ms(cycled(lambda li: flash_decode_attention(q, kc[li], vc[li], positions,
+                                                             blocked=False)), iters=64)
+    plain, _ = cuda_ms(lambda: flash_decode_attention_plain(q, kc[:1], vc[:1], positions, 0),
+                       iters=1, warmup=1)
+    visible = torch.arange(T, device="cuda")[None, None, None, :] <= \
+        positions.long()[:, None, None, None]
+    qt = q.transpose(1, 2)
+    lib, lib_out = cuda_ms(cycled(lambda li: F.scaled_dot_product_attention(
+        qt, kc[li], vc[li], attn_mask=visible, enable_gqa=True)), iters=64)
+    lib_rel = rel_l2(lib_out.transpose(1, 2), flash_decode_attention_plain(
+        q, kc[state["li"]:state["li"] + 1], vc[state["li"]:state["li"] + 1], positions, 0))
+    b_ms, b_by = bound_ms(*k2_work(pos_list, T))
+    log(f"K5 B={B} T={T} pos={pos_list}: {ms:.4f} ms (plain {plain:.2f}, sdpa {lib:.4f}, "
+        f"its output {lib_rel:.2e} relative L2 from K5's plain version; bound {b_ms:.4f} "
+        f"by {b_by})")
+    rows.append(dict(tag="K5", name="flash_decode_attention, blocked=False (K5)",
+                     route="cuda", source="llama_nuts_and_bolts_tpu_torch/csrc/decode_attention.cu",
+                     replaces="llama_nuts_and_bolts_tpu/kernels/decode_attention.py:205",
+                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                     shape=f"B={B} single-layer T={T} pos={pos_list} H={H} KV={KV} D={D}"))
+    del kc, vc
+    return rows
+
+
 def main() -> int:
     name, smi = setup()
     log("phase 2: kernels vs plain at 8B widths")
@@ -1201,15 +1914,34 @@ def main() -> int:
                               ((results,) * 2 + (qresults,) * 3)):
         row["launches"] = sum(runs[r]["launches"][tag] for r in ("A", "B", "C")
                               if r in runs)
+    log("phase 6: paged kernels K6 (bf16, int8), K7 and K5 vs plain at 8B widths")
+    errs.update(check_paged_kernels())
+    log("phase 7: 2-layer paged decode, K6 vs the gather path; cyclic batchers")
+    paged_readings = check_paged_model_path(tk, vocab)
+    log("phase 8: serving path, 32-layer 8B over HTTP, bf16 pool (K6)")
+    serving, srows = serving_path(tk, vocab, int8=False)
+    log("phase 9: serving path, 32-layer 8B over HTTP, int8 pool (K6's int8 mode)")
+    serving8, srows8 = serving_path(tk, vocab, int8=True)
+    # K6's launches are the serving runs'; K5 and K7 serve no path (0)
+    for row in srows + srows8:
+        tag = row.pop("tag")
+        row["max_abs_err"] = errs[tag]
+        row["launches"] = serving["launches"][tag] + serving8["launches"][tag]
+    rows += srows + srows8
+    rows.sort(key=lambda r: r["name"].split("(K")[-1])
     log(f"summary: {json.dumps(results)}")
     log(f"summary, quantized path: {json.dumps(qresults)}")
+    log(f"summary, paged 2-layer logits (relative L2 per step): {json.dumps(paged_readings)}")
+    log(f"summary, serving bf16 pool: {json.dumps(serving)}")
+    log(f"summary, serving int8 pool: {json.dumps(serving8)}")
     if FAILED:
         fail(f"{len(FAILED)} checks failed: " + "; ".join(FAILED))
     log(f"total {time.perf_counter() - T_START:.1f}s on {smi}")
     print(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "dense_bf16_mm_ms")
+            "dense_bf16_mm_ms", "gather_path_ms", "ms_full_context",
+            "bound_ms_full_context")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -19,7 +19,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_attention", "decode_attention", "decode_attention_int8", "q4_matmul")
+SOURCES = ("flash_attention", "decode_attention", "decode_attention_int8", "q4_matmul",
+           "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,8 +1,8 @@
-"""K2, K3, K4: S=1 flash decode attention over a stacked bf16 or int8 KV cache.
+"""K2, K3, K4, K5: S=1 flash decode attention over a bf16 or int8 KV cache.
 
-Port of ``llama_nuts_and_bolts_tpu/kernels/decode_attention.py::flash_decode_attention``
-with ``blocked=True``. Batch row ``b`` attends cache slots ``t <= start_pos[b]``
-of layer ``layer``; tiles past a row's position are never read. Three CUDA
+Port of ``llama_nuts_and_bolts_tpu/kernels/decode_attention.py::flash_decode_attention``.
+Batch row ``b`` attends cache slots ``t <= start_pos[b]`` of layer ``layer``;
+tiles past a row's position are never read. With ``blocked=True`` three CUDA
 kernels serve it, each with a plain PyTorch version beside it that CPU
 tensors take:
 
@@ -26,9 +26,18 @@ tensors take:
     take it from :func:`decode_block_k`; counted in
     ``flash_decode_attention_int8_mxu.launches``.
 
-``blocked=False`` (K5) is not ported yet: the wrapper raises on it. In
-PyTorch ``cache.k[li]`` is a free view, so the JAX ``layer`` prefetch scalar
-has no job left; ``layer=`` is kept so that both packages are called alike.
+K5, ``blocked=False`` (``_decode_kernel``), is the whole-head kernel over a
+single-layer ``[B, KV, T, D]`` cache (``layer=`` raises, as in the JAX
+package). Its function is K2's (K3's on an int8 cache, whose tiles the Pallas
+kernel dequantizes to ``bf16(f32(int8) * f32(scale))``, the same bf16 value):
+:func:`flash_decode_attention_whole_head` launches K2's or K3's kernel on a
+one-layer view of the cache and counts its own launches. Its Pallas tiles are
+``min(512, T)`` keys, K2's 64: only the partition of the online softmax
+differs, within the bf16 tolerance K2 is held to against JAX's tiles.
+
+In PyTorch ``cache.k[li]`` is a free view, so the JAX ``layer`` prefetch
+scalar has no job left; ``layer=`` is kept so that both packages are called
+alike.
 """
 
 from __future__ import annotations
@@ -108,10 +117,7 @@ def _positions(start_pos, B: int, device: torch.device) -> torch.Tensor:
     return start_pos.contiguous()
 
 
-def _check(q, k, v, k_scale, v_scale, blocked, layer):
-    if not blocked:
-        raise NotImplementedError("blocked=False is K5 (ROADMAP.md), not "
-                                  "ported yet")
+def _check(q, k, v, k_scale, v_scale, layer):
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"decode attention is the S=1 kernel: q [B,1,H,D], got "
                          f"{tuple(q.shape)}")
@@ -238,8 +244,8 @@ def _require_group(H: int, KV: int) -> None:
                          f"got {H // KV}")
 
 
-def _launch_k2(q, k, v, positions, layer) -> torch.Tensor:
-    """K2: the bf16 cache kernel."""
+def _k2_kernel(q, k, v, positions, layer) -> torch.Tensor:
+    """Launch the bf16 cache kernel (K2's, and K5's on a one-layer view)."""
     B, _, H, D = q.shape
     KV, T = k.shape[2], k.shape[3]
     _require_group(H, KV)
@@ -253,15 +259,11 @@ def _launch_k2(q, k, v, positions, layer) -> torch.Tensor:
                  out.data_ptr(), B, H, KV, T, layer, 1.0 / math.sqrt(D),
                  _stream(q.device))
     check_launch(err, "flash_decode_attention")
-    flash_decode_attention.launches += 1
     return out
 
 
-def flash_decode_attention_q8(q, k, v, k_scale, v_scale, positions,
-                              layer: int) -> torch.Tensor:
-    """K3: the int8 cache kernel (K2's, built for int8 tiles and their
-    per-position scales). Arguments as :func:`flash_decode_attention`'s,
-    already checked, with ``[B]`` int32 positions on the card."""
+def _k3_kernel(q, k, v, k_scale, v_scale, positions, layer) -> torch.Tensor:
+    """Launch the int8 cache kernel (K3's, and K5's on a one-layer view)."""
     B, _, H, D = q.shape
     KV, T = k.shape[2], k.shape[3]
     _require_group(H, KV)
@@ -275,7 +277,37 @@ def flash_decode_attention_q8(q, k, v, k_scale, v_scale, positions,
                  v_scale.data_ptr(), positions.data_ptr(), out.data_ptr(), B, H, KV,
                  T, layer, 1.0 / math.sqrt(D), _stream(q.device))
     check_launch(err, "flash_decode_attention_q8")
+    return out
+
+
+def _launch_k2(q, k, v, positions, layer) -> torch.Tensor:
+    """K2: the bf16 cache kernel."""
+    out = _k2_kernel(q, k, v, positions, layer)
+    flash_decode_attention.launches += 1
+    return out
+
+
+def flash_decode_attention_q8(q, k, v, k_scale, v_scale, positions,
+                              layer: int) -> torch.Tensor:
+    """K3: the int8 cache kernel (K2's, built for int8 tiles and their
+    per-position scales). Arguments as :func:`flash_decode_attention`'s,
+    already checked, with ``[B]`` int32 positions on the card."""
+    out = _k3_kernel(q, k, v, k_scale, v_scale, positions, layer)
     flash_decode_attention_q8.launches += 1
+    return out
+
+
+def flash_decode_attention_whole_head(q, k, v, positions, k_scale=None,
+                                      v_scale=None) -> torch.Tensor:
+    """K5: ``blocked=False`` over a single-layer cache lifted to a one-layer
+    stack (``[1, B, KV, T, D]``, scales ``[1, B, KV, T]``), on K2's kernel
+    for a bf16 cache and K3's for an int8 one. Arguments already checked,
+    ``[B]`` int32 positions on the card."""
+    if k.dtype == torch.int8:
+        out = _k3_kernel(q, k, v, k_scale, v_scale, positions, 0)
+    else:
+        out = _k2_kernel(q, k, v, positions, 0)
+    flash_decode_attention_whole_head.launches += 1
     return out
 
 
@@ -315,24 +347,32 @@ def flash_decode_attention(
     int8_mxu: bool = False,
     block_k: Optional[int] = None,
 ) -> torch.Tensor:
-    """Returns ``[B, 1, H, D]`` bf16. CUDA tensors launch K2, K3 or K4 as the
-    module docstring says; CPU tensors take the plain version of the same
-    function. ``block_k`` matters to K4's ``int8_mxu`` mode only: ``None``
-    takes the model's tile (:func:`decode_block_k`)."""
+    """Returns ``[B, 1, H, D]`` bf16. CUDA tensors launch K2, K3, K4 or K5
+    as the module docstring says; CPU tensors take the plain version of the
+    same function. ``block_k`` matters to K4's ``int8_mxu`` mode only:
+    ``None`` takes the model's tile (:func:`decode_block_k`). ``blocked=False``
+    (K5) takes a single-layer cache and ignores ``fold_heads``, as the JAX
+    function does."""
     if layer is None:
         k, v, layer = k[None], v[None], 0       # a one-layer stack, free view
         if k_scale is not None and v_scale is not None:
             k_scale, v_scale = k_scale[None], v_scale[None]
-    _check(q, k, v, k_scale, v_scale, blocked, layer)
+    elif not blocked:
+        raise ValueError("stacked-cache layer mode requires blocked=True")
+    _check(q, k, v, k_scale, v_scale, layer)
     B, _, H, D = q.shape
     KV, T = k.shape[2], k.shape[3]
     quantized = k.dtype == torch.int8
     positions = _positions(start_pos, B, q.device)
-    if fold_heads:
-        bk = decode_block_k(T, KV, D, quantized, block_k)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode attention runs on cuda or cpu tensors, got {q.device}")
     cpu = q.device.type == "cpu"
+    if not blocked:
+        if cpu:
+            return flash_decode_attention_plain(q, k, v, positions, 0, k_scale, v_scale)
+        return flash_decode_attention_whole_head(q, k, v, positions, k_scale, v_scale)
+    if fold_heads:
+        bk = decode_block_k(T, KV, D, quantized, block_k)
     if fold_heads and int8_mxu and quantized:
         if cpu:
             return flash_decode_attention_int8_mxu_plain(q, k, v, k_scale, v_scale,
@@ -349,3 +389,4 @@ def flash_decode_attention(
 flash_decode_attention.launches = 0
 flash_decode_attention_q8.launches = 0
 flash_decode_attention_int8_mxu.launches = 0
+flash_decode_attention_whole_head.launches = 0

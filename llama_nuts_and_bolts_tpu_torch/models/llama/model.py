@@ -1,7 +1,6 @@
 """Llama transformer forward pass over stacked per-layer weights.
 
-Port of ``llama_nuts_and_bolts_tpu/models/llama/model.py`` for a scalar
-``start_pos``:
+Port of ``llama_nuts_and_bolts_tpu/models/llama/model.py``:
 
   * per-layer weights are stacked to ``[n_layers, ...]`` as in the JAX
     package, and the block loop is a Python loop over layer views; weights
@@ -13,6 +12,9 @@ Port of ``llama_nuts_and_bolts_tpu/models/llama/model.py`` for a scalar
   * the cache is bf16, or int8 with a bf16 scale per (position, head)
     (``quantize_kv_rows``), quantized once as it is written;
   * cache slot ``t`` is visible to query row ``s`` iff ``t <= start_pos + s``;
+    ``start_pos`` may be an int32 ``[B]`` tensor, every batch row at its own
+    position (continuous batching): RoPE rows gathered per row, a per-row
+    mask, and the cache written at per-row offsets, in place;
   * bf16 activations, fp32 accumulation, fp32 norm statistics and softmax,
     fp32 logits.
 
@@ -45,6 +47,7 @@ from llama_nuts_and_bolts_tpu_torch.models.llama.rope import (
 )
 from llama_nuts_and_bolts_tpu_torch.ops import (
     attention_mask,
+    attention_mask_per_row,
     gqa_attention,
     linear,
     linear_t,
@@ -131,7 +134,7 @@ def forward(
     params: LlamaParams,
     cfg: ModelArgs,
     tokens: torch.Tensor,          # int [B, S] on the weights' device
-    start_pos: int,
+    start_pos,                     # int, or int32 [B] tensor (one position per row)
     cache: KVCache,
     attn_impl: str = "plain",
     logits_at: Optional[int] = None,
@@ -139,16 +142,30 @@ def forward(
     """One forward pass (prefill when S>1, decode step when S==1).
 
     Returns fp32 logits ``[B, S, vocab]`` (``[B, 1, vocab]`` when
-    ``logits_at`` picks one row) and ``cache``, written in place."""
+    ``logits_at`` picks one row) and ``cache``, written in place. A ``[B]``
+    ``start_pos`` runs on the plain path at any S and on the decode kernels
+    at S=1, as in the JAX package; its rows' positions plus S must fit the
+    cache (checked for CPU tensors; the batchers keep them in range)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    if not isinstance(start_pos, int):
-        raise TypeError("start_pos must be an int (per-row positions come with "
-                        "continuous batching, a later slice)")
     B, S = tokens.shape
     H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     T = cache.max_seq
-    if start_pos + S > T:
+    per_row = isinstance(start_pos, torch.Tensor)
+    if per_row:
+        if start_pos.dtype != torch.int32 or start_pos.shape != (B,):
+            raise TypeError(f"a per-row start_pos is an int32 [B={B}] tensor, got "
+                            f"{start_pos.dtype} {tuple(start_pos.shape)}")
+        if attn_impl != "plain" and S != 1:
+            raise ValueError("vector start_pos requires attn_impl='plain' (or "
+                             "'flash'/'flash_folded' at S=1)")
+        if start_pos.device.type == "cpu" and (
+                int(start_pos.min()) < 0 or int(start_pos.max()) + S > T):
+            raise ValueError(f"positions {start_pos.tolist()} + {S} exceed the cache "
+                             f"length {T}")
+    elif not isinstance(start_pos, int):
+        raise TypeError("start_pos must be an int or an int32 [B] tensor")
+    elif start_pos + S > T:
         raise ValueError(f"positions {start_pos}..{start_pos + S} exceed the "
                          f"cache length {T}")
     if attn_impl == "flash_folded" and S != 1:
@@ -163,11 +180,30 @@ def forward(
     flash = attn_impl in ("flash", "flash_folded")
 
     x = params.tok_embeddings[tokens.long()]                    # [B,S,dim] bf16
-    cos = params.rope_cos[start_pos:start_pos + S]
-    sin = params.rope_sin[start_pos:start_pos + S]
-    mask = None if flash else attention_mask(S, T, start_pos, x.device)[None]
-    positions = (torch.full((B,), start_pos, dtype=torch.int32, device=x.device)
-                 if flash and S == 1 else None)
+    dev = x.device
+    if per_row:
+        # [B, S] write/attend positions of every row; RoPE rows gathered per row
+        rows_at = start_pos.to(dev).long()[:, None] + torch.arange(S, device=dev)
+        cos, sin = params.rope_cos[rows_at], params.rope_sin[rows_at]
+        mask = None if flash else attention_mask_per_row(S, T, start_pos.to(dev))
+        positions = start_pos.to(dev).contiguous()
+        batch_at = torch.arange(B, device=dev)[:, None]
+    else:
+        cos = params.rope_cos[start_pos:start_pos + S]
+        sin = params.rope_sin[start_pos:start_pos + S]
+        mask = None if flash else attention_mask(S, T, start_pos, dev)[None]
+        positions = (torch.full((B,), start_pos, dtype=torch.int32, device=dev)
+                     if flash and S == 1 else None)
+
+    def write(buf: torch.Tensor, li: int, rows: torch.Tensor) -> None:
+        """``rows [B, S, KV(, D)]`` into ``buf [L, B, KV, T(, D)]`` at the
+        rows' positions, in place: only the S new rows are written."""
+        if per_row:
+            # the advanced indices (batch, position) are split by the KV slice,
+            # so their [B, S] dims lead: the target is [B, S, KV(, D)] as rows
+            buf[li][batch_at, :, rows_at] = rows.to(buf.dtype)
+        else:
+            buf[li, :, :, start_pos:start_pos + S] = rows.transpose(1, 2)
 
     for li in range(cfg.n_layers):
         w = {name: t[li] for name, t in params.layers.items()}
@@ -183,18 +219,16 @@ def forward(
             v = linear(h, w["wv"]).reshape(B, S, KV, D)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        # in place: only the S new rows of this layer are written
-        rows = slice(start_pos, start_pos + S)
         if quantized:
             kq, ks = quantize_kv_rows(k)
             vq, vs = quantize_kv_rows(v)
-            cache.k[li, :, :, rows] = kq.transpose(1, 2)
-            cache.v[li, :, :, rows] = vq.transpose(1, 2)
-            cache.k_scale[li, :, :, rows] = ks.transpose(1, 2)
-            cache.v_scale[li, :, :, rows] = vs.transpose(1, 2)
+            write(cache.k, li, kq)
+            write(cache.v, li, vq)
+            write(cache.k_scale, li, ks)
+            write(cache.v_scale, li, vs)
         else:
-            cache.k[li, :, :, rows] = k.transpose(1, 2)
-            cache.v[li, :, :, rows] = v.transpose(1, 2)
+            write(cache.k, li, k)
+            write(cache.v, li, v)
 
         if flash and S == 1:
             att = flash_decode_attention(q, cache.k, cache.v, positions,

@@ -61,11 +61,12 @@ def precompute_rope_tables(
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate ``x[B, S, H, D]`` by per-position tables ``cos/sin[S, D//2]``
-    (one position per sequence row, shared by the batch)."""
+    (one position per sequence row, shared by the batch) or ``[B, S, D//2]``
+    (every batch row at its own positions)."""
     B, S, H, D = x.shape
     x32 = x.float().reshape(B, S, H, D // 2, 2)
     re, im = x32[..., 0], x32[..., 1]
-    c = cos[None, :, None, :]
-    s = sin[None, :, None, :]
+    c = cos[..., None, :] if cos.dim() == 3 else cos[None, :, None, :]
+    s = sin[..., None, :] if sin.dim() == 3 else sin[None, :, None, :]
     out = torch.stack([re * c - im * s, re * s + im * c], dim=-1)
     return out.reshape(B, S, H, D).to(x.dtype)

@@ -29,6 +29,18 @@ def attention_mask(seq_len: int, cache_len: int, start_pos: int,
     return torch.where(visible, 0.0, float("-inf")).to(torch.float32)
 
 
+def attention_mask_per_row(seq_len: int, cache_len: int,
+                           start_pos: torch.Tensor) -> torch.Tensor:
+    """Per-row variant for a ``[B]`` ``start_pos`` (continuous batching):
+    ``[B, seq_len, cache_len]``, row ``b`` sees slot ``t`` iff
+    ``t <= start_pos[b] + s``."""
+    dev = start_pos.device
+    rows = torch.arange(seq_len, device=dev)[None, :, None]
+    cols = torch.arange(cache_len, device=dev)[None, None, :]
+    visible = cols <= rows + start_pos.long()[:, None, None]
+    return torch.where(visible, 0.0, float("-inf")).to(torch.float32)
+
+
 def gqa_attention(
     q: torch.Tensor,            # [B, S, n_heads, head_dim]
     k: torch.Tensor,            # [B, kv_heads, T, head_dim]  (cache layout)

@@ -1,0 +1,255 @@
+"""Paged continuous batching: block-pool memory management for the scheduler.
+
+Port of ``llama_nuts_and_bolts_tpu/runtime/paged.py`` (without speculation,
+ROADMAP item 12). ``PagedBatcher`` replaces the dense batcher's per-slot
+cache rows with a shared block pool (``models/llama/paged.py``): a request
+holds ``pos // bs + 1`` blocks at any moment, takes them as it decodes and
+returns them the moment it finishes.
+
+Scheduling policy (host side, O(slots) per step):
+  * admission needs ``prompt_len // bs + 1`` blocks (prompt + the next write
+    position), fewer when the prefix cache revives already-resident prompt
+    blocks; requests that do not fit wait in FIFO order, never preempting;
+  * decode growth takes one block each time a request crosses a block
+    boundary, at dispatch time; if the pool is dry then, the request ends
+    gracefully after its current token (FINISHED_BY_REACHING_SEQ_LEN);
+  * free slots keep stepping with a pad token into the TRASH block;
+  * ``submit`` refuses a prompt the pool can never hold.
+"""
+
+from __future__ import annotations
+
+import math
+import queue
+from collections import deque
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from llama_nuts_and_bolts_tpu_torch.models.llama.paged import (
+    DEFAULT_BLOCK_SIZE,
+    TRASH_BLOCK,
+    PagedKVPool,
+    paged_decode_step,
+    paged_prefill,
+    paged_prefill_shared,
+)
+from llama_nuts_and_bolts_tpu_torch.runtime.block_pool import (
+    PrefixBlockAllocator,
+    chain_block_hashes,
+)
+from llama_nuts_and_bolts_tpu_torch.runtime.continuous import ContinuousBatcher, Request
+from llama_nuts_and_bolts_tpu_torch.runtime.types import GenerationState
+
+
+class BlockAllocator:
+    """Free-list allocator over pool block ids (block 0 is reserved trash)."""
+
+    def __init__(self, n_blocks: int, block_size: int) -> None:
+        self.n_blocks = n_blocks
+        self.block_size = block_size
+        self._free: deque[int] = deque(range(1, n_blocks))
+
+    @property
+    def available(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n blocks, or None (all-or-nothing) if the pool can't supply them."""
+        if n < 0 or len(self._free) < n:
+            return None
+        return [self._free.popleft() for _ in range(n)]
+
+    def free(self, blocks: List[int]) -> None:
+        for b in blocks:
+            if not 0 < b < self.n_blocks:
+                raise ValueError(f"freeing invalid block id {b}")
+        self._free.extend(blocks)
+
+
+def default_attn_impl(engine) -> str:
+    """An engine forced to ``"plain"`` or to the kernels (``"flash"``,
+    ``"flash_folded"``) forces the pool's path too; ``"auto"`` takes the JAX
+    package's rule (``runtime/paged.py:204-221`` there): K6 (``"flash"``) for
+    a bf16 pool on a card whose model fits the kernels, else the gather path
+    (``"plain"``)."""
+    forced = engine.args.attn_impl
+    if forced != "auto":
+        return "plain" if forced == "plain" else "flash"
+    card = engine.device.type == "cuda" and engine._kernels_viable()
+    return "flash" if card and engine.args.kv_cache_dtype != "int8" else "plain"
+
+
+class PagedBatcher(ContinuousBatcher):
+    """Continuous batcher over a paged KV pool.
+
+    ``n_blocks`` sizes the pool (default: every slot at full context);
+    ``attn_impl`` picks the decode attention: ``"flash"`` runs K6, which
+    streams only the blocks a row owns; ``"plain"`` gathers them (the oracle,
+    and the CPU's path). The default is :func:`default_attn_impl`: on a card
+    a bf16 pool takes ``"flash"`` and an int8 pool ``"plain"`` unless the
+    engine forces one (``"flash"`` on an int8 pool runs K6's int8 mode); on
+    the CPU, ``"plain"``."""
+
+    def __init__(self, engine, n_slots: int = 8,
+                 n_blocks: Optional[int] = None,
+                 block_size: int = DEFAULT_BLOCK_SIZE,
+                 attn_impl: Optional[str] = None,
+                 prefix_cache: bool = True,
+                 allocator_backend: str = "auto",
+                 speculate_k: int = 0,
+                 step_quantum: Optional[int] = None) -> None:
+        self._init_common(engine, n_slots, speculate_k, step_quantum)
+        kv_is_int8 = engine.args.kv_cache_dtype == "int8"
+        attn_impl = attn_impl or default_attn_impl(engine)
+        if attn_impl not in ("plain", "flash"):
+            raise ValueError(f"attn_impl must be 'plain' or 'flash', got {attn_impl!r}")
+        self.attn_impl = attn_impl
+        self.block_size = block_size
+        self.max_blocks = math.ceil(self.seq_len / block_size)
+        if n_blocks is None:
+            n_blocks = 1 + n_slots * self.max_blocks
+        self.pool = PagedKVPool.create(self.cfg, n_blocks, block_size,
+                                       torch.int8 if kv_is_int8 else torch.bfloat16,
+                                       device=self.device)
+        self.prefix_cache = prefix_cache
+        self.allocator = PrefixBlockAllocator(n_blocks, block_size,
+                                              backend=allocator_backend)
+        self.tables = np.full((n_slots, self.max_blocks), TRASH_BLOCK, np.int32)
+        self._slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
+        self._stalled: deque[Request] = deque()   # admission order, pool-starved
+        self._pos_cap = self.max_blocks * block_size - 1
+
+    def submit(self, prompt_tokens, **kwargs):
+        """Refuse prompts the pool can NEVER hold: they would wait at the
+        FIFO head forever and wedge every request behind them."""
+        need = len(list(prompt_tokens)) // self.block_size + 1
+        capacity = self.allocator.n_blocks - 1
+        if need > capacity:
+            raise ValueError(
+                f"prompt needs {need} KV blocks but the pool only has "
+                f"{capacity}; raise --paged-blocks or shorten the prompt")
+        return super().submit(prompt_tokens, **kwargs)
+
+    @property
+    def has_work(self) -> bool:
+        return super().has_work or bool(self._stalled)
+
+    # ------------------------------------------------------------ internal
+
+    def _next_waiting(self) -> Optional[Request]:
+        if self._stalled:
+            return self._stalled.popleft()
+        try:
+            return self.pending.get_nowait()
+        except queue.Empty:
+            return None
+
+    def _release_slot(self, slot: int) -> None:
+        self.allocator.free(self._slot_blocks[slot])
+        self._slot_blocks[slot] = []
+        self.tables[slot, :] = TRASH_BLOCK
+        super()._release_slot(slot)
+
+    def _admit(self) -> None:
+        from llama_nuts_and_bolts_tpu_torch.runtime.engine import prefill_bucket
+
+        bs = self.block_size
+        params = self.engine.model.params
+        for slot in range(self.n_slots):
+            if self.slots[slot] is not None:
+                continue
+            req = self._next_waiting()
+            if req is None:
+                return
+            if req.cancelled:
+                req.out.put((GenerationState.CANCELLED, -1))
+                continue
+            plen = len(req.prompt)
+            total_needed = plen // bs + 1                  # prompt + next write
+            # prefix-cache probe: revive the longest run of resident full
+            # prompt blocks, keeping >= 1 suffix token for the logits row
+            shared: List[int] = []
+            hashes: List[int] = []
+            if self.prefix_cache:
+                hashes = chain_block_hashes(req.prompt, bs)
+                for h in hashes[:(plen - 1) // bs]:
+                    b = self.allocator.lookup(h)
+                    if b is None:
+                        break
+                    shared.append(b)
+            owned = self.allocator.alloc(total_needed - len(shared))
+            if owned is None:
+                # FIFO: wait for frees; nothing behind this request may jump it
+                if shared:
+                    self.allocator.release(shared)
+                self._stalled.appendleft(req)
+                return
+            blocks = shared + owned
+            shared_len = len(shared) * bs
+            self._slot_blocks[slot] = blocks
+            self.tables[slot, :] = TRASH_BLOCK
+            self.tables[slot, :len(blocks)] = blocks
+            # prefill length: the bucket rounded up to whole blocks
+            suffix = req.prompt[shared_len:]
+            bucket = prefill_bucket(len(suffix), self.seq_len)
+            bucket = min(-(-bucket // bs) * bs, self.max_blocks * bs)
+            padded = torch.zeros((1, bucket), dtype=torch.int32)
+            padded[0, :len(suffix)] = torch.tensor(suffix, dtype=torch.int32)
+            padded = padded.to(self.device)
+            # .copy(): the table row mutates under later bookkeeping
+            table_row = torch.from_numpy(self.tables[slot].copy()).to(self.device)
+            self._set_sampling(slot, req)
+            if shared:
+                logits, _ = paged_prefill_shared(params, self.cfg, padded, shared_len,
+                                                 len(suffix) - 1, self.pool, table_row)
+            else:
+                logits, _ = paged_prefill(params, self.cfg, padded, plen - 1, self.pool,
+                                          table_row)
+            # the sampled token's global position: a cache hit never changes
+            # a seeded stream
+            first, lp = self._sample(logits, [slot], [plen - 1])
+            if self.prefix_cache:
+                # full prompt blocks this request filled become shareable;
+                # decode-grown blocks never do (unhashed)
+                for bi in range(len(shared), plen // bs):
+                    self.allocator.register(hashes[bi], blocks[bi])
+            self._occupy(slot, req, first, lp)
+
+    def _advance_quantum(self, k: int):
+        """Advance every slot ``k`` positions and back each active slot's new
+        write positions with blocks before the quantum is dispatched.
+        ``force[j][slot]`` means the pool could not back the position after
+        step j's token, which is then that request's last (later tokens are
+        dropped; their writes went to the trash block)."""
+        bs = self.block_size
+        fed = np.zeros((k, self.n_slots), np.int32)
+        epos = np.zeros((k, self.n_slots), np.int32)
+        force = [[False] * self.n_slots for _ in range(k)]
+        for j in range(k):
+            fed[j] = self._pos
+            for slot in range(self.n_slots):
+                self._pos[slot] = min(int(self._pos[slot]) + 1, self._pos_cap)
+                epos[j, slot] = self._pos[slot]
+                if self.slots[slot] is None:
+                    continue
+                bi = int(self._pos[slot]) // bs
+                if bi >= len(self._slot_blocks[slot]) and bi < self.max_blocks:
+                    grown = self.allocator.alloc(1)
+                    if grown is None:
+                        force[j][slot] = True
+                    else:
+                        self._slot_blocks[slot].extend(grown)
+                        self.tables[slot, bi] = grown[0]
+        return fed, epos, force
+
+    def _quantum_state(self):
+        # the tables as the quantum's growth left them (.copy(): they mutate
+        # under later bookkeeping while the quantum may still run)
+        return torch.from_numpy(self.tables.copy()).to(self.device)
+
+    def _step_logits(self, toks, positions, tables) -> torch.Tensor:
+        logits, _ = paged_decode_step(self.engine.model.params, self.cfg, toks,
+                                      positions, self.pool, tables, self.attn_impl)
+        return logits

@@ -1,6 +1,6 @@
-"""CUDA kernels K1, K2, K3, K4 and K8 of the PyTorch port against their
-plain versions at Llama-3.1-8B widths (H=32, KV=8, D=128, dim 4096, ffn
-14336). Marked ``gpu``: each test skips inside its fixture when there is no
+"""CUDA kernels K1 to K8 of the PyTorch port against their plain versions
+at Llama-3.1-8B widths (H=32, KV=8, D=128, dim 4096, ffn 14336; pool blocks
+of 32 positions). Marked ``gpu``: each test skips inside its fixture when there is no
 card. Imports only torch and the port, so it runs on a machine without JAX:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
@@ -20,6 +20,15 @@ from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
     flash_decode_attention_int8_mxu_plain,
     flash_decode_attention_plain,
     flash_decode_attention_q8,
+    flash_decode_attention_whole_head,
+)
+from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
+    paged_chunk,
+    paged_flash_decode,
+    paged_flash_decode_int8,
+    paged_flash_decode_int8_plain,
+    paged_flash_decode_per_head,
+    paged_flash_decode_plain,
 )
 from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import q4_matmul, q4_matmul_plain
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import quantize_kv_rows
@@ -148,7 +157,7 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = rand((1, 1, H, D), gen, cuda)
     k = rand((1, 1, KV, 64, D), gen, cuda)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="blocked=True"):   # K5 is single-layer
         flash_decode_attention(q, k, k, 3, layer=0, blocked=False)
     with pytest.raises(ValueError):                 # an int8 cache without scales
         flash_decode_attention(q, k.to(torch.int8), k.to(torch.int8), 3, layer=0)
@@ -165,3 +174,89 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         flash_gqa_attention(q, k[0].transpose(2, 3).contiguous().transpose(2, 3),
                             k[0], 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True])
+def test_k5_kernel_matches_plain(cuda, quantized):
+    """blocked=False over a single-layer cache: K2's kernel (K3's for an int8
+    cache) on a one-layer view, counted as K5."""
+    gen = torch.Generator(device=cuda).manual_seed(5 + quantized)
+    B, T = 3, 1024
+    q = rand((B, 1, H, D), gen, cuda)
+    pos = torch.tensor([0, 511, 1023], dtype=torch.int32, device=cuda)
+    if quantized:
+        k, ks = int8_cache((B, KV, T, D), gen, cuda)
+        v, vs = int8_cache((B, KV, T, D), gen, cuda)
+        scales = dict(k_scale=ks, v_scale=vs)
+        ref = flash_decode_attention_plain(q, k[None], v[None], pos, 0, ks[None], vs[None])
+    else:
+        k, v = rand((B, KV, T, D), gen, cuda), rand((B, KV, T, D), gen, cuda)
+        scales = {}
+        ref = flash_decode_attention_plain(q, k[None], v[None], pos, 0)
+    before = (flash_decode_attention_whole_head.launches, flash_decode_attention.launches,
+              flash_decode_attention_q8.launches)
+    got = flash_decode_attention(q, k, v, pos, blocked=False, **scales)
+    torch.cuda.synchronize()
+    assert (flash_decode_attention_whole_head.launches, flash_decode_attention.launches,
+            flash_decode_attention_q8.launches) == (before[0] + 1, before[1], before[2])
+    assert_matches(got, ref)
+
+
+def paged_case(gen, device, B, M, n_blocks, L, positions, dtype=torch.bfloat16):
+    """Pools with a seeded scatter of blocks: row b's table is a slice of one
+    permutation of the pool's blocks 1..n_blocks-1 (block 0 is trash)."""
+    bs = 32
+    shape = (L, n_blocks, KV, bs, D)
+    if dtype == torch.int8:
+        pk, pks = int8_cache(shape, gen, device)
+        pv, pvs = int8_cache(shape, gen, device)
+    else:
+        pk, pv = rand(shape, gen, device), rand(shape, gen, device)
+        pks = pvs = None
+    perm = torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(B + M)) + 1
+    tables = perm[:B * M].reshape(B, M).to(torch.int32).to(device)
+    q = rand((B, 1, H, D), gen, device)
+    pos = torch.tensor(positions, dtype=torch.int32, device=device)
+    return q, pk, pv, pks, pvs, tables, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,M,layer,positions", [
+    (1, 256, 3, [8191]), (4, 64, 0, [0, 31, 32, 2047]), (8, 16, 31, [5, 511, 100, 64,
+                                                                        33, 0, 300, 480])])
+def test_k6_kernel_matches_plain(cuda, B, M, layer, positions):
+    """K6 on a stacked 32-layer pool at varying layers, bf16 (spans of
+    paged_chunk entries) and int8 (one update per block)."""
+    gen = torch.Generator(device=cuda).manual_seed(B * 100 + M)
+    q, pk, pv, _, _, tables, pos = paged_case(gen, cuda, B, M, B * M + 1, 32, positions)
+    before = paged_flash_decode.launches
+    got = paged_flash_decode(q, pk, pv, tables, pos, layer=layer)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 1
+    assert_matches(got, paged_flash_decode_plain(q, pk, pv, tables, pos, layer,
+                                                 paged_chunk(M, 32)))
+    del pk, pv
+    q, pk, pv, pks, pvs, tables, pos = paged_case(gen, cuda, B, M, B * M + 1, 32,
+                                                  positions, torch.int8)
+    before = paged_flash_decode_int8.launches
+    got = paged_flash_decode(q, pk, pv, tables, pos, layer=layer, pool_ks=pks, pool_vs=pvs)
+    torch.cuda.synchronize()
+    assert paged_flash_decode_int8.launches == before + 1
+    assert_matches(got, paged_flash_decode_int8_plain(q, pk, pv, pks, pvs, tables, pos,
+                                                      layer))
+
+
+@pytest.mark.gpu
+def test_k7_kernel_matches_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, pk, pv, _, _, tables, pos = paged_case(gen, cuda, 4, 64, 257, 1, [0, 31, 32, 2047])
+    before = paged_flash_decode_per_head.launches
+    got = paged_flash_decode(q, pk[0], pv[0], tables, pos, fold_heads=False)
+    torch.cuda.synchronize()
+    assert paged_flash_decode_per_head.launches == before + 1
+    assert_matches(got, paged_flash_decode_plain(q, pk, pv, tables, pos, 0, 1))
+    with pytest.raises(ValueError, match="fold_heads"):
+        paged_flash_decode(q, pk, pv, tables, pos, fold_heads=False, layer=0)
+    with pytest.raises(ValueError, match="G = H/KV"):
+        paged_flash_decode(rand((4, 1, 2 * KV, D), gen, cuda), pk[0], pv[0], tables, pos)

@@ -67,3 +67,16 @@ def test_numerics_match_the_jax_package_fp32_accumulation():
     assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("module", [
+    "serving/__init__.py", "serving/server.py", "serving/__main__.py",
+    "runtime/continuous.py", "runtime/paged.py", "runtime/block_pool.py",
+    "runtime/device_loop.py", "models/llama/paged.py", "kernels/paged_attention.py",
+    "ops/sampling.py"])
+def test_scan_covers_the_serving_slice(module):
+    """The serving slice's modules are among the scanned files, and each
+    imports nothing of JAX on its own."""
+    path = PORT / module
+    assert path in set(PORT.rglob("*.py"))
+    assert [m for _, m in imported_modules(path) if m.split(".")[0] in FORBIDDEN] == []

@@ -109,7 +109,7 @@ def test_wrappers_refuse_what_k1_k2_do_not_compute():
     q1 = to_torch(bf16(rng, 1, 1, 8, D))
     k = to_torch(bf16(rng, 1, 1, 2, 64, D))
     # K3 (int8 cache) and K4 (fold_heads) are ported: tests/test_torch_kernels_int8.py
-    with pytest.raises(NotImplementedError, match="K5"):
+    with pytest.raises(ValueError, match="blocked=True"):   # K5 is single-layer
         k2.flash_decode_attention(q1, k, k, 3, layer=0, blocked=False)
     with pytest.raises(ValueError, match="k_scale"):      # int8 without its scales
         k2.flash_decode_attention(q1, k.to(torch.int8), k.to(torch.int8), 3, layer=0)

@@ -211,7 +211,7 @@ def test_int8_wrapper_refusals():
         dk.flash_decode_attention(q, k, v, 3, k_scale=ks[..., :32], v_scale=vs, layer=0)
     with pytest.raises(TypeError, match="bfloat16 k_scale"):
         dk.flash_decode_attention(q, k, v, 3, k_scale=ks.float(), v_scale=vs, layer=0)
-    with pytest.raises(NotImplementedError, match="K5"):
+    with pytest.raises(ValueError, match="blocked=True"):   # K5 is single-layer
         dk.flash_decode_attention(q, k, v, 3, k_scale=ks, v_scale=vs, layer=0,
                                   blocked=False)
     with pytest.raises(ValueError, match="multiple of block_k"):

@@ -1,0 +1,416 @@
+"""Paged KV pool of the PyTorch port against the JAX package.
+
+  * K6 (bf16 and int8 pools), K7 and K5: the plain versions (what the
+    wrappers run for CPU tensors) against the Pallas kernels in interpret
+    mode on the same seeded numpy inputs, the span rule, the refusals;
+  * ``paged_prefill``, ``paged_prefill_shared`` and ``paged_decode_step``
+    (bf16 and int8 pools, both attention paths) against the JAX functions on
+    the same weights: logits and pool contents;
+  * ``PagedBatcher`` against the port's sequential engine on the
+    constructed-cyclic model (tests/test_torch_continuous.py): exact streams
+    through the prefix cache, pool starvation, cancellation, quanta, an int8
+    pool and K6's path."""
+
+import types
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from llama_nuts_and_bolts_tpu.io.params import ModelArgs as JModelArgs
+from llama_nuts_and_bolts_tpu.kernels.decode_attention import (
+    flash_decode_attention as jax_flash_decode_attention,
+)
+from llama_nuts_and_bolts_tpu.kernels.paged_attention import (
+    paged_flash_decode as jax_paged_flash_decode,
+)
+from llama_nuts_and_bolts_tpu.models.llama import model as jmodel
+from llama_nuts_and_bolts_tpu.models.llama import paged as jpaged
+
+from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
+from llama_nuts_and_bolts_tpu_torch.kernels import decode_attention as dk
+from llama_nuts_and_bolts_tpu_torch.kernels import paged_attention as pa
+from llama_nuts_and_bolts_tpu_torch.models.llama import paged
+from llama_nuts_and_bolts_tpu_torch.models.llama.convert import (
+    params_from_numpy,
+    tensor_from_numpy,
+    tensor_to_numpy,
+)
+from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher, default_attn_impl
+from llama_nuts_and_bolts_tpu_torch.runtime.types import GenerationState
+from llama_nuts_and_bolts_tpu_torch.utils.testing import compare_tensor
+from tests.test_torch_continuous import (
+    EDGE_PROMPT,
+    PROMPTS,
+    drain,
+    make_engine,
+    one_torch_thread,
+    sequential,
+    toks,
+)
+from tests.test_torch_engine import SPEC, leaves
+from tests.test_torch_kernels_int8 import assert_int8_dots_close, int8_cache
+
+D = 128
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with one_torch_thread():
+        yield
+
+
+def bf16(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32).astype(ml_dtypes.bfloat16)
+
+
+def t(a):
+    return tensor_from_numpy(a, "cpu")
+
+
+def pool_case(seed, L=2, n_blocks=20, KV=2, bs=8, B=3, M=6, H=8, quantized=False):
+    """A stacked pool with a seeded scatter of blocks: row b's table is a
+    slice of one permutation of blocks 1..n_blocks-1."""
+    rng = np.random.default_rng(seed)
+    shape = (L, n_blocks, KV, bs, D)
+    if quantized:
+        (k, ks), (v, vs) = int8_cache(rng, shape), int8_cache(rng, shape)
+    else:
+        k, v, ks, vs = bf16(rng, *shape), bf16(rng, *shape), None, None
+    tables = (rng.permutation(n_blocks - 1)[:B * M] + 1).reshape(B, M).astype(np.int32)
+    return bf16(rng, B, 1, H, D), k, v, ks, vs, tables
+
+
+def launches():
+    return (pa.paged_flash_decode.launches, pa.paged_flash_decode_int8.launches,
+            pa.paged_flash_decode_per_head.launches,
+            dk.flash_decode_attention_whole_head.launches)
+
+
+# ---------------------------------------------------------------- kernels
+
+@pytest.mark.parametrize("M,pos", [(6, [0, 17, 47]), (4, [8, 31, 7])])
+def test_k6_plain_matches_pallas_interpret(M, pos):
+    """Stacked pool read at layer 1, scattered tables, positions on a block
+    edge and in the table's last block; M=6 gives spans of 6 blocks, M=4 of
+    4. The plain version follows the Pallas span: bf16 tolerance (the fp32
+    sums come in another order)."""
+    q, k, v, _, _, tables = pool_case(M, M=M)
+    pos = np.array(pos, np.int32)
+    want = jax_paged_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jnp.asarray(tables), jnp.asarray(pos), layer=1,
+                                  interpret=True)
+    before = launches()
+    got = pa.paged_flash_decode(t(q), t(k), t(v), torch.from_numpy(tables),
+                                torch.from_numpy(pos), layer=1)
+    assert launches() == before                       # CPU: no kernel launch
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    compare_tensor(got.float().numpy(), np.asarray(want, np.float32), "bfloat16")
+
+
+def test_k6_int8_plain_matches_pallas_interpret():
+    """The int8 mode's numerics follow the Pallas kernel's per-block
+    quantization of p: one bf16 ulp."""
+    q, k, v, ks, vs, tables = pool_case(3, quantized=True)
+    pos = np.array([5, 40, 16], np.int32)
+    want = jax_paged_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jnp.asarray(tables), jnp.asarray(pos), layer=0,
+                                  pool_ks=jnp.asarray(ks), pool_vs=jnp.asarray(vs),
+                                  interpret=True)
+    got = pa.paged_flash_decode(t(q), t(k), t(v), torch.from_numpy(tables),
+                                torch.from_numpy(pos), layer=0, pool_ks=t(ks),
+                                pool_vs=t(vs))
+    assert_int8_dots_close(got, want)
+
+
+def test_k7_plain_matches_pallas_interpret():
+    q, k, v, _, _, tables = pool_case(7, L=1)
+    pos = np.array([0, 23, 47], np.int32)
+    want = jax_paged_flash_decode(jnp.asarray(q), jnp.asarray(k[0]), jnp.asarray(v[0]),
+                                  jnp.asarray(tables), jnp.asarray(pos),
+                                  fold_heads=False, interpret=True)
+    got = pa.paged_flash_decode(t(q), t(k[0]), t(v[0]), torch.from_numpy(tables),
+                                torch.from_numpy(pos), fold_heads=False)
+    compare_tensor(got.float().numpy(), np.asarray(want, np.float32), "bfloat16")
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_k5_plain_matches_pallas_interpret(quantized):
+    """blocked=False over a single-layer cache: the Pallas kernel's tiles are
+    min(512, T) keys, the port's K2's 64, so the sums come in another order:
+    bf16 tolerance."""
+    rng = np.random.default_rng(5)
+    B, H, KV, T = 3, 8, 2, 256
+    q = bf16(rng, B, 1, H, D)
+    pos = np.array([0, 100, 255], np.int32)
+    if quantized:
+        (k, ks), (v, vs) = int8_cache(rng, (B, KV, T, D)), int8_cache(rng, (B, KV, T, D))
+        jscales = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        scales = dict(k_scale=t(ks), v_scale=t(vs))
+    else:
+        k, v = bf16(rng, B, KV, T, D), bf16(rng, B, KV, T, D)
+        jscales, scales = {}, {}
+    want = jax_flash_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      jnp.asarray(pos), blocked=False, interpret=True,
+                                      **jscales)
+    before = launches()
+    got = dk.flash_decode_attention(t(q), t(k), t(v), torch.from_numpy(pos),
+                                    blocked=False, **scales)
+    assert launches() == before
+    compare_tensor(got.float().numpy(), np.asarray(want, np.float32), "bfloat16")
+
+
+@pytest.mark.parametrize("M,bs", [(64, 32), (6, 8), (4, 8), (7, 32), (1, 64), (10, 1024)])
+def test_span_rule_matches_jax(M, bs):
+    """paged_attention.py:256-259 of the JAX package."""
+    chunk = max(1, min(M, 512 // bs))
+    while M % chunk:
+        chunk -= 1
+    assert pa.paged_chunk(M, bs) == chunk
+
+
+def test_paged_wrapper_refusals():
+    q, k, v, ks, vs, tables = pool_case(9, quantized=True)
+    q, k, v, ks, vs, tbl = t(q), t(k), t(v), t(ks), t(vs), torch.from_numpy(tables)
+    with pytest.raises(ValueError, match="S=1"):
+        pa.paged_flash_decode(torch.cat([q, q], 1), k, v, tbl, 3, layer=0, pool_ks=ks,
+                              pool_vs=vs)
+    with pytest.raises(ValueError, match="fold_heads"):
+        pa.paged_flash_decode(q, k, v, tbl, 3, layer=0, fold_heads=False, pool_ks=ks,
+                              pool_vs=vs)
+    with pytest.raises(ValueError, match="int8 pools"):
+        pa.paged_flash_decode(q, k[0], v[0], tbl, 3, fold_heads=False, pool_ks=ks[0],
+                              pool_vs=vs[0])
+    with pytest.raises(ValueError, match="pool_ks"):           # int8 without scales
+        pa.paged_flash_decode(q, k, v, tbl, 3, layer=0)
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_flash_decode(q, k, v, tbl.long(), 3, layer=0, pool_ks=ks, pool_vs=vs)
+    with pytest.raises(ValueError, match="layer"):
+        pa.paged_flash_decode(q, k, v, tbl, 3, layer=2, pool_ks=ks, pool_vs=vs)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pa.paged_flash_decode(q.to("meta"), k.to("meta"), v.to("meta"), tbl.to("meta"),
+                              3, layer=0, pool_ks=ks.to("meta"), pool_vs=vs.to("meta"))
+
+
+# ----------------------------------------------------------- paged model
+
+JCFG = JModelArgs(**SPEC)
+CFG = ModelArgs(**SPEC)
+BS = 8
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jp = jax.jit(jmodel.init_random_params, static_argnums=(0,))(JCFG, jax.random.PRNGKey(4))
+    return jp, params_from_numpy(leaves(jp), "cpu")
+
+
+def pool_values(pool, name, numpy_of):
+    """A pool buffer as fp32, dequantized for an int8 pool."""
+    vals = numpy_of(getattr(pool, name)).astype(np.float32)
+    if getattr(pool, name).dtype in (torch.int8, jnp.int8):
+        vals = vals * numpy_of(getattr(pool, name + "_scale")).astype(np.float32)[..., None]
+    return vals
+
+
+def port_np(x):
+    return tensor_to_numpy(x, ml_dtypes.bfloat16)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_model_functions_match_jax(weights, kv):
+    """Request A (13 tokens) prefills into blocks [3, 7]; request B shares
+    A's first block and prefills only its 5-token suffix into [5]; then one
+    decode step of both rows at position 13, on the gather path and on K6's
+    (the Pallas kernel in interpret mode on JAX's side). Logits within the
+    bf16 drift bar of tests/test_torch_model.py, pools likewise (dequantized
+    for int8: rows quantized from values an ulp apart may differ by a
+    quantum)."""
+    jp, params = weights
+    int8 = kv == "int8"
+    n_blocks = 12
+    jpool = jpaged.PagedKVPool.create(JCFG, n_blocks, BS, dtype=jnp.int8 if int8 else
+                                      jnp.bfloat16)
+    pool = paged.PagedKVPool.create(CFG, n_blocks, BS, torch.int8 if int8 else
+                                    torch.bfloat16, device="cpu")
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, 256, 13).astype(np.int32)
+    b = np.concatenate([a[:8], rng.integers(0, 256, 5).astype(np.int32)])
+    table_a = np.array([3, 7, 2, 0], np.int32)
+    table_b = np.array([3, 5, 9, 0], np.int32)
+
+    def padded(tokens, n):
+        out = np.zeros((1, n), np.int32)
+        out[0, :len(tokens)] = tokens
+        return out
+
+    want = jax.jit(jpaged.paged_prefill, static_argnums=(1,))(
+        jp, JCFG, jnp.asarray(padded(a, 16)), 12, jpool, jnp.asarray(table_a))
+    jpool = want[1]
+    got = paged.paged_prefill(params, CFG, torch.from_numpy(padded(a, 16)), 12, pool,
+                              torch.from_numpy(table_a))
+    compare_tensor(got[0].numpy(), np.asarray(want[0]), "bfloat16", tolerance_multiplier=5.0)
+    want = jax.jit(jpaged.paged_prefill_shared, static_argnums=(1,))(
+        jp, JCFG, jnp.asarray(padded(b[8:], 8)), 8, 4, jpool, jnp.asarray(table_b))
+    jpool = want[1]
+    got = paged.paged_prefill_shared(params, CFG, torch.from_numpy(padded(b[8:], 8)), 8, 4,
+                                     pool, torch.from_numpy(table_b))
+    compare_tensor(got[0].numpy(), np.asarray(want[0]), "bfloat16", tolerance_multiplier=5.0)
+
+    toks = np.array([[a[-1]], [b[-1]]], np.int32)
+    positions = np.array([13, 13], np.int32)
+    tables = np.stack([table_a, table_b])
+    step = jax.jit(jpaged.paged_decode_step, static_argnums=(1, 6))
+    for jimpl, impl in (("xla", "plain"), ("pallas", "flash")):
+        jlogits, jpool_after = step(jp, JCFG, jnp.asarray(toks), jnp.asarray(positions),
+                                    jpool, jnp.asarray(tables), jimpl)
+        snapshot = paged.PagedKVPool(*(x.clone() for x in pool.buffers()))
+        logits, after = paged.paged_decode_step(params, CFG, torch.from_numpy(toks),
+                                                torch.from_numpy(positions), snapshot,
+                                                torch.from_numpy(tables), impl)
+        compare_tensor(logits.numpy(), np.asarray(jlogits), "bfloat16",
+                       tolerance_multiplier=5.0)
+        for name in ("k", "v"):
+            compare_tensor(pool_values(after, name, port_np),
+                           pool_values(jpool_after, name, np.asarray),
+                           "bfloat16", tolerance_multiplier=5.0)
+
+
+def test_paged_refusals(weights):
+    _, params = weights
+    pool = paged.PagedKVPool.create(CFG, 4, BS, device="cpu")
+    with pytest.raises(ValueError, match="multiple of the block size"):
+        paged.paged_prefill(params, CFG, torch.zeros((1, 12), dtype=torch.int32), 3, pool,
+                            torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="one request"):
+        paged.paged_prefill(params, CFG, torch.zeros((2, 8), dtype=torch.int32), 3, pool,
+                            torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="attn_impl"):
+        paged.paged_decode_step(params, CFG, torch.zeros((1, 1), dtype=torch.int32),
+                                torch.zeros(1, dtype=torch.int32), pool,
+                                torch.zeros((1, 4), dtype=torch.int32), "pallas")
+    with pytest.raises(ValueError, match="trash"):
+        paged.PagedKVPool.create(CFG, 1, BS, device="cpu")
+
+
+# ------------------------------------------------------------- scheduler
+
+def make_paged(n_slots=2, n_blocks=None, kv="bf16", **kw):
+    return PagedBatcher(make_engine(kv_cache_dtype=kv), n_slots=n_slots, n_blocks=n_blocks,
+                        block_size=BS, **kw)
+
+
+@pytest.mark.parametrize("kv,impl", [("bf16", None), ("bf16", "flash"), ("int8", None),
+                                     ("int8", "flash")])
+def test_paged_batcher_matches_sequential(kv, impl):
+    """Greedy streams on two slots equal the sequential engine's, on the
+    gather path and on K6's (its plain version on the CPU), for bf16 and
+    int8 pools: one runs to the context's end, growing a block every 8
+    tokens, one starts at the context's last admissible length (finish
+    states included for both); every block returns to the pool."""
+    cb = make_paged(kv=kv, attn_impl=impl)
+    assert cb.attn_impl == (impl or "plain")
+    eng = cb.engine
+    prompts = PROMPTS + [EDGE_PROMPT]
+    caps = (None, 12, 9, 12, 12, None)
+    reqs = [cb.submit(p, **({} if n is None else {"max_new_tokens": n}))
+            for p, n in zip(prompts, caps)]
+    cb.run_until_idle()
+    for r, p, n in zip(reqs, prompts, caps):
+        got, want = drain(r), sequential(eng, p, n)
+        assert (got if n is None else toks(got)) == (want if n is None else toks(want))
+    assert cb.allocator.available + cb.allocator.stats["cached_blocks"] \
+        >= cb.allocator.n_blocks - 1
+
+
+def test_prefix_cache_hit_outputs_identical():
+    """The second request shares a 17-token prefix (two full blocks) with
+    the first: it revives both blocks, prefills only its suffix, and streams
+    what the sequential engine streams; prefix caching off gives the same."""
+    base = [0, 1, 2, 3, 4, 5, 6] * 2 + [0, 1, 2]
+    prompts = [base + [3, 4], base + [5, 6, 0], base[:16] + [1]]
+    outs = {}
+    for prefix_cache in (True, False):
+        cb = make_paged(n_slots=1, prefix_cache=prefix_cache)
+        reqs = [cb.submit(p, max_new_tokens=10) for p in prompts]
+        cb.run_until_idle()
+        outs[prefix_cache] = [toks(drain(r)) for r in reqs]
+        hits = cb.allocator.stats["prefix_hits"]
+        assert hits == (4 if prefix_cache else 0)   # two blocks each, twice
+    assert outs[True] == outs[False] == [toks(sequential(cb.engine, p, 10)) for p in prompts]
+
+
+def test_pool_starvation_finishes_gracefully_then_recovers():
+    """Five usable blocks of 8 for two 40-token streams: requests end early
+    (FINISHED_BY_REACHING_SEQ_LEN) with a prefix of the sequential stream,
+    FIFO admission waits for frees, and every block comes back."""
+    cb = make_paged(n_slots=2, n_blocks=6, prefix_cache=False)
+    eng = cb.engine
+    reqs = [cb.submit(p) for p in (PROMPTS[1], PROMPTS[3], PROMPTS[0])]
+    cb.run_until_idle()
+    for r, p in zip(reqs, (PROMPTS[1], PROMPTS[3], PROMPTS[0])):
+        got = drain(r)
+        want = sequential(eng, p)
+        assert got and toks(got) == toks(want[:len(got)]) and len(got) < len(want)
+        assert got[-1][0] == GenerationState.FINISHED_BY_REACHING_SEQ_LEN
+    assert cb.allocator.available == 5
+    late = cb.submit(PROMPTS[2], max_new_tokens=8)
+    cb.run_until_idle()
+    assert toks(drain(late)) == toks(sequential(eng, PROMPTS[2], 8))
+
+
+def test_submit_refuses_a_prompt_the_pool_never_holds():
+    cb = make_paged(n_blocks=3)
+    with pytest.raises(ValueError, match="KV blocks"):
+        cb.submit([1] * 17)                  # needs 3 blocks, the pool has 2
+    cb.submit([1] * 15)
+
+
+@pytest.mark.parametrize("quantum", [2, 3])
+def test_paged_step_quantum_matches_sequential(quantum):
+    cb = make_paged(step_quantum=quantum)
+    caps = (5, 40, 7, 1, 12)
+    reqs = [cb.submit(p, max_new_tokens=n) for p, n in zip(PROMPTS, caps)]
+    cb.run_until_idle()
+    for r, p, n in zip(reqs, PROMPTS, caps):
+        assert toks(drain(r)) == toks(sequential(cb.engine, p, n))
+
+
+def test_cancel_releases_slot_and_blocks():
+    cb = make_paged(n_slots=1, prefix_cache=False)
+    req = cb.submit(PROMPTS[1])
+    for _ in range(5):
+        cb.step()
+    assert cb.allocator.available < cb.allocator.n_blocks - 1
+    req.cancel()
+    cb.run_until_idle()
+    got = drain(req)
+    assert 0 < len(got) < len(sequential(cb.engine, PROMPTS[1]))
+    assert cb.allocator.available == cb.allocator.n_blocks - 1
+    assert (cb.tables == paged.TRASH_BLOCK).all()
+
+
+def test_default_attention_rule():
+    """By default bf16 pools take K6 on a card whose model fits the kernels;
+    int8 pools and the CPU take the gather path (the JAX package's rule)."""
+    def engine(device, kv, viable=True, impl="auto"):
+        return types.SimpleNamespace(
+            device=torch.device(device), _kernels_viable=lambda: viable,
+            args=types.SimpleNamespace(kv_cache_dtype=kv, attn_impl=impl))
+
+    assert default_attn_impl(engine("cuda", "bf16")) == "flash"
+    # a forced engine forces the pool's path: K6's int8 mode with "flash"
+    assert default_attn_impl(engine("cuda", "int8", impl="flash")) == "flash"
+    assert default_attn_impl(engine("cuda", "bf16", impl="plain")) == "plain"
+    assert default_attn_impl(engine("cpu", "bf16", impl="flash_folded")) == "flash"
+    assert default_attn_impl(engine("cuda", "int8")) == "plain"
+    assert default_attn_impl(engine("cuda", "bf16", viable=False)) == "plain"
+    assert default_attn_impl(engine("cpu", "bf16")) == "plain"
+    with pytest.raises(ValueError, match="attn_impl"):
+        make_paged(attn_impl="pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        make_paged(speculate_k=2)
