@@ -25,6 +25,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,9 +42,10 @@ INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor cores, published
 # and summation order moves a rounding by at most one ulp, 2^-7 |x|: so per
 # element |kernel - plain| <= KERNEL_ATOL + 2^-7 |plain|, and over the whole
 # output a relative L2 error <= KERNEL_REL_L2. Every run also reads planted
-# faults (a causal mask off by one, a skipped key tile) against the same
-# limits, and fails if one of them passes. On an H100 the sound kernels read
-# at most 1.6e-4 relative L2, the nearest planted fault 3.6e-3 (PERF.md).
+# faults (a causal mask off by one, a skipped key tile, K2's last active
+# split skipped) against the same limits, and fails if one of them passes.
+# On an H100 the sound kernels read at most 2.4e-4 relative L2, the nearest
+# planted fault 5.5e-3 (PERF.md).
 KERNEL_ATOL, KERNEL_RTOL, KERNEL_REL_L2 = 1e-3, 2.0 ** -7, 1e-3
 # Flash vs plain logits of the whole forward, relative L2 per logits row.
 # The two paths round p at different places (the plain path normalises p
@@ -70,6 +72,11 @@ QUANT_LOGITS_REL_L2 = 2e-3
 # version: its bf16 output is one rounding (2^-9 relative on average) away
 # from K8's fp32 one; a weight packed in the wrong order reads ~1.4.
 TINYGEMM_REL_L2 = 1e-2
+# SDPA, the attention kernels' one-call yardstick, against the kernel's plain
+# version: a bf16 output of the same function with other tiles and another
+# place of rounding p. On an H100 it reads 4e-5 to 3e-3 (PERF.md); the limit
+# holds it to the same function up to bf16 rounding, no closer.
+SDPA_REL_L2 = 1e-2
 SPIN_CYCLES = 100_000_000        # ~50 ms at the H100's 1.98 GHz boost clock
 
 T_START = time.perf_counter()
@@ -152,6 +159,20 @@ def kernel_err(got: torch.Tensor, ref: torch.Tensor, what: str,
     return worst
 
 
+def library_err(out: torch.Tensor, ref: torch.Tensor, what: str,
+                limit: float = SDPA_REL_L2) -> float:
+    """A one-call yardstick's ``out`` against the plain version's ``ref`` on
+    the same inputs: it must compute the same function, within ``limit``
+    relative L2, or its time is no yardstick. Returns the relative L2."""
+    rel = rel_l2(out, ref)
+    ok = bool(torch.isfinite(out.float()).all()) and rel <= limit
+    log(f"{what}: its output {rel:.3e} relative L2 from the plain version's "
+        f"(limit {limit}): {'passes' if ok else 'fails'}")
+    if not ok:
+        check_failed(f"{what} computes another function than the plain version")
+    return rel
+
+
 def logits_err(got: torch.Tensor, ref: torch.Tensor, limit: float, what: str,
                planted: bool = False) -> float:
     """Relative L2 error of ``got`` logits against the plain path's; a sound
@@ -184,7 +205,17 @@ def setup():
     reports = build.build()
     for src, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            # the kernel's name in its mangled symbol (after the anonymous
+            # namespace's "_cu_<hash>", a length and the name), and a cache
+            # template's element type
+            entry = re.search(r"Compiling entry function '.*?_cu_[0-9a-f]{8}(\d+)", line)
+            if entry:
+                kernel = line[entry.end():entry.end() + int(entry.group(1))]
+                rest = line[entry.end() + len(kernel):]
+                kind = ("<int8>" if rest.startswith("IaE") else
+                        "<bf16>" if rest.startswith("I13__nv_bfloat16E") else "")
+                log(f"ptxas {src}: {kernel}{kind}")
+            elif "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"ptxas {src}: {line.strip()}")
     log(f"kernel build: {time.perf_counter() - t0:.1f}s "
         f"({', '.join(build.SOURCES)})")
@@ -333,9 +364,12 @@ def check_kernels():
             kernel_err(k1_mask_off_by_one(q, k, v, start), ref,
                        what + ", mask off by one", planted=True)
 
+    # K2's splits: 256 keys at T=8192 (511, 512 on a split edge), 512 keys at
+    # B=3, T=4096; rows at 0 and T - 1 side by side
     cases = [(1, 1, 0, 8192, [p]) for p in (0, 511, 512, 4095, 8191)]
     cases += [(4, 1, 0, 2048, [3, 700, 2047, 1000]), (2, 4, 2, 1024, [130, 1023]),
-              (1, 1, 0, 256, [70]), (1, 1, 0, 256, [134])]
+              (1, 1, 0, 256, [70]), (1, 1, 0, 256, [134]), (2, 1, 0, 4096, [0, 4095]),
+              (3, 2, 1, 4096, [511, 512, 513])]
     for B, L, layer, T, positions in cases:
         k, v = randn((L, B, KV, T, D), gen), randn((L, B, KV, T, D), gen)
         q = randn((B, 1, H, D), gen)
@@ -434,33 +468,164 @@ def check_quant_kernels():
     return errs
 
 
-def time_kernels(errs, prompt_len_b: int, cache_len_b: int, prefill_len_b: int):
-    """Each kernel at the main path's shapes -- request B's prefill (K1) and
-    its first decode step (K2, every layer of a 32-layer cache) -- against
-    its plain version on the same inputs, with planted faults read against
-    the same limits, then timed. K2's timing cycles the layer, so that every
-    launch finds its tiles outside the 50 MB L2."""
+def k1_sdpa(q, k, v, start_pos: int):
+    """One PyTorch call computing K1's function, for its yardstick: SDPA over
+    the visible keys, causal to the query's own position. At start_pos 0 with
+    S = T, ``is_causal`` on the GQA heads; otherwise the keys up to the last
+    row's position, the causal mask aligned to its end (lower right), and
+    the KV heads repeated for the G query heads outside the call. Returns
+    the call and its output's layout as K1's, ``[B, S, H, D]``."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    S, T = q.shape[1], k.shape[2]
+    qt = q.transpose(1, 2)
+    if start_pos == 0 and S == T:
+        return lambda: F.scaled_dot_product_attention(qt, k, v, is_causal=True,
+                                                      enable_gqa=True)
+    n = min(T, start_pos + S)
+    kx = k[:, :, :n].repeat_interleave(H // KV, dim=1)
+    vx = v[:, :, :n].repeat_interleave(H // KV, dim=1)
+    bias = causal_lower_right(S, n)
+    return lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=bias)
+
+
+def time_k1(gen, errs, S: int, start_pos: int, T: int, what: str):
+    """K1 at one shape against its plain version (mask off by one planted),
+    timed beside SDPA (checked to compute the same function) and the bound.
+    Returns the numbers and the inputs with the kernel's and plain output."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.attention import (
+        flash_gqa_attention, flash_gqa_attention_plain)
+
+    q = randn((1, S, H, D), gen)
+    k, v = randn((1, KV, T, D), gen), randn((1, KV, T, D), gen)
+    ms, got = cuda_ms(lambda: flash_gqa_attention(q, k, v, start_pos), iters=20)
+    plain, ref = cuda_ms(lambda: flash_gqa_attention_plain(q, k, v, start_pos),
+                         iters=1, warmup=1)
+    what = f"K1 S={S} start_pos={start_pos} T={T} ({what})"
+    errs["K1"] = max(errs["K1"], kernel_err(got, ref, what))
+    kernel_err(k1_mask_off_by_one(q, k, v, start_pos), ref, what + ", mask off by one",
+               planted=True)
+    sdpa = k1_sdpa(q, k, v, start_pos)
+    lib, lib_out = cuda_ms(sdpa, iters=20)
+    library_err(lib_out.transpose(1, 2), ref, what + ", SDPA")
+    b_ms, b_by = bound_ms(*k1_work(S, T, start_pos))
+    log(f"{what}: {ms:.4f} ms (plain {plain:.2f}, sdpa {lib:.4f}, bound {b_ms:.4f} "
+        f"by {b_by})")
+    numbers = dict(shape=f"B=1 S={S} start_pos={start_pos} T={T} H={H} KV={KV} D={D}",
+                   ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    return numbers, (q, k, v, got, ref)
+
+
+def k2_last_split_skipped(q, k, v, positions, layer, **kw):
+    """Planted fault: the decode kernel (K2, or K3 with an int8 cache's
+    keywords) with the last active split of the row at the largest position
+    skipped, i.e. the sound kernel run with that row's position at its last
+    split's first key - 1."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
+        flash_decode_attention, k2_split_k)
+
+    split = k2_split_k(q.shape[0], k.shape[2], k.shape[3])
+    b = int(torch.argmax(positions))
+    cut = positions.clone()
+    cut[b] = positions[b] // split * split - 1
+    return flash_decode_attention(q, k, v, cut, layer=layer, **kw)
+
+
+def time_k2(gen, errs, positions, T: int, what: str, every_layer: bool = False):
+    """K2 on a 32-layer stacked cache at ``positions`` (one per row) against
+    its plain version (one layer, or every layer), planted faults read
+    against the same limits (mask off by one, the row's last key tile
+    skipped, its last active split skipped); then timed cycling the layer,
+    so that every launch finds its bytes outside the 50 MB L2, beside SDPA
+    over the visible keys (checked to compute the same function) and the
+    bound. Logs the launch's split geometry, by k2_geometry's rule."""
     import torch.nn.functional as F
 
-    from llama_nuts_and_bolts_tpu_torch.kernels.attention import (
-        K1_BLOCK_K, flash_gqa_attention, flash_gqa_attention_plain, k1_geometry)
     from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
-        K2_BLOCK_K, flash_decode_attention, flash_decode_attention_plain)
+        K2_BLOCK_K, flash_decode_attention, flash_decode_attention_plain, k2_geometry)
+
+    L, B = 32, len(positions)
+    kc, vc = randn((L, B, KV, T, D), gen), randn((L, B, KV, T, D), gen)
+    qd = randn((B, 1, H, D), gen)
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    layers = range(L) if every_layer else [0]
+    got = torch.stack([flash_decode_attention(qd, kc, vc, pos, layer=li) for li in layers])
+    ref = torch.stack([flash_decode_attention_plain(qd, kc, vc, pos, li) for li in layers])
+    what = f"K2 B={B} L={L} T={T} pos={positions} ({what})"
+    errs["K2"] = max(errs["K2"], kernel_err(
+        got, ref, what + (", every layer" if every_layer else ", layer 0")))
+    kernel_err(k2_mask_off_by_one(qd, kc, vc, pos, 0), ref[0], what + ", mask off by one",
+               planted=True)
+    kernel_err(flash_decode_attention(qd, kc, vc, pos // K2_BLOCK_K * K2_BLOCK_K - 1,
+                                      layer=0), ref[0],
+               what + ", last key tile skipped", planted=True)
+    kernel_err(k2_last_split_skipped(qd, kc, vc, pos, 0), ref[0],
+               what + ", last active split of the longest row skipped", planted=True)
+    qdt, vis = qd.transpose(1, 2), None
+    if B == 1:           # the visible keys only
+        vis = [(kc[li, :, :, :positions[0] + 1].contiguous(),
+                vc[li, :, :, :positions[0] + 1].contiguous()) for li in range(L)]
+
+        def sdpa(li):
+            return F.scaled_dot_product_attention(qdt, *vis[li], enable_gqa=True)
+    else:                # rows at other positions: every key, the rest masked
+        visible = torch.arange(T, device="cuda")[None, None, None, :] <= \
+            pos.long()[:, None, None, None]
+
+        def sdpa(li):
+            return F.scaled_dot_product_attention(qdt, kc[li], vc[li], attn_mask=visible,
+                                                  enable_gqa=True)
+    library_err(sdpa(0).transpose(1, 2), ref[0], what + ", SDPA at layer 0")
+    del got, ref
+    state = {"li": 0}
+
+    def cycled(fn):
+        def call():
+            state["li"] = (state["li"] + 1) % L
+            return fn(state["li"])
+        return call
+
+    ms, _ = cuda_ms(cycled(lambda li: flash_decode_attention(qd, kc, vc, pos, layer=li)),
+                    iters=64)
+    plain, _ = cuda_ms(lambda: flash_decode_attention_plain(qd, kc, vc, pos, 1),
+                       iters=2, warmup=1)
+    lib, _ = cuda_ms(cycled(sdpa), iters=64)
+    b_ms, b_by = bound_ms(*k2_work(positions, T))
+    # the launch's geometry by k2_geometry's rule (not read from the card)
+    geo = k2_geometry(B, KV, T, positions)
+    blocks = geo.grid[0] * geo.grid[1] * geo.grid[2]
+    active = KV * sum(geo.active_splits)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"{what}: {ms:.4f} ms (plain {plain:.2f}, sdpa {lib:.4f}, bound {b_ms:.4f} by "
+        f"{b_by}); geometry: split_k {geo.split_k}, {geo.grid[0]} splits a row, "
+        f"active splits {geo.active_splits}: {active} of {blocks} blocks pass the early "
+        f"exit, on {sms} SMs")
+    numbers = dict(shape=f"B={B} L={L} T={T} pos={positions} H={H} KV={KV} D={D}",
+                   ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    del kc, vc, vis, sdpa
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def time_kernels(errs, prompt_len_b: int, cache_len_b: int, prefill_len_b: int,
+                 prefill_len_a: int, cache_len_a: int):
+    """K1 and K2 at the main path's shapes, each against its plain version
+    on the same inputs with planted faults read against the same limits,
+    then timed: K1 at request B's prefill (the row), at request A's and at a
+    512-row chunk with 3000 positions of history; K2 at request B's first
+    decode step over every layer of a 32-layer cache (the row), at the last
+    position of an 8192-slot cache and at the dense batcher's shape (4 rows
+    at mixed positions)."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.attention import (
+        K1_BLOCK_K, flash_gqa_attention, k1_geometry)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
 
     # K1: S = T = request B's prefill bucket, from position 0
     S = T = prefill_len_b
-    q = randn((1, S, H, D), gen)
-    k, v = randn((1, KV, T, D), gen), randn((1, KV, T, D), gen)
-    ms, got = cuda_ms(lambda: flash_gqa_attention(q, k, v, 0), iters=20)
-    plain, ref = cuda_ms(lambda: flash_gqa_attention_plain(q, k, v, 0),
-                         iters=1, warmup=1)
-    what = f"K1 S=T={S} start_pos=0 (request B's prefill)"
-    errs["K1"] = max(errs["K1"], kernel_err(got, ref, what))
-    kernel_err(k1_mask_off_by_one(q, k, v, 0), ref, what + ", mask off by one",
-               planted=True)
+    k1, (q, k, v, got, ref) = time_k1(gen, errs, S, 0, T, "request B's prefill")
     # the last q tile loses its last key tile (the one on its diagonal)
     p0 = S - k1_geometry(1, S, H, KV, T, 0).block_q
     t_cut = (S - 1) // K1_BLOCK_K * K1_BLOCK_K
@@ -468,71 +633,26 @@ def time_kernels(errs, prompt_len_b: int, cache_len_b: int, prefill_len_b: int):
     faulty[:, p0:] = flash_gqa_attention(
         q[:, p0:].contiguous(), k[:, :, :t_cut].contiguous(),
         v[:, :, :t_cut].contiguous(), p0)
-    kernel_err(faulty, ref, what + ", last key tile of the last q tile skipped",
+    kernel_err(faulty, ref, f"K1 S=T={S}, last key tile of the last q tile skipped",
                planted=True)
-    del got, ref, faulty
-    qt = q.transpose(1, 2)
-    lib, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, k, v, is_causal=True, enable_gqa=True), iters=20)
-    b_ms, b_by = bound_ms(*k1_work(S, T, 0))
-    log(f"K1 S=T={S}: {ms:.4f} ms (plain {plain:.2f}, sdpa {lib:.4f}, "
-        f"bound {b_ms:.4f} by {b_by})")
+    del q, k, v, got, ref, faulty
+    more = [time_k1(gen, errs, prefill_len_a, 0, cache_len_a, "request A's prefill")[0],
+            time_k1(gen, errs, 512, 3000, 4096, "a chunk with history")[0]]
     rows.append(dict(name="flash_gqa_attention (K1)", route="cuda",
                      source="llama_nuts_and_bolts_tpu_torch/csrc/flash_attention.cu",
                      replaces="llama_nuts_and_bolts_tpu/kernels/attention.py:33",
-                     max_abs_err=errs["K1"], ms=ms, plain_ms=plain,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                     shape=f"B=1 S=T={S} start_pos=0 H={H} KV={KV} D={D}"))
-    del q, k, v, qt
+                     max_abs_err=errs["K1"], more_shapes=more, **k1))
+    torch.cuda.empty_cache()
 
     # K2: request B's first decode step, every layer of a 32-layer cache
-    L, T, p = 32, cache_len_b, prompt_len_b
-    kc, vc = randn((L, 1, KV, T, D), gen), randn((L, 1, KV, T, D), gen)
-    qd = randn((1, 1, H, D), gen)
-    pos = torch.tensor([p], dtype=torch.int32, device="cuda")
-    got = torch.stack([flash_decode_attention(qd, kc, vc, pos, layer=li)
-                       for li in range(L)])
-    ref = torch.stack([flash_decode_attention_plain(qd, kc, vc, pos, li)
-                       for li in range(L)])
-    what = f"K2 B=1 L={L} T={T} pos={p}, every layer (request B's first step)"
-    errs["K2"] = max(errs["K2"], kernel_err(got, ref, what))
-    kernel_err(k2_mask_off_by_one(qd, kc, vc, pos, 0), ref[0],
-               f"K2 T={T} pos={p} layer 0, mask off by one", planted=True)
-    kernel_err(flash_decode_attention(qd, kc, vc, pos // K2_BLOCK_K * K2_BLOCK_K - 1,
-                                      layer=0), ref[0],
-               f"K2 T={T} pos={p} layer 0, last key tile skipped", planted=True)
-    del got, ref
-    state = {"li": 0}
-
-    def k2_call():
-        state["li"] = (state["li"] + 1) % L
-        flash_decode_attention(qd, kc, vc, pos, layer=state["li"])
-
-    ms, _ = cuda_ms(k2_call, iters=64)
-    plain, _ = cuda_ms(lambda: flash_decode_attention_plain(qd, kc, vc, pos, 1),
-                       iters=2, warmup=1)
-    vis_k = [kc[li, :, :, :p + 1].contiguous() for li in range(L)]
-    vis_v = [vc[li, :, :, :p + 1].contiguous() for li in range(L)]
-    qdt = qd.transpose(1, 2)
-
-    def sdpa_call():
-        state["li"] = (state["li"] + 1) % L
-        F.scaled_dot_product_attention(qdt, vis_k[state["li"]],
-                                       vis_v[state["li"]], enable_gqa=True)
-
-    lib, _ = cuda_ms(sdpa_call, iters=64)
-    b_ms, b_by = bound_ms(*k2_work([p], T))
-    log(f"K2 B=1 T={T} pos={p}: {ms:.4f} ms (plain {plain:.2f}, sdpa "
-        f"{lib:.4f}, bound {b_ms:.4f} by {b_by}); grid = {KV} blocks on "
-        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    k2 = time_k2(gen, errs, [prompt_len_b], cache_len_b, "request B's first step",
+                 every_layer=True)
+    more = [time_k2(gen, errs, [8191], 8192, "the last slot of an 8192 cache"),
+            time_k2(gen, errs, [3, 700, 2047, 1000], 2048, "the dense batcher's shape")]
     rows.append(dict(name="flash_decode_attention (K2)", route="cuda",
                      source="llama_nuts_and_bolts_tpu_torch/csrc/decode_attention.cu",
                      replaces="llama_nuts_and_bolts_tpu/kernels/decode_attention.py:46",
-                     max_abs_err=errs["K2"], ms=ms, plain_ms=plain,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                     shape=f"B=1 L=32 T={T} pos={p} H={H} KV={KV} D={D}"))
-    del kc, vc, vis_k, vis_v
-    torch.cuda.empty_cache()
+                     max_abs_err=errs["K2"], more_shapes=more, **k2))
     return rows
 
 
@@ -930,7 +1050,8 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
 
     from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
         K2_BLOCK_K, decode_block_k, flash_decode_attention,
-        flash_decode_attention_int8_mxu_plain, flash_decode_attention_plain)
+        flash_decode_attention_int8_mxu_plain, flash_decode_attention_plain, k2_geometry,
+        k2_split_k)
     from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import (
         q4_matmul, q4_matmul_plain)
     from llama_nuts_and_bolts_tpu_torch.quant import unpack_q4
@@ -950,7 +1071,7 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
             return fn(state["li"])
         return call
 
-    # K3: the int8 cache on K2's 64-key tiles
+    # K3: the int8 cache on K2's split key walk and 64-key tiles
     what = f"K3 B=1 L={L} T={T} pos={p}, every layer (request B's first step)"
     got = torch.stack([k3_call(qd, k, v, ks, vs, pos, li) for li in range(L)])
     ref = torch.stack([flash_decode_attention_plain(qd, k, v, pos, li, ks, vs)
@@ -960,12 +1081,18 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
                f"K3 T={T} pos={p} layer 0, mask off by one", planted=True)
     kernel_err(k3_call(qd, k, v, ks, vs, pos // K2_BLOCK_K * K2_BLOCK_K - 1, 0), ref[0],
                f"K3 T={T} pos={p} layer 0, last key tile skipped", planted=True)
+    kernel_err(k2_last_split_skipped(qd, k, v, pos, 0, k_scale=ks, v_scale=vs), ref[0],
+               f"K3 T={T} pos={p} layer 0, last active split skipped (split_k "
+               f"{k2_split_k(1, KV, T)})", planted=True)
     ms, _ = cuda_ms(cycled(lambda li: k3_call(qd, k, v, ks, vs, pos, li)), iters=64)
     plain, _ = cuda_ms(lambda: flash_decode_attention_plain(qd, k, v, pos, 1, ks, vs),
                        iters=2, warmup=1)
     b_ms, b_by = bound_ms(*k34_work([p], T, int8_ops=False))
+    geo = k2_geometry(1, KV, T, [p])      # by the rule, not read from the card
+    blocks, active = geo.grid[0] * KV, geo.active_splits[0] * KV
     log(f"K3 B=1 T={T} pos={p}: {ms:.4f} ms (plain {plain:.2f}, bound {b_ms:.4f} by "
-        f"{b_by}; no single PyTorch call computes it)")
+        f"{b_by}; no single PyTorch call computes it); geometry: split_k "
+        f"{geo.split_k}, {active} of {blocks} blocks pass the early exit")
     rows.append(dict(name="flash_decode_attention, int8 cache (K3)", route="cuda",
                      source="llama_nuts_and_bolts_tpu_torch/csrc/decode_attention.cu",
                      replaces="llama_nuts_and_bolts_tpu/kernels/decode_attention.py:46",
@@ -1009,11 +1136,15 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
     vis = [(kb[li, :, :, :p + 1].contiguous(), vb[li, :, :, :p + 1].contiguous())
            for li in range(L)]
     qdt = qd.transpose(1, 2)
+    library_err(F.scaled_dot_product_attention(qdt, *vis[0], enable_gqa=True).transpose(1, 2),
+                flash_decode_attention_plain(qd, kb, vb, pos, 0),
+                f"K4 bf16 mode B=1 T={T} pos={p}, SDPA at layer 0")
     lib, _ = cuda_ms(cycled(lambda li: F.scaled_dot_product_attention(
         qdt, vis[li][0], vis[li][1], enable_gqa=True)), iters=64)
     extra["k4_bf16_mode"] = dict(ms=bf_ms, library_ms=lib,
                                  bound_ms=bound_ms(*k2_work([p], T))[0])
-    log(f"K4 bf16 mode (K2's kernel) B=1 T={T} pos={p}: {bf_ms:.4f} ms, sdpa {lib:.4f}")
+    log(f"K4 bf16 mode (K2's kernel) B=1 T={T} pos={p}: {bf_ms:.4f} ms, sdpa {lib:.4f}; "
+        f"geometry: split_k {geo.split_k}, {active} of {blocks} blocks pass the early exit")
     del k, v, ks, vs, kb, vb, vis, got, ref
     torch.cuda.empty_cache()
 
@@ -1044,12 +1175,9 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
         # same shape, each over enough copies of the weight to stay outside L2
         n_copies = max(1, -(-200 * 2**20 // (out_dim * in_dim // 2)))
         lib_w = [tinygemm_pack(w) for w in ws[:n_copies]]
-        lib_out = torch._weight_int4pack_mm(x, *lib_w[0])
-        lib_rel = rel_l2(lib_out, ref)
-        log(f"{what}: torch._weight_int4pack_mm against K8's plain version: relative "
-            f"L2 {lib_rel:.3e} (its output is bf16; limit {TINYGEMM_REL_L2})")
-        if not lib_rel <= TINYGEMM_REL_L2:
-            check_failed(f"{what}: torch._weight_int4pack_mm computes another function")
+        lib_rel = library_err(torch._weight_int4pack_mm(x, *lib_w[0]), ref,
+                              what + ", torch._weight_int4pack_mm (bf16 output)",
+                              limit=TINYGEMM_REL_L2)
         lib_ms, _ = cuda_ms(cycled(lambda li: torch._weight_int4pack_mm(
             x, *lib_w[li % len(lib_w)])), iters=64)
         del lib_w
@@ -1878,12 +2006,12 @@ def time_paged_kernels(pool, tables, positions, int8: bool):
     qt = q.transpose(1, 2)
     lib, lib_out = cuda_ms(cycled(lambda li: F.scaled_dot_product_attention(
         qt, kc[li], vc[li], attn_mask=visible, enable_gqa=True)), iters=64)
-    lib_rel = rel_l2(lib_out.transpose(1, 2), flash_decode_attention_plain(
-        q, kc[state["li"]:state["li"] + 1], vc[state["li"]:state["li"] + 1], positions, 0))
+    library_err(lib_out.transpose(1, 2), flash_decode_attention_plain(
+        q, kc[state["li"]:state["li"] + 1], vc[state["li"]:state["li"] + 1], positions, 0),
+        f"K5 B={B} T={T} pos={pos_list}, SDPA")
     b_ms, b_by = bound_ms(*k2_work(pos_list, T))
     log(f"K5 B={B} T={T} pos={pos_list}: {ms:.4f} ms (plain {plain:.2f}, sdpa {lib:.4f}, "
-        f"its output {lib_rel:.2e} relative L2 from K5's plain version; bound {b_ms:.4f} "
-        f"by {b_by})")
+        f"bound {b_ms:.4f} by {b_by})")
     rows.append(dict(tag="K5", name="flash_decode_attention, blocked=False (K5)",
                      route="cuda", source="llama_nuts_and_bolts_tpu_torch/csrc/decode_attention.cu",
                      replaces="llama_nuts_and_bolts_tpu/kernels/decode_attention.py:205",
@@ -1905,7 +2033,8 @@ def main() -> int:
     log("phase 4: main path, 32-layer 8B, bf16 weights and cache, random weights")
     results = main_path(tk, vocab)
     rows = time_kernels(errs, results["B"]["prompt"], results["B"]["cache_len"],
-                        results["B"]["prefill_len"])
+                        results["B"]["prefill_len"], results["A"]["prefill_len"],
+                        results["A"]["cache_len"])
     log("phase 5: main path, 32-layer 8B, int4 weights and an int8 cache")
     qresults, qrows = quant_main_path(tk, vocab, errs)
     rows += qrows
@@ -1941,7 +2070,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "dense_bf16_mm_ms", "gather_path_ms", "ms_full_context",
-            "bound_ms_full_context")
+            "bound_ms_full_context", "more_shapes")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

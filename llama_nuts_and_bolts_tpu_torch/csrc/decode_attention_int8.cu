@@ -32,8 +32,8 @@
 // slice, a lane per 4 columns; 4 rows of v are transposed in registers
 // (__byte_perm) so each __dp4a multiplies 4 positions of p_i by 4 of v; the 8
 // slices' int32 partials are summed exactly in shared memory. Integer dots
-// are exact, so the order of their sums does not matter. Known limit, as for
-// K2: at B=1 the grid is KV = 8 blocks on 132 SMs.
+// are exact, so the order of their sums does not matter. Known limit: at
+// B=1 the grid is KV = 8 blocks on 132 SMs (K2's split key walk is the fix).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

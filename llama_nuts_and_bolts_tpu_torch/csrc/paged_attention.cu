@@ -34,8 +34,8 @@
 // amortised TPU grid steps, so here each block serves one KV head. Blocks
 // are scattered in the pool, so a block's bs x 128 tile is staged in shared
 // memory with 16-byte loads; the scores of a whole span stay in shared
-// memory for its softmax update. Known limit, as for K2: at B = 1 the grid is
-// KV = 8 blocks on 132 SMs.
+// memory for its softmax update. Known limit: at B = 1 the grid is KV = 8
+// blocks on 132 SMs (K2's split key walk is the fix).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

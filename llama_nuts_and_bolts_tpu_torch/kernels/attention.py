@@ -24,7 +24,7 @@ from llama_nuts_and_bolts_tpu_torch.kernels.build import check_launch, library
 NEG_INF = -1e30
 HEAD_DIM = 128        # the only head width on the main path
 K1_ROWS = 128         # query rows per block: (K1_ROWS // G) positions x G heads
-K1_BLOCK_K = 64       # cache positions per key tile
+K1_BLOCK_K = 128      # cache positions per key tile (the Pallas kernel's block_k)
 K1_GROUP = 4          # H / KV the kernel is built for: Llama-3.1-8B's 32 / 8
 
 
@@ -33,7 +33,7 @@ class K1Geometry:
     """Launch arithmetic shared by the kernel and the plain version."""
 
     block_q: int                  # positions per q tile
-    grid: Tuple[int, int, int]    # (q tiles, kv heads, batch)
+    grid: Tuple[int, int, int]    # (kv heads, q tiles, batch)
     k_tiles: List[int]            # key tiles streamed by each q tile
 
     def last_visible_tile(self, i: int) -> int:
@@ -48,7 +48,7 @@ def k1_geometry(B: int, S: int, H: int, KV: int, T: int,
     # keys up to the last position any row of q tile i may see
     k_tiles = [-(-min(T, start_pos + (i + 1) * block_q) // K1_BLOCK_K)
                for i in range(n_q)]
-    return K1Geometry(block_q=block_q, grid=(n_q, KV, B), k_tiles=k_tiles)
+    return K1Geometry(block_q=block_q, grid=(KV, n_q, B), k_tiles=k_tiles)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, start_pos):
@@ -77,7 +77,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, start_pos):
 def flash_gqa_attention_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, start_pos: int) -> torch.Tensor:
     """The kernel's function in PyTorch: the same q tiles and key tiles, the
-    same online fp32 softmax and bf16 rounding of p before PV."""
+    same online fp32 softmax and bf16 rounding of p before PV (the kernel
+    takes its exponentials in base 2 of pre-scaled scores: the same values
+    to fp32 rounding)."""
     B, S, H, D = q.shape
     KV, T = k.shape[1], k.shape[2]
     G = H // KV

@@ -7,7 +7,11 @@ kernels serve it, each with a plain PyTorch version beside it that CPU
 tensors take:
 
   * K2, a bf16 cache (``_decode_kernel_blocked``): ``csrc/decode_attention.cu``;
-    counted in ``flash_decode_attention.launches``.
+    counted in ``flash_decode_attention.launches``. Its key walk is split
+    over ``(splits, KV, B)`` blocks (:func:`k2_split_k`, from shapes only),
+    each split's partial softmax combined in split order by the split that
+    finishes last, inside the same launch; :func:`k2_scratch` holds the
+    partials and tickets.
   * K3, an int8 cache with per-position bf16 scales ``[L, B, KV, T]``, each
     element dequantized to ``bf16(bf16(int8) * bf16(scale))`` before the
     products: the same kernel built for int8 tiles; counted in
@@ -45,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -60,23 +64,48 @@ NEG_INF = -1e30
 HEAD_DIM = 128        # the only head width on the main path
 K2_BLOCK_K = 64       # cache positions per tile (K2, K3)
 K2_GROUP = 4          # H / KV the kernels are built for: Llama-3.1-8B's 32 / 8
+K2_TARGET_BLOCKS = 256  # blocks of a call when every split is active: ~2 per SM of 132
+K2_MAX_SPLITS = 256   # splits of one row the kernel's combine takes (csrc: MAX_SPLITS)
 FOLD_TILE_BYTES = 2 * 1024 * 1024
+
+
+def k2_split_k(B: int, KV: int, T: int) -> int:
+    """Keys per split of K2/K3's key walk: the smallest power-of-two
+    multiple of the tile, from two tiles up, that cuts the ``B * KV`` cache
+    heads of length ``T`` into at most about ``K2_TARGET_BLOCKS`` blocks,
+    and at most one split per head for a short cache. A function of shapes
+    only, never of positions: the wrapper launches without reading them
+    back. (On an H100 a split of one tile measured slower at every shape:
+    more splits to combine, or more blocks than the SMs hold at once.)"""
+    want = -(-B * KV * T // K2_TARGET_BLOCKS)
+    split = 2 * K2_BLOCK_K
+    while split < T and (split < want or -(-T // split) > K2_MAX_SPLITS):
+        split *= 2
+    return split
 
 
 @dataclass(frozen=True)
 class K2Geometry:
-    """Launch arithmetic shared by the K2/K3 kernel and the plain version."""
+    """Launch arithmetic shared by the K2/K3 kernel and the plain version:
+    split ``s`` of row ``b`` covers keys ``[s * split_k, (s + 1) * split_k)``
+    in 64-key tiles; the splits past a row's position read nothing."""
 
-    grid: Tuple[int, int]         # (kv heads, batch)
-    k_tiles: List[int]            # tiles streamed by each batch row
+    split_k: int
+    grid: Tuple[int, int, int]    # (splits, kv heads, batch)
+    n_keys: List[int]             # visible keys of each batch row
+    active_splits: List[int]      # splits of each row that run (split 0 always)
 
-    def last_visible_tile(self, b: int) -> int:
-        return self.k_tiles[b] - 1
+    def split_keys(self, b: int, s: int) -> Tuple[int, int]:
+        """The keys ``[start, end)`` that active split ``s`` of row ``b`` reads."""
+        start = s * self.split_k
+        return start, max(start, min(start + self.split_k, self.n_keys[b]))
 
 
 def k2_geometry(B: int, KV: int, T: int, positions: List[int]) -> K2Geometry:
-    return K2Geometry(grid=(KV, B),
-                      k_tiles=[-(-min(p + 1, T) // K2_BLOCK_K) for p in positions])
+    split = k2_split_k(B, KV, T)
+    n_keys = [max(0, min(p + 1, T)) for p in positions]
+    return K2Geometry(split_k=split, grid=(-(-T // split), KV, B), n_keys=n_keys,
+                      active_splits=[max(1, -(-n // split)) for n in n_keys])
 
 
 def decode_block_k(T: int, kv_heads: int, head_dim: int, quantized: bool,
@@ -168,35 +197,45 @@ def flash_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
                                  layer: int = 0, k_scale: Optional[torch.Tensor] = None,
                                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2's (bf16 cache) and K3's (int8 cache with scales) function in
-    PyTorch: per batch row, the same 64-key tiles up to its position, the
-    same online fp32 softmax and bf16 rounding of p."""
+    PyTorch, on the kernel's partition: per batch row, each active split
+    (:func:`k2_geometry`) runs the online fp32 softmax over its own 64-key
+    tiles with p rounded to bf16, then the splits' ``(m, l, acc)`` combine
+    in split order: ``m = max m_i``, ``l = sum l_i e^(m_i - m)``,
+    ``out = sum acc_i e^(m_i - m) / max(l, 1e-30)``."""
     B, _, H, D = q.shape
     KV, T = k.shape[2], k.shape[3]
     G = H // KV
     scale = 1.0 / math.sqrt(D)
-    pos = positions.tolist()
-    geo = k2_geometry(B, KV, T, pos)
+    geo = k2_geometry(B, KV, T, positions.tolist())
     out = torch.empty_like(q)
     for b in range(B):
         qb = q[b, 0].reshape(KV, G, D).float()
+        parts = []
+        for s in range(geo.active_splits[b]):
+            k0, k1 = geo.split_keys(b, s)
+            acc = torch.zeros(KV, G, D, device=q.device)
+            m = torch.full((KV, G, 1), NEG_INF, device=q.device)
+            l = torch.zeros(KV, G, 1, device=q.device)
+            for t0 in range(k0, k1, K2_BLOCK_K):
+                sl = (layer, b, slice(None), slice(t0, min(k1, t0 + K2_BLOCK_K)))
+                ks = None if k_scale is None else k_scale[sl]
+                vs = None if v_scale is None else v_scale[sl]
+                kt, vt = _dequant_tile(k[sl], ks), _dequant_tile(v[sl], vs)
+                s_ = (qb @ kt.transpose(-1, -2)) * scale           # [KV,G,tile]
+                m_new = torch.maximum(m, s_.amax(-1, keepdim=True))
+                p = torch.exp(s_ - m_new)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + p.to(torch.bfloat16).float() @ vt
+                m = m_new
+            parts.append((m, l, acc))
+        m = torch.stack([p[0] for p in parts]).amax(0)
+        l = torch.zeros_like(m)
         acc = torch.zeros(KV, G, D, device=q.device)
-        m = torch.full((KV, G, 1), NEG_INF, device=q.device)
-        l = torch.zeros(KV, G, 1, device=q.device)
-        for kb in range(geo.k_tiles[b]):
-            t0, t1 = kb * K2_BLOCK_K, min(T, (kb + 1) * K2_BLOCK_K)
-            sl = (layer, b, slice(None), slice(t0, t1))
-            ks = None if k_scale is None else k_scale[sl]
-            vs = None if v_scale is None else v_scale[sl]
-            kt, vt = _dequant_tile(k[sl], ks), _dequant_tile(v[sl], vs)
-            s = (qb @ kt.transpose(-1, -2)) * scale                # [KV,G,tile]
-            k_pos = torch.arange(t0, t1, device=q.device)
-            s = torch.where(k_pos <= pos[b], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            p = torch.exp(s - m_new)
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p.to(torch.bfloat16).float() @ vt
-            m = m_new
+        for m_i, l_i, acc_i in parts:
+            w = torch.exp(m_i - m)
+            l = l + l_i * w
+            acc = acc + acc_i * w
         out[b, 0] = (acc / l.clamp_min(1e-30)).reshape(H, D).to(q.dtype)
     return out
 
@@ -244,40 +283,62 @@ def _require_group(H: int, KV: int) -> None:
                          f"got {H // KV}")
 
 
-def _k2_kernel(q, k, v, positions, layer) -> torch.Tensor:
-    """Launch the bf16 cache kernel (K2's, and K5's on a one-layer view)."""
+_k2_scratch: Dict[Tuple[torch.device, int, int, int, int],
+                  Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def k2_scratch(device: torch.device, B: int, KV: int,
+               n_splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2/K3's workspace for a launch on the current stream: every split's
+    fp32 partial ``acc [G, D]`` then its ``(m, l) [G, 2]``, and one ticket
+    counter per (row, KV head), zero between calls (the combining block
+    resets it). Made once per (device, stream, B, KV, splits) and reused, so
+    a decode step allocates nothing and the addresses stay fixed. Calls on
+    one stream run one after another; calls on two streams may overlap, so
+    each stream has its own."""
+    key = (device, _stream(device), B, KV, n_splits)
+    if key not in _k2_scratch:
+        parts = torch.empty(B * KV * n_splits * K2_GROUP * (HEAD_DIM + 2),
+                            dtype=torch.float32, device=device)
+        tickets = torch.zeros(B * KV, dtype=torch.int32, device=device)
+        _k2_scratch[key] = (parts, tickets)
+    return _k2_scratch[key]
+
+
+def _decode_kernel(entry: str, q, k, v, scales, positions, layer,
+                   lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """Launch the bf16 (``scales=()``) or int8 (``scales=(k_scale,
+    v_scale)``) cache kernel: K2's or K3's, and K5's on a one-layer view.
+    ``lib`` is another build of the same source (``k2_breakdown``)."""
     B, _, H, D = q.shape
     KV, T = k.shape[2], k.shape[3]
     _require_group(H, KV)
+    split = k2_split_k(B, KV, T)
+    parts, tickets = k2_scratch(q.device, B, KV, -(-T // split))
     out = torch.empty_like(q)
-    fn = library("decode_attention").lnb_flash_decode_attention
+    fn = getattr(lib or library("decode_attention"), entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * (8 + len(scales)) + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
+    ml = parts.data_ptr() + B * KV * (-(-T // split)) * K2_GROUP * D * parts.element_size()
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(),
-                 out.data_ptr(), B, H, KV, T, layer, 1.0 / math.sqrt(D),
-                 _stream(q.device))
-    check_launch(err, "flash_decode_attention")
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 *(s.data_ptr() for s in scales), positions.data_ptr(), out.data_ptr(),
+                 parts.data_ptr(), ml, tickets.data_ptr(), B, H, KV, T, layer, split,
+                 1.0 / math.sqrt(D), _stream(q.device))
+    check_launch(err, entry.removeprefix("lnb_"))
     return out
+
+
+def _k2_kernel(q, k, v, positions, layer) -> torch.Tensor:
+    """Launch the bf16 cache kernel (K2's, and K5's on a one-layer view)."""
+    return _decode_kernel("lnb_flash_decode_attention", q, k, v, (), positions, layer)
 
 
 def _k3_kernel(q, k, v, k_scale, v_scale, positions, layer) -> torch.Tensor:
     """Launch the int8 cache kernel (K3's, and K5's on a one-layer view)."""
-    B, _, H, D = q.shape
-    KV, T = k.shape[2], k.shape[3]
-    _require_group(H, KV)
-    out = torch.empty_like(q)
-    fn = library("decode_attention").lnb_flash_decode_attention_q8
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-                 v_scale.data_ptr(), positions.data_ptr(), out.data_ptr(), B, H, KV,
-                 T, layer, 1.0 / math.sqrt(D), _stream(q.device))
-    check_launch(err, "flash_decode_attention_q8")
-    return out
+    return _decode_kernel("lnb_flash_decode_attention_q8", q, k, v, (k_scale, v_scale),
+                          positions, layer)
 
 
 def _launch_k2(q, k, v, positions, layer) -> torch.Tensor:

@@ -21,6 +21,8 @@ from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
     flash_decode_attention_plain,
     flash_decode_attention_q8,
     flash_decode_attention_whole_head,
+    k2_scratch,
+    k2_split_k,
 )
 from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
     paged_chunk,
@@ -70,8 +72,12 @@ def int8_cache(shape, gen, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("S,start_pos,T", [(128, 0, 128), (77, 300, 512),
-                                           (512, 0, 2048)])
+                                           (512, 0, 2048), (333, 700, 2048), (5, 50, 64)])
 def test_k1_kernel_matches_plain(cuda, S, start_pos, T):
+    """Full and diagonal tiles, history (start_pos > 0), a ragged S over
+    several q tiles, a cache longer than start_pos + S; a cache shorter than
+    one key tile and fewer rows than one q tile (the TMA boxes read past
+    both ends as zeros)."""
     gen = torch.Generator(device=cuda).manual_seed(S)
     q = rand((2, S, H, D), gen, cuda)
     k, v = rand((2, KV, T, D), gen, cuda), rand((2, KV, T, D), gen, cuda)
@@ -84,11 +90,20 @@ def test_k1_kernel_matches_plain(cuda, S, start_pos, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,layer,T,positions", [(1, 0, 1024, [0, 1023]),
-                                                 (3, 2, 700, [63, 64, 699])])
+@pytest.mark.parametrize("L,layer,T,positions", [
+    (1, 0, 1024, [0, 1023]), (3, 2, 700, [63, 64, 699]),
+    # split_k 512: a split's last key, the next split's first and second
+    (2, 1, 4096, [511, 512, 513]),
+    # one row at position 0, the other at T - 1 (every split combined)
+    (1, 0, 8192, [0, 8191]), (2, 1, 2048, [3, 700, 2047, 1000])])
 def test_k2_kernel_matches_plain(cuda, L, layer, T, positions):
+    """K2's split key walk and its in-launch combine against the plain
+    version's partition; a second call reuses the zeroed tickets and never
+    synchronises with the host (the positions stay on the card)."""
     gen = torch.Generator(device=cuda).manual_seed(T)
     B = len(positions)
+    if T == 4096:
+        assert k2_split_k(B, KV, T) == 512
     q = rand((B, 1, H, D), gen, cuda)
     k, v = rand((L, B, KV, T, D), gen, cuda), rand((L, B, KV, T, D), gen, cuda)
     pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
@@ -98,6 +113,43 @@ def test_k2_kernel_matches_plain(cuda, L, layer, T, positions):
     assert flash_decode_attention.launches == before + 1
     ref = flash_decode_attention_plain(q, k, v, pos, layer)
     assert_matches(got, ref)
+    split = k2_split_k(B, KV, T)
+    _, tickets = k2_scratch(q.device, B, KV, -(-T // split))
+    assert int(tickets.abs().sum()) == 0                 # reset by the combining blocks
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = flash_decode_attention(q, k, v, pos, layer=layer)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the combine runs in split order: the same bits on every call
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_k2_calls_on_two_streams_keep_their_own_tickets(cuda):
+    """Two streams launching K2 at one shape at once: each has its own
+    partials and tickets, so neither combines the other's splits, every
+    output matches the plain version and every ticket is back at zero."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    B, L, T = 2, 2, 4096
+    k, v = rand((L, B, KV, T, D), gen, cuda), rand((L, B, KV, T, D), gen, cuda)
+    qs = [rand((B, 1, H, D), gen, cuda) for _ in range(2)]
+    pos = torch.tensor([4095, 2000], dtype=torch.int32, device=cuda)
+    refs = [flash_decode_attention_plain(q, k, v, pos, 1) for q in qs]
+    n_splits = -(-T // k2_split_k(B, KV, T))
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    outs, tickets = [], []
+    for q, stream in zip(qs, streams):
+        with torch.cuda.stream(stream):
+            outs.append([flash_decode_attention(q, k, v, pos, layer=1) for _ in range(16)])
+            tickets.append(k2_scratch(cuda, B, KV, n_splits)[1])
+    torch.cuda.synchronize()
+    assert tickets[0].data_ptr() != tickets[1].data_ptr()
+    for calls, ref, t in zip(outs, refs, tickets):
+        for got in calls:
+            assert_matches(got, ref)
+        assert int(t.abs().sum()) == 0
 
 
 @pytest.mark.gpu

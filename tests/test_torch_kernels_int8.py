@@ -173,21 +173,27 @@ def test_k4_int8_mxu_plain_follows_the_jax_tile():
     assert err < err_small
 
 
-def test_k3_plain_matches_pallas_interpret():
+@pytest.mark.parametrize("T,positions,block_k", [
+    (256, POSITIONS, 64),
+    # 128-key splits (K2's partition): one active split, a split's last key,
+    # the next split's first key, all 8 splits combined
+    (1024, np.array([5, 127, 128, 1023], np.int32), 256)])
+def test_k3_plain_matches_pallas_interpret(T, positions, block_k):
     """The fold_heads=False int8 call (K3: _decode_kernel_blocked on an int8
-    cache), stacked cache at layer 2, per-row positions; and the 4-D
-    single-layer form."""
-    q, k, v, ks, vs = stacked_case(3, True)
+    cache), stacked cache at layer 2, per-row positions, on K2's split key
+    walk and combine; and the 4-D single-layer form."""
+    q, k, v, ks, vs = stacked_case(3, True, B=len(positions), T=T)
+    assert dk.k2_split_k(len(positions), 2, T) == 128
     want = jax_flash_decode_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(POSITIONS),
-        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs), block_k=64, layer=2,
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(positions),
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs), block_k=block_k, layer=2,
         interpret=True)
     before = counts()
-    got = dk.flash_decode_attention(t(q), t(k), t(v), torch.from_numpy(POSITIONS),
+    got = dk.flash_decode_attention(t(q), t(k), t(v), torch.from_numpy(positions),
                                     k_scale=t(ks), v_scale=t(vs), layer=2)
     assert counts() == before
     compare_tensor(got.float().numpy(), np.asarray(want, np.float32), "bfloat16")
-    one = dk.flash_decode_attention(t(q), t(k[2]), t(v[2]), torch.from_numpy(POSITIONS),
+    one = dk.flash_decode_attention(t(q), t(k[2]), t(v[2]), torch.from_numpy(positions),
                                     k_scale=t(ks[2]), v_scale=t(vs[2]))
     assert torch.equal(one, got)
     # the plain version reads the dequantized tiles: the same function as
@@ -195,7 +201,7 @@ def test_k3_plain_matches_pallas_interpret():
     deq = lambda c, s: (c.astype(np.float32) * s.astype(np.float32)[..., None]).astype(  # noqa: E731
         ml_dtypes.bfloat16)
     ref = dk.flash_decode_attention(t(q), t(deq(k, ks)), t(deq(v, vs)),
-                                    torch.from_numpy(POSITIONS), layer=2)
+                                    torch.from_numpy(positions), layer=2)
     assert torch.equal(ref, got)
 
 
