@@ -212,8 +212,10 @@ def setup():
             if entry:
                 kernel = line[entry.end():entry.end() + int(entry.group(1))]
                 rest = line[entry.end() + len(kernel):]
+                count = re.match(r"ILi(\d+)E", rest)          # an int template argument
                 kind = ("<int8>" if rest.startswith("IaE") else
-                        "<bf16>" if rest.startswith("I13__nv_bfloat16E") else "")
+                        "<bf16>" if rest.startswith("I13__nv_bfloat16E") else
+                        f"<{count.group(1)}>" if count else "")
                 log(f"ptxas {src}: {kernel}{kind}")
             elif "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"ptxas {src}: {line.strip()}")
@@ -282,6 +284,29 @@ def k8_group_dropped(x, packed, scale):
     scale = scale.clone()
     scale[scale.shape[0] // 2] = 0
     return q4_matmul(x, packed, scale)
+
+
+def k8_last_split_dropped(x, packed, scale):
+    """Planted fault: K8 combining every split but the last (k8_split's
+    partition): the last split's groups' scales zeroed."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import k8_split, q4_matmul
+
+    G, out_dim, _ = packed.shape
+    split = k8_split(x.shape[0], x.shape[1], out_dim, G)
+    scale = scale.clone()
+    scale[(G - 1) // split * split:] = 0
+    return q4_matmul(x, packed, scale)
+
+
+def k8_halves_swapped(x, packed, scale):
+    """Planted fault: K8 with x's low and high halves swapped within each
+    group, what a wrong fragment permutation (low nibbles on the high half's
+    x) computes."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import q4_matmul
+
+    G = packed.shape[0]
+    swapped = x.reshape(x.shape[0], G, 2, -1).flip(2).reshape(x.shape).contiguous()
+    return q4_matmul(swapped, packed, scale)
 
 
 def tinygemm_pack(w):
@@ -410,7 +435,7 @@ def check_quant_kernels():
     int8-dot mode (at the JAX tile) over a range of positions, per-row
     positions and a stacked cache; K4's bf16 and int8-dequantizing modes,
     which launch the K2 and K3 kernels; K8 at the 8B projection shapes for
-    R = 1, 16, 32."""
+    R = 1, 3, 9, 16, 17, 32."""
     from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
         decode_block_k, flash_decode_attention, flash_decode_attention_int8_mxu_plain,
         flash_decode_attention_plain)
@@ -457,13 +482,21 @@ def check_quant_kernels():
     for out_dim, in_dim in ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)):
         w = torch.randn((out_dim, in_dim), generator=gen, device="cuda") / in_dim ** 0.5
         qt = quantize_tensor_q4(w)
-        for R in (1, 16, 32):
+        for R in (1, 3, 9, 16, 17, 32):          # every row bucket, at and past its edge
             x = randn((R, in_dim), gen)
             got = q4_matmul(x, qt.packed, qt.scale)
             torch.cuda.synchronize()
             ref = q4_matmul_plain(x, qt.packed, qt.scale)
             errs["K8"] = max(errs["K8"], kernel_err(
                 got, ref, f"K8 R={R} out={out_dim} in={in_dim}",
+                limits=(K8_ATOL, K8_RTOL, K8_REL_L2)))
+        if in_dim == 14336:
+            # w_down's 56 groups in splits of 11 (the last of 1 group)
+            got = q4_matmul(x[:1], qt.packed, qt.scale, 11)
+            torch.cuda.synchronize()
+            errs["K8"] = max(errs["K8"], kernel_err(
+                got, q4_matmul_plain(x[:1], qt.packed, qt.scale, 11),
+                f"K8 R=1 out={out_dim} in={in_dim}, splits of 11 groups",
                 limits=(K8_ATOL, K8_RTOL, K8_REL_L2)))
     return errs
 
@@ -1053,7 +1086,7 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
         flash_decode_attention_int8_mxu_plain, flash_decode_attention_plain, k2_geometry,
         k2_split_k)
     from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import (
-        q4_matmul, q4_matmul_plain)
+        k8_split, q4_matmul, q4_matmul_plain)
     from llama_nuts_and_bolts_tpu_torch.quant import unpack_q4
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1167,6 +1200,12 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
         if name in ("output", "w_down") and R in (1, 32):
             kernel_err(k8_group_dropped(x, ws[0].packed, ws[0].scale), ref,
                        what + ", one group's scale dropped", planted=True, limits=limits)
+        split = k8_split(R, in_dim, out_dim, G)
+        kernel_err(k8_last_split_dropped(x, ws[0].packed, ws[0].scale), ref,
+                   what + f", the last of {-(-G // split)} splits dropped", planted=True,
+                   limits=limits)
+        kernel_err(k8_halves_swapped(x, ws[0].packed, ws[0].scale), ref,
+                   what + ", x's halves swapped in each group", planted=True, limits=limits)
         ms, _ = cuda_ms(cycled(lambda li: q4_matmul(x, ws[li % len(ws)].packed,
                                                     ws[li % len(ws)].scale)), iters=64)
         plain, _ = cuda_ms(lambda: q4_matmul_plain(x, ws[0].packed, ws[0].scale),
@@ -1184,23 +1223,35 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
         dense = [unpack_q4(w) for w in ws[:max(1, -(-200 * 2**20 // (out_dim * in_dim * 2)))]]
         mm_ms, _ = cuda_ms(cycled(lambda li: torch.mm(x, dense[li % len(dense)].t())),
                            iters=64)
+        del dense
         b_ms, b_by = bound_ms(*k8_work(R, in_dim, out_dim, G, half))
-        log(f"{what}: {ms:.4f} ms (plain {plain:.2f}, torch._weight_int4pack_mm "
-            f"{lib_ms:.4f}, dense bf16 mm {mm_ms:.4f}, bound {b_ms:.4f} by {b_by})")
-        extra["k8"].append(dict(weight=name, R=R, out=out_dim, ms=ms, plain_ms=plain,
-                                library_ms=lib_ms, library_rel_l2=lib_rel,
-                                dense_bf16_mm_ms=mm_ms, bound_ms=b_ms, bound_by=b_by))
+        entry = dict(shape=f"{name} R={R} x [{R},{in_dim}] bf16, packed [{G},{out_dim},"
+                           f"{half}], {split} of {G} groups a split",
+                     ms=ms, plain_ms=plain, library_ms=lib_ms, library_rel_l2=lib_rel,
+                     dense_bf16_mm_ms=mm_ms, bound_ms=b_ms, bound_by=b_by)
+        route = ""
+        if R > 1:
+            # ops/linear.py's route above 32 rows (unpack_q4, then a product
+            # with fp32 out), at K8's row counts: another function, since it
+            # rounds each weight times its scale to bf16 (read, not judged)
+            entry["unpack_mm_rel_l2"] = rel_l2(torch.mm(
+                x, unpack_q4(ws[0]).t(), out_dtype=torch.float32), ref)
+            entry["unpack_mm_ms"], _ = cuda_ms(cycled(lambda li: torch.mm(
+                x, unpack_q4(ws[li % len(ws)]).t(), out_dtype=torch.float32)), iters=32)
+            route = (f", unpack_q4 + mm {entry['unpack_mm_ms']:.4f} "
+                     f"({entry['unpack_mm_rel_l2']:.2e} relative L2 from K8's function)")
+        log(f"{what}: {ms:.4f} ms (split {split}; plain {plain:.2f}, "
+            f"torch._weight_int4pack_mm {lib_ms:.4f}, dense bf16 mm {mm_ms:.4f}{route}, "
+            f"bound {b_ms:.4f} by {b_by})")
+        extra["k8"].append(entry)
         if name == "output" and R == 1:
-            rows.append(dict(name="q4_matmul (K8)", route="cuda",
-                             source="llama_nuts_and_bolts_tpu_torch/csrc/q4_matmul.cu",
-                             replaces="llama_nuts_and_bolts_tpu/kernels/q4_matmul.py:36",
-                             max_abs_err=errs["K8"], ms=ms, plain_ms=plain,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                             library="torch._weight_int4pack_mm (bf16 out)",
-                             dense_bf16_mm_ms=mm_ms,
-                             shape=f"R=1 x [1,{in_dim}] bf16, head packed [{G},{out_dim},"
-                                   f"{half}] (128256-row logits head)"))
-        del dense, ws
+            head = entry
+        del ws
+    rows.append(dict(name="q4_matmul (K8)", route="cuda",
+                     source="llama_nuts_and_bolts_tpu_torch/csrc/q4_matmul.cu",
+                     replaces="llama_nuts_and_bolts_tpu/kernels/q4_matmul.py:36",
+                     max_abs_err=errs["K8"], library="torch._weight_int4pack_mm (bf16 out)",
+                     more_shapes=[e for e in extra["k8"] if e is not head], **head))
     torch.cuda.empty_cache()
     return rows, extra
 

@@ -19,7 +19,7 @@ from typing import List, Tuple
 
 import torch
 
-from llama_nuts_and_bolts_tpu_torch.kernels.build import check_launch, library
+from llama_nuts_and_bolts_tpu_torch.kernels.build import check_launch, cuda_stream, library
 
 NEG_INF = -1e30
 HEAD_DIM = 128        # the only head width on the main path
@@ -134,9 +134,8 @@ def flash_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, S, H, KV, T, start_pos, 1.0 / math.sqrt(D), stream)
+                 B, S, H, KV, T, start_pos, 1.0 / math.sqrt(D), cuda_stream(q.device))
     check_launch(err, "flash_gqa_attention")
     flash_gqa_attention.launches += 1
     return out

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/lib<name>.so`` at the repository root (listed
 in ``.gitignore``). A library is rebuilt when its source is newer. No
 PyTorch headers are compiled, so a build takes seconds; :func:`build` starts
-one ``nvcc`` per source, all at once.
+one ``nvcc`` per source, all at once. The launch helpers every wrapper shares
+(:func:`cuda_stream`, :func:`split_workspace`, :func:`check_launch`) live
+here too.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -96,3 +100,27 @@ def check_launch(err: int, kernel: str) -> None:
     """Raise when a kernel's C entry point reports a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{kernel}: launch failed with cudaError_t {err}")
+
+
+def cuda_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current stream, on which every launch runs."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+_workspaces: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def split_workspace(device: torch.device, key: tuple, n_floats: int,
+                    n_tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A split kernel's workspace for a launch on the current stream:
+    ``n_floats`` fp32 partials and ``n_tickets`` int32 ticket counters, zero
+    between calls (the block that combines a ticket's splits resets it).
+    Made once per (device, stream, ``key``) and reused, so a launch
+    allocates nothing and the addresses stay fixed. ``key`` names the kernel
+    and the shapes the sizes follow from. Calls on one stream run one after
+    another; calls on two streams may overlap, so each stream has its own."""
+    full = (device, cuda_stream(device), *key)
+    if full not in _workspaces:
+        _workspaces[full] = (torch.empty(n_floats, dtype=torch.float32, device=device),
+                             torch.zeros(n_tickets, dtype=torch.int32, device=device))
+    return _workspaces[full]

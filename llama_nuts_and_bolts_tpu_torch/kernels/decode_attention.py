@@ -49,11 +49,16 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
-from llama_nuts_and_bolts_tpu_torch.kernels.build import check_launch, library
+from llama_nuts_and_bolts_tpu_torch.kernels.build import (
+    check_launch,
+    cuda_stream,
+    library,
+    split_workspace,
+)
 from llama_nuts_and_bolts_tpu_torch.kernels.quant_attn_math import (
     int8_pv,
     int8_scores,
@@ -273,36 +278,20 @@ def flash_decode_attention_int8_mxu_plain(
     return out
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _require_group(H: int, KV: int) -> None:
     if H // KV != K2_GROUP:
         raise ValueError(f"the decode kernels are built for G = H/KV = {K2_GROUP}, "
                          f"got {H // KV}")
 
 
-_k2_scratch: Dict[Tuple[torch.device, int, int, int, int],
-                  Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
 def k2_scratch(device: torch.device, B: int, KV: int,
                n_splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2/K3's workspace for a launch on the current stream: every split's
-    fp32 partial ``acc [G, D]`` then its ``(m, l) [G, 2]``, and one ticket
-    counter per (row, KV head), zero between calls (the combining block
-    resets it). Made once per (device, stream, B, KV, splits) and reused, so
-    a decode step allocates nothing and the addresses stay fixed. Calls on
-    one stream run one after another; calls on two streams may overlap, so
-    each stream has its own."""
-    key = (device, _stream(device), B, KV, n_splits)
-    if key not in _k2_scratch:
-        parts = torch.empty(B * KV * n_splits * K2_GROUP * (HEAD_DIM + 2),
-                            dtype=torch.float32, device=device)
-        tickets = torch.zeros(B * KV, dtype=torch.int32, device=device)
-        _k2_scratch[key] = (parts, tickets)
-    return _k2_scratch[key]
+    """K2/K3's workspace for a launch on the current stream
+    (:func:`build.split_workspace`): every split's fp32 partial
+    ``acc [G, D]`` then its ``(m, l) [G, 2]``, and one ticket counter per
+    (row, KV head)."""
+    return split_workspace(device, ("k2", B, KV, n_splits),
+                           B * KV * n_splits * K2_GROUP * (HEAD_DIM + 2), B * KV)
 
 
 def _decode_kernel(entry: str, q, k, v, scales, positions, layer,
@@ -325,7 +314,7 @@ def _decode_kernel(entry: str, q, k, v, scales, positions, layer,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  *(s.data_ptr() for s in scales), positions.data_ptr(), out.data_ptr(),
                  parts.data_ptr(), ml, tickets.data_ptr(), B, H, KV, T, layer, split,
-                 1.0 / math.sqrt(D), _stream(q.device))
+                 1.0 / math.sqrt(D), cuda_stream(q.device))
     check_launch(err, entry.removeprefix("lnb_"))
     return out
 
@@ -389,7 +378,7 @@ def flash_decode_attention_int8_mxu(q, k, v, k_scale, v_scale, positions,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                  v_scale.data_ptr(), positions.data_ptr(), out.data_ptr(), B, H, KV,
-                 T, layer, block_k, 1.0 / math.sqrt(D), _stream(q.device))
+                 T, layer, block_k, 1.0 / math.sqrt(D), cuda_stream(q.device))
     check_launch(err, "flash_decode_attention_int8_mxu")
     flash_decode_attention_int8_mxu.launches += 1
     return out

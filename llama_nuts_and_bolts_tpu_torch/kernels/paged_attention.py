@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from llama_nuts_and_bolts_tpu_torch.kernels.build import check_launch, library
+from llama_nuts_and_bolts_tpu_torch.kernels.build import check_launch, cuda_stream, library
 from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
     HEAD_DIM,
     K2_GROUP,
@@ -188,10 +188,6 @@ def _require_kernel_shape(q, pool_k) -> None:
             raise ValueError("the paged kernels take 16-byte aligned tensors")
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _bf16_kernel(q, pool_k, pool_v, tables, positions, layer, chunk, scale):
     _require_kernel_shape(q, pool_k)
     B, _, H, D = q.shape
@@ -204,7 +200,7 @@ def _bf16_kernel(q, pool_k, pool_v, tables, positions, layer, chunk, scale):
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
                  positions.data_ptr(), out.data_ptr(), B, H, KV, tables.shape[1],
-                 n_blocks, bs, chunk, layer, scale, _stream(q.device))
+                 n_blocks, bs, chunk, layer, scale, cuda_stream(q.device))
     check_launch(err, "paged_flash_decode")
     return out
 
@@ -225,7 +221,7 @@ def paged_flash_decode_int8(q, pool_k, pool_v, pool_ks, pool_vs, tables, positio
         err = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pool_ks.data_ptr(),
                  pool_vs.data_ptr(), tables.data_ptr(), positions.data_ptr(),
                  out.data_ptr(), B, H, KV, tables.shape[1], n_blocks, bs, layer, scale,
-                 _stream(q.device))
+                 cuda_stream(q.device))
     check_launch(err, "paged_flash_decode_int8")
     paged_flash_decode_int8.launches += 1
     return out

@@ -19,9 +19,10 @@ needs nothing of ``quant/`` (which imports the model, which imports this):
     package this is plain tensor code, so on the card every call makes a
     bf16 copy of the weight (PERF.md).
   * ``Q4Tensor`` (``packed``/``scale``, int4): K8 (``kernels/q4_matmul.py``)
-    on a CUDA tensor for decode-shaped calls (at most 32 rows, one layer's
-    3-D ``packed``, ``K/2`` and ``out`` multiples of 128); otherwise, on the
-    card and on the CPU alike, ``unpack_q4`` and a dense product.
+    on a CUDA tensor for decode-shaped calls (``k8_takes``: at most 32 rows,
+    as in decode steps, the logits head and prefill buckets of 16 and 32, and
+    a weight layout the kernel holds); otherwise, on the card and on the CPU
+    alike, ``unpack_q4`` and a dense product.
 """
 
 from __future__ import annotations
@@ -31,9 +32,7 @@ from typing import Optional
 
 import torch
 
-# rows under which a Q4Tensor product runs K8 on the card (decode steps, the
-# logits head, prefill buckets of 16 and 32)
-_Q4_KERNEL_MAX_ROWS = 32
+from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import k8_takes, q4_matmul
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor,
@@ -65,13 +64,9 @@ def linear(x: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None) -> torch
 def _linear_q4(x: torch.Tensor, w, out_dtype: Optional[torch.dtype]) -> torch.Tensor:
     lead = x.shape[:-1]
     rows = math.prod(lead)
-    G, out_dim, half = w.packed.shape[-3:]
-    if (x.device.type == "cuda" and w.packed.dim() == 3
-            and rows <= _Q4_KERNEL_MAX_ROWS and half % 128 == 0 and out_dim % 128 == 0):
-        from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import q4_matmul
-
+    if x.device.type == "cuda" and k8_takes(rows, w.packed):
         out = q4_matmul(x.reshape(rows, x.shape[-1]), w.packed, w.scale)
-        out = out.reshape(*lead, out_dim)
+        out = out.reshape(*lead, w.packed.shape[1])
     else:
         from llama_nuts_and_bolts_tpu_torch.quant.int4 import unpack_q4
 

@@ -19,6 +19,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from llama_nuts_and_bolts_tpu_torch.device import resolve_device
+from llama_nuts_and_bolts_tpu_torch.kernels.attention import HEAD_DIM, K1_GROUP
+from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import K2_GROUP
 from llama_nuts_and_bolts_tpu_torch.models.llama.loader import LoadedModel
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache, forward
 from llama_nuts_and_bolts_tpu_torch.ops.sampling import sample_token
@@ -86,8 +88,9 @@ class InferenceEngine:
         self._prefix_cache: Dict[tuple, KVCache] = {}
         if self.args.attn_impl.startswith("flash") and not self._kernels_viable():
             raise ValueError(
-                f"attn_impl={self.args.attn_impl!r} needs head_dim % 128 == 0 "
-                f"(the kernels' width); this model has head_dim {model.cfg.head_dim}")
+                f"attn_impl={self.args.attn_impl!r} needs head_dim {HEAD_DIM} and G = "
+                f"H/KV = {K1_GROUP} (the kernels' shape); this model has head_dim "
+                f"{model.cfg.head_dim} and G = {model.cfg.n_heads / model.cfg.kv_heads:g}")
 
     # ------------------------------------------------------------ tokenize
 
@@ -125,16 +128,21 @@ class InferenceEngine:
         return min(b, self.seq_len)
 
     def _kernels_viable(self) -> bool:
-        return self.model.cfg.head_dim % 128 == 0
+        """Whether the attention kernels (K1, K2, K4, K6) take this model:
+        they are built for head_dim 128 and G = H/KV = 4 only, and raise on
+        any other shape, so ``auto`` sends other models to the plain path."""
+        cfg = self.model.cfg
+        G = cfg.n_heads / cfg.kv_heads
+        return cfg.head_dim == HEAD_DIM and G == K1_GROUP and G == K2_GROUP
 
     def _attn_impl(self, seq_len: int = 1, cache_len: Optional[int] = None) -> str:
         """The attention path of a forward over ``seq_len`` new rows into a
         cache of ``cache_len`` slots. ``auto`` on a card, when the model's
-        head_dim fits the kernels: a bf16 cache takes the kernels for every
-        prefill (K1) and decode step (K2) at every bucket; an int8 cache, as
-        in the JAX package, takes them only to decode (K4) and only when
-        ``cache_len`` is a multiple of 128 (the kernel's tiles must divide
-        it), and prefills on the plain path. A forced ``flash`` or
+        shape fits the kernels (:meth:`_kernels_viable`): a bf16 cache takes
+        the kernels for every prefill (K1) and decode step (K2) at every
+        bucket; an int8 cache, as in the JAX package, takes them only to
+        decode (K4) and only when ``cache_len`` is a multiple of 128 (the
+        kernel's tiles must divide it), and prefills on the plain path. A forced ``flash`` or
         ``flash_folded`` runs the kernels where they can run: an int8 cache
         prefills on the plain path, a bf16 one on K1 (the JAX engine hands
         ``flash_folded`` to its prefill, which refuses it)."""

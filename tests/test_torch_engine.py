@@ -28,6 +28,7 @@ from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
 from llama_nuts_and_bolts_tpu_torch.models.llama.convert import params_from_numpy
 from llama_nuts_and_bolts_tpu_torch.models.llama.loader import LoadedModel
 from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+from llama_nuts_and_bolts_tpu_torch.runtime.paged import default_attn_impl
 from llama_nuts_and_bolts_tpu_torch.tokenizer import TiktokenModel, Vocabulary
 from llama_nuts_and_bolts_tpu_torch.tokenizer.tiktoken_io import build_special_tokens
 from llama_nuts_and_bolts_tpu_torch.utils.testing import compare_tensor
@@ -189,7 +190,36 @@ def test_attention_rules_follow_the_jax_engine(kv, impl, want):
     eng, _ = engines(False, kv_cache_dtype=kv, attn_impl="plain")
     eng.args.attn_impl = impl
     eng.device = torch.device("cuda", 0)
-    eng.model.cfg = dataclasses.replace(eng.model.cfg, dim=512)     # head_dim 128
+    # head_dim 128 and G = 4: the kernels' shape
+    eng.model.cfg = dataclasses.replace(eng.model.cfg, dim=512, n_kv_heads=1)
     assert eng._kernels_viable()
     for (seq_len, cache_len), path in want.items():
         assert eng._attn_impl(seq_len, cache_len) == path
+
+
+@pytest.mark.parametrize("G", [3, 4, 8])
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+def test_auto_takes_the_kernels_only_at_their_shape(G, head_dim):
+    """The attention kernels are built for head_dim 128 and G = H/KV = 4
+    only (a Llama-3.2-3B has G = 3, a 70B G = 8): on a card, ``auto`` takes
+    them for that shape alone, the dense and paged paths alike, and a forced
+    ``flash`` or ``flash_folded`` is refused at construction, naming head_dim
+    and G. The rules are read for a card without running on it."""
+    eng, _ = engines(False, attn_impl="plain")
+    cfg = dataclasses.replace(eng.model.cfg, n_heads=G * 2, n_kv_heads=2,
+                              dim=G * 2 * head_dim)
+    assert (cfg.head_dim, cfg.n_rep) == (head_dim, G)
+    model = dataclasses.replace(eng.model, cfg=cfg)
+    eng.model, eng.args.attn_impl = model, "auto"
+    eng.device = torch.device("cuda", 0)
+    viable = head_dim == 128 and G == 4
+    assert eng._kernels_viable() == viable
+    want = "flash" if viable else "plain"
+    assert (eng._attn_impl(1, 256), eng._attn_impl(64, 256)) == (want, want)
+    assert default_attn_impl(eng) == want
+    for impl in ("flash", "flash_folded"):
+        if viable:
+            InferenceEngine(model, InferenceArgs(attn_impl=impl), device="cpu")
+            continue
+        with pytest.raises(ValueError, match=f"head_dim {head_dim} and G = {G}$"):
+            InferenceEngine(model, InferenceArgs(attn_impl=impl), device="cpu")

@@ -32,7 +32,12 @@ from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
     paged_flash_decode_per_head,
     paged_flash_decode_plain,
 )
-from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import q4_matmul, q4_matmul_plain
+from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import (
+    k8_scratch,
+    k8_split,
+    q4_matmul,
+    q4_matmul_plain,
+)
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import quantize_kv_rows
 from llama_nuts_and_bolts_tpu_torch.quant import quantize_tensor_q4
 
@@ -188,20 +193,131 @@ def test_k3_k4_kernels_match_plain(cuda, L, layer, T, positions):
     assert_matches(got, flash_decode_attention_plain(q, kb, vb, pos, layer))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("rows", [1, 3, 16, 32])
-@pytest.mark.parametrize("out_dim,in_dim", [(1024, 4096), (4096, 14336)])
-def test_k8_kernel_matches_plain(cuda, rows, out_dim, in_dim):
-    gen = torch.Generator(device=cuda).manual_seed(rows + out_dim)
-    w = torch.randn((out_dim, in_dim), generator=gen, device=cuda) / in_dim ** 0.5
+def k8_case(gen, device, rows, out_dim, in_dim):
+    w = torch.randn((out_dim, in_dim), generator=gen, device=device) / in_dim ** 0.5
     qt = quantize_tensor_q4(w)
-    x = rand((rows, in_dim), gen, cuda)
+    return rand((rows, in_dim), gen, device), qt.packed, qt.scale
+
+
+def k8_tickets(x, packed):
+    G, out_dim, _ = packed.shape
+    n_splits = -(-G // k8_split(x.shape[0], x.shape[1], out_dim, G))
+    return k8_scratch(x.device, x.shape[0], out_dim, n_splits)[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 16, 17, 32])
+@pytest.mark.parametrize("out_dim,in_dim", [(1024, 4096), (4096, 14336), (14336, 4096),
+                                            (4096, 3584)])
+def test_k8_kernel_matches_plain(cuda, rows, out_dim, in_dim):
+    """Every row bucket and its edges (8, 16 and 32 rows: 1, 2 and 4 mma
+    n-tiles); wk/wv's 16 tiles in 8 splits, w_down's 56 groups in 4 to 14
+    splits, w_gate in one; 14 groups in splits of 3, the last of 2."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + out_dim)
+    x, packed, scale = k8_case(gen, cuda, rows, out_dim, in_dim)
+    G = packed.shape[0]
+    split = k8_split(rows, in_dim, out_dim, G)
+    if in_dim == 3584:
+        assert (G, split) == (14, 3)
     before = q4_matmul.launches
-    got = q4_matmul(x, qt.packed, qt.scale)
+    got = q4_matmul(x, packed, scale)
     torch.cuda.synchronize()
     assert q4_matmul.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (rows, out_dim)
-    assert_matches(got, q4_matmul_plain(x, qt.packed, qt.scale), K8_ATOL, K8_RTOL, K8_REL_L2)
+    assert_matches(got, q4_matmul_plain(x, packed, scale), K8_ATOL, K8_RTOL, K8_REL_L2)
+    if -(-G // split) > 1:
+        assert int(k8_tickets(x, packed).abs().sum()) == 0   # reset by the combining blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,split", [(1, 11), (1, 5), (9, 3), (32, 3)])
+def test_k8_forced_splits_of_w_down(cuda, rows, split):
+    """w_down's 56 groups in splits that do not divide them (the last of 1,
+    1, 2 and 2 groups), against the plain version on the same partition."""
+    gen = torch.Generator(device=cuda).manual_seed(rows * 7 + split)
+    x, packed, scale = k8_case(gen, cuda, rows, 4096, 14336)
+    assert packed.shape[0] % split
+    got = q4_matmul(x, packed, scale, split)
+    assert_matches(got, q4_matmul_plain(x, packed, scale, split), K8_ATOL, K8_RTOL,
+                   K8_REL_L2)
+    with pytest.raises(ValueError, match="split"):
+        q4_matmul(x, packed, scale, 57)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,out_dim,in_dim", [(1, 4096, 14336), (32, 4096, 14336),
+                                                 (1, 128256, 4096), (16, 1024, 4096)])
+def test_k8_two_calls_give_the_same_bits(cuda, rows, out_dim, in_dim):
+    """Splits combine in split order, never by float atomics, and the
+    wrapper never synchronises with the host."""
+    gen = torch.Generator(device=cuda).manual_seed(rows * 3 + out_dim)
+    x, packed, scale = k8_case(gen, cuda, rows, out_dim, in_dim)
+    first = q4_matmul(x, packed, scale)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = [q4_matmul(x, packed, scale) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for got in again:
+        assert torch.equal(got, first)
+
+
+@pytest.mark.gpu
+def test_k8_calls_on_two_streams_keep_their_own_tickets(cuda):
+    """Two streams launching K8 at one split shape at once: each has its own
+    partials and tickets, so neither combines the other's splits, every
+    output matches the plain version and every ticket is back at zero."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x, packed, scale = k8_case(gen, cuda, 4, 4096, 14336)
+    xs = [x, rand((4, 14336), gen, cuda)]
+    refs = [q4_matmul_plain(x, packed, scale) for x in xs]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    outs, tickets = [], []
+    for x, stream in zip(xs, streams):
+        with torch.cuda.stream(stream):
+            outs.append([q4_matmul(x, packed, scale) for _ in range(16)])
+            tickets.append(k8_tickets(x, packed))
+    torch.cuda.synchronize()
+    assert tickets[0].data_ptr() != tickets[1].data_ptr()
+    for calls, ref, t in zip(outs, refs, tickets):
+        for got in calls:
+            assert_matches(got, ref, K8_ATOL, K8_RTOL, K8_REL_L2)
+        assert int(t.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_auto_sends_other_gqa_shapes_to_the_plain_path(cuda):
+    """A Llama-3.2-3B-shaped model (head_dim 128, G = 3), tiny: the
+    attention kernels are built for G = 4 only, so ``auto`` generates on the
+    plain path, no attention kernel launched, where it once raised."""
+    from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel
+    from llama_nuts_and_bolts_tpu_torch.models.llama.model import init_random_params
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.tokenizer import TiktokenModel, Vocabulary
+    from llama_nuts_and_bolts_tpu_torch.tokenizer.tiktoken_io import build_special_tokens
+
+    ranks = {bytes([i]): i for i in range(256)}
+    special = build_special_tokens(len(ranks))
+    vocab = Vocabulary.from_tiktoken(TiktokenModel(
+        mergeable_ranks=ranks, special_tokens=special, bos_id=special["<|begin_of_text|>"],
+        eos_id=special["<|end_of_text|>"],
+        stop_token_ids=[special["<|eom_id|>"], special["<|eot_id|>"]]))
+    cfg = ModelArgs(dim=768, n_layers=2, n_heads=6, n_kv_heads=2, vocab_size=512,
+                    multiple_of=32, norm_eps=1e-5, max_sequence_length=256)
+    assert (cfg.head_dim, cfg.n_rep) == (128, 3)
+    model = LoadedModel(params=init_random_params(cfg, seed=0, device=cuda), cfg=cfg,
+                        vocab=vocab, mergeable_ranks=ranks, tensor_meta={})
+    engine = InferenceEngine(model, InferenceArgs(sequence_length=256), device=cuda)
+    assert engine._attn_impl(1, 256) == "plain"
+    kernels = (flash_gqa_attention, flash_decode_attention, flash_decode_attention_q8,
+               flash_decode_attention_int8_mxu, paged_flash_decode)
+    before = [k.launches for k in kernels]
+    tokens = [t for _, t in engine.generate_tokens(list(range(40, 60)), max_new_tokens=8)]
+    torch.cuda.synchronize()
+    assert len(tokens) >= 1 and all(0 <= t < 512 for t in tokens)
+    assert [k.launches for k in kernels] == before
 
 
 @pytest.mark.gpu
@@ -214,7 +330,7 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                 # an int8 cache without scales
         flash_decode_attention(q, k.to(torch.int8), k.to(torch.int8), 3, layer=0)
     qt = quantize_tensor_q4(torch.randn((80, 512), generator=gen, device=cuda))
-    with pytest.raises(ValueError, match="out"):    # out % 32
+    with pytest.raises(ValueError, match="out"):    # out % 64
         q4_matmul(rand((1, 512), gen, cuda), qt.packed, qt.scale)
     qt = quantize_tensor_q4(torch.randn((128, 512), generator=gen, device=cuda))
     with pytest.raises(ValueError, match="rows"):   # R > 32

@@ -20,6 +20,7 @@ from llama_nuts_and_bolts_tpu import quant as jquant
 
 from llama_nuts_and_bolts_tpu_torch import quant
 from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
+from llama_nuts_and_bolts_tpu_torch.kernels import k8_splits
 from llama_nuts_and_bolts_tpu_torch.kernels import q4_matmul as k8
 from llama_nuts_and_bolts_tpu_torch.models.llama import model
 from llama_nuts_and_bolts_tpu_torch.models.llama.convert import (
@@ -104,23 +105,127 @@ def test_quantize_kv_rows_bytes_equal_jax(shape):
     assert q.dtype == torch.int8 and s.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("split", [None, 1, 2, 3, 4])
 @pytest.mark.parametrize("rows", [1, 16, 32])
-def test_k8_plain_matches_pallas_interpret(rows):
+def test_k8_plain_matches_pallas_interpret(rows, split):
     """q4_matmul_plain against q4_matmul(interpret=True) on weights quantized
-    by the JAX package (tests/test_quant4.py's shape); fp32 outputs of the
-    same fp32 arithmetic, summed in another order: fp32 tolerance."""
+    by the JAX package (tests/test_quant4.py's shape, G = 4), at every split
+    of its groups (3 does not divide G) and through the wrapper (None:
+    k8_split's); fp32 outputs of the same fp32 arithmetic, summed in another
+    order: fp32 tolerance."""
     rng = np.random.default_rng(rows)
     w = rng.standard_normal((256, 1024)).astype(np.float32) / 16
     qt = jquant.quantize_tensor_q4(jnp.asarray(w))
     x = bf16(rng, rows, 1024)
     want = np.asarray(jax_q4_matmul(jnp.asarray(x), qt.packed, qt.scale, interpret=True))
+    args = (tensor_from_numpy(x, "cpu"), tensor_from_numpy(np.asarray(qt.packed), "cpu"),
+            tensor_from_numpy(np.asarray(qt.scale), "cpu"))
     before = k8.q4_matmul.launches
-    got = k8.q4_matmul(tensor_from_numpy(x, "cpu"),
-                       tensor_from_numpy(np.asarray(qt.packed), "cpu"),
-                       tensor_from_numpy(np.asarray(qt.scale), "cpu"))
-    assert k8.q4_matmul.launches == before             # CPU: no kernel launch
+    if split is None:
+        got = k8.q4_matmul(*args)
+        assert k8.q4_matmul.launches == before         # CPU: no kernel launch
+        assert torch.equal(got, k8.q4_matmul_plain(*args, k8.k8_split(rows, 1024, 256, 4)))
+    else:
+        got = k8.q4_matmul_plain(*args, split)
     assert got.dtype == torch.float32 and got.shape == (rows, 256)
     compare_tensor(got.numpy(), want, "float32")
+
+
+@pytest.mark.parametrize("G,split", [(7, 3), (56, 11)])
+def test_k8_plain_adds_whole_splits_in_order(G, split):
+    """The plain version's partition: each split's groups from zero in
+    order, then the splits added in order, the last split the groups left
+    (7 = 3 + 3 + 1; w_down's 56 = 5 x 11 + 1), through the wrapper too."""
+    rng = np.random.default_rng(G)
+    qt = quant.quantize_tensor_q4(tensor_from_numpy(bf16(rng, 64, G * 256, scale=0.1), "cpu"))
+    x = tensor_from_numpy(bf16(rng, 3, G * 256), "cpu")
+    parts = [k8.q4_matmul_plain(x[:, g * 256:(g + 1) * 256], qt.packed[g:g + 1],
+                                qt.scale[g:g + 1], 1) for g in range(G)]
+    want = None
+    for g0 in range(0, G, split):
+        acc = parts[g0]
+        for p in parts[g0 + 1:g0 + split]:
+            acc = acc + p
+        want = acc if want is None else want + acc
+    assert G % split
+    assert torch.equal(k8.q4_matmul_plain(x, qt.packed, qt.scale, split), want)
+    assert torch.equal(k8.q4_matmul(x, qt.packed, qt.scale, split), want)
+
+
+# Llama-3.1-8B's int4 products: (out, in) of every projection and the head
+K8_MAIN_PATH = {"wq": (4096, 4096), "wk": (1024, 4096), "wv": (1024, 4096),
+                "wo": (4096, 4096), "w_gate": (14336, 4096), "w_up": (14336, 4096),
+                "w_down": (4096, 14336), "output": (128256, 4096)}
+
+
+@pytest.mark.parametrize("R", [1, 16, 32])
+@pytest.mark.parametrize("name", list(K8_MAIN_PATH) + ["odd"])
+def test_k8_split_at_main_path_shapes(name, R):
+    """k8_split at the 8B shapes (groups of 256), and at a G of 14 that its
+    split does not divide: whole groups, the last split the rest, x's slice
+    within the block's budget, 1.5 blocks per SM wherever the groups and the
+    cap of 8 splits allow it, no more splits than that unless x's budget
+    asks for them."""
+    out_dim, in_dim = K8_MAIN_PATH.get(name, (4096, 14 * 256))
+    G = in_dim // 256
+    split = k8.k8_split(R, in_dim, out_dim, G)
+    assert isinstance(split, int) and 1 <= split <= G
+    n_splits = -(-G // split)
+    sizes = [min(split, G - g0) for g0 in range(0, G, split)]
+    assert len(sizes) == n_splits and sum(sizes) == G and min(sizes) >= 1
+    cap = k8.K8_X_BYTES // (R * 256 * 2)
+    assert split <= cap
+    tiles = out_dim // k8.K8_OUT_TILE
+    assert tiles * n_splits >= min(k8.K8_MIN_BLOCKS, tiles * k8.K8_MAX_SPLITS, tiles * G)
+    assert n_splits <= max(k8.K8_MAX_SPLITS, -(-G // cap))
+    if name in ("wk", "wv"):
+        assert n_splits == k8.K8_MAX_SPLITS              # 16 tiles: split 8 ways
+    if name == "output" and R == 1:
+        assert n_splits == 1                             # 2004 tiles fill the card
+    if name == "odd":
+        assert (split, sizes[-1]) == (3, 2)              # 3 + 3 + 3 + 3 + 2 groups
+
+
+@pytest.mark.parametrize("rows,shape,takes", [
+    (1, (16, 4096, 128), True), (32, (16, 4096, 128), True),    # groups of 256
+    (33, (16, 4096, 128), False),                                # a longer prefill
+    (1, (2, 16, 4096, 128), False),                              # stacked layers
+    (1, (4, 256, 512), True), (1, (2, 256, 640), False),         # K/2 past the build
+    (1, (16, 256, 64), False), (1, (16, 4160, 128), False)])     # not multiples of 128
+def test_k8_takes_the_jax_routing_rule(rows, shape, takes):
+    """ops/linear.py sends a Q4Tensor product to K8 on a card by the JAX
+    package's rule and the group sizes the kernel is built for."""
+    assert k8.k8_takes(rows, torch.empty(shape, dtype=torch.uint8)) is takes
+
+
+@pytest.mark.parametrize("name,R", k8_splits.SHAPES)
+def test_k8_splits_times_partitions_the_kernel_takes(name, R):
+    """The split sweep times k8_split's choice and half and twice it, each a
+    split q4_matmul accepts, on the same function as the plain version's."""
+    out_dim, in_dim = k8_splits.WEIGHTS[name]
+    G = in_dim // 256
+    tried = k8_splits.splits_tried(R, in_dim, out_dim, G)
+    assert k8.k8_split(R, in_dim, out_dim, G) in tried and len(tried) in (2, 3)
+    assert all(1 <= sp <= min(G, k8.K8_X_BYTES // (R * 256 * 2)) for sp in tried)
+    if name == "w_down":
+        x, packed, scale = (torch.ones((R, in_dim), dtype=torch.bfloat16),
+                            torch.full((G, 64, 128), 0x99, dtype=torch.uint8),
+                            torch.ones((G, 64), dtype=torch.bfloat16))
+        outs = [k8.q4_matmul(x, packed, scale, sp) for sp in tried]
+        assert all(torch.equal(o, torch.full((R, 64), float(in_dim))) for o in outs)
+
+
+def test_k8_row_buckets_follow_the_n_tiles():
+    """R rows run on the first bucket of 8, 16 or 32 rows that holds them:
+    1, 2 or 4 mma n-tiles of 8 rows."""
+    assert k8.K8_ROW_BUCKETS == (8, 16, 32)
+    for R in range(1, 33):
+        bucket = k8.k8_row_bucket(R)
+        assert bucket == (8 if R <= 8 else 16 if R <= 16 else 32)
+        assert bucket // 8 in (1, 2, 4)
+    for R in (0, 33):
+        with pytest.raises(ValueError, match="rows"):
+            k8.k8_row_bucket(R)
 
 
 def test_k8_wrapper_refuses_what_the_kernel_does_not_take():
