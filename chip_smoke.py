@@ -277,6 +277,25 @@ def k4_last_tile_skipped(q, k, v, start_pos, layer=None, **kw):
     return flash_decode_attention(q, k, v, start_pos // bk * bk - 1, layer=layer, **kw)
 
 
+def k4_last_rank_dropped(q, k, v, ks, vs, pos, layer):
+    """Planted fault: K4 adding every rank's PV sum but that of the last
+    rank holding keys of the row's last tile (k4_cluster's partition): those
+    keys' v scales zeroed."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
+        decode_block_k, k4_geometry)
+
+    B, T = k.shape[1], k.shape[3]
+    bk = decode_block_k(T, KV, D, True)
+    geo = k4_geometry(B, KV, T, bk)
+    vs = vs.clone()
+    for b, p in enumerate(pos.tolist()):
+        n = min(p + 1, T)
+        t0 = (n - 1) // bk * bk
+        start, end = geo.rank_keys(n, t0, geo.active_ranks(n, t0) - 1)
+        vs[layer, b, :, start:end] = 0
+    return k4_call(q, k, v, ks, vs, pos, layer)
+
+
 def k8_group_dropped(x, packed, scale):
     """Planted fault: K8 with one group's scale dropped (its partial lost)."""
     from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import q4_matmul
@@ -1070,21 +1089,23 @@ def k8_work(R, in_dim, out_dim, G, half):
             2.0 * R * in_dim * out_dim)
 
 
-def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
+def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int,
+                       pos_a: int = 103, cache_len_a: int = 256):
     """K3 and K4 at request B's first decode step (every layer of a 32-layer
-    int8 cache), and K8 on the main path's own int4 weights at R = 1 (wq, wk,
-    w_gate, w_down, the head) and R = 16, 32, each against its plain version
-    with planted faults read against the same limits, then timed beside its
-    bound, its plain version and, for K8, the library's grouped int4 product
-    (``torch._weight_int4pack_mm``) and a bf16 torch.mm on the dequantized
-    weight. Timings cycle the layer, so each launch finds its bytes outside
-    the 50 MB L2."""
+    int8 cache), K4 also at a decode step of request A (``pos_a`` in a
+    ``cache_len_a`` cache), and K8 on the main path's own int4 weights at
+    R = 1 (wq, wk, w_gate, w_down, the head) and R = 16, 32, each against its
+    plain version with planted faults read against the same limits, then
+    timed beside its bound, its plain version and, for K8, the library's
+    grouped int4 product (``torch._weight_int4pack_mm``) and a bf16 torch.mm
+    on the dequantized weight. Timings cycle the layer, so each launch finds
+    its bytes outside the 50 MB L2."""
     import torch.nn.functional as F
 
     from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
         K2_BLOCK_K, decode_block_k, flash_decode_attention,
         flash_decode_attention_int8_mxu_plain, flash_decode_attention_plain, k2_geometry,
-        k2_split_k)
+        k2_split_k, k4_geometry)
     from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import (
         k8_split, q4_matmul, q4_matmul_plain)
     from llama_nuts_and_bolts_tpu_torch.quant import unpack_q4
@@ -1144,6 +1165,9 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
                f"K4 T={T} pos={p} layer 0, mask off by one", planted=True)
     kernel_err(k4_call(qd, k, v, ks, vs, pos // bk * bk - 1, 0), ref[0],
                f"K4 T={T} pos={p} layer 0, last key tile skipped", planted=True)
+    kernel_err(k4_last_rank_dropped(qd, k, v, ks, vs, pos, 0), ref[0],
+               f"K4 T={T} pos={p} layer 0, the last active rank's keys dropped",
+               planted=True)
     sub = k4_call(qd, k, v, ks, vs, pos, 0, block_k=64)
     kernel_err(sub, ref[0], f"K4 T={T} pos={p} layer 0, p quantized over 64-key "
                f"sub-tiles instead of the {bk}-key tile (read, not judged)", judged=False)
@@ -1153,14 +1177,16 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
         qd, k, v, ks, vs, pos, 1, bk), iters=2, warmup=1)
     b_ms, b_by = bound_ms(*k34_work([p], T, int8_ops=True))
     log(f"K4 int8 dots B=1 T={T} pos={p}: {ms:.4f} ms (plain {plain:.2f}, bound "
-        f"{b_ms:.4f} by {b_by}; no single PyTorch call computes it)")
-    rows.append(dict(name="flash_decode_attention, folded heads, int8 dots (K4)",
-                     route="cuda",
-                     source="llama_nuts_and_bolts_tpu_torch/csrc/decode_attention_int8.cu",
-                     replaces="llama_nuts_and_bolts_tpu/kernels/decode_attention.py:123",
-                     max_abs_err=errs["K4"], ms=ms, plain_ms=plain, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None,
-                     shape=f"B=1 L=32 T={T} pos={p} H={H} KV={KV} D={D} int8, tile {bk}"))
+        f"{b_ms:.4f} by {b_by}; no single PyTorch call computes it); "
+        + k4_geometry_note(k4_geometry(1, KV, T, bk), p + 1))
+    k4_row = dict(name="flash_decode_attention, folded heads, int8 dots (K4)",
+                  route="cuda",
+                  source="llama_nuts_and_bolts_tpu_torch/csrc/decode_attention_int8.cu",
+                  replaces="llama_nuts_and_bolts_tpu/kernels/decode_attention.py:123",
+                  max_abs_err=errs["K4"], ms=ms, plain_ms=plain, bound_ms=b_ms,
+                  bound_by=b_by, library_ms=None,
+                  shape=f"B=1 L=32 T={T} pos={p} H={H} KV={KV} D={D} int8, tile {bk}")
+    rows.append(k4_row)
 
     # K4's bf16 mode (it launches K2's kernel), beside SDPA
     kb, vb = randn(k.shape, gen), randn(v.shape, gen)
@@ -1180,6 +1206,7 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
         f"geometry: split_k {geo.split_k}, {active} of {blocks} blocks pass the early exit")
     del k, v, ks, vs, kb, vb, vis, got, ref
     torch.cuda.empty_cache()
+    k4_row["more_shapes"] = [time_k4_at(gen, errs, pos_a, cache_len_a)]
 
     # K8 on the path's own weights
     shapes = [("wq", 1), ("wk", 1), ("w_gate", 1), ("w_down", 1), ("output", 1),
@@ -1256,6 +1283,53 @@ def time_quant_kernels(params, errs, prompt_len_b: int, cache_len_b: int):
     return rows, extra
 
 
+def k4_geometry_note(geo, n_keys: int) -> str:
+    """K4's launch geometry by the rule (not read from the card), and how
+    many ranks hold keys of the row's last tile."""
+    active = geo.active_ranks(n_keys, (n_keys - 1) // geo.block_k * geo.block_k)
+    return (f"geometry: clusters of {geo.cluster} ({geo.grid[0] * geo.grid[1] * geo.grid[2]} "
+            f"blocks), {geo.chunk} keys a rank in copies of {geo.piece} keys at most; "
+            f"{active} of {geo.cluster} ranks hold keys of the last tile")
+
+
+def time_k4_at(gen, errs, p: int, T: int):
+    """K4 at one decode step of request A: B=1, position ``p`` in a ``T``
+    cache, as many layers as keep a cycled run outside the L2 (the whole
+    tile in one call), against its plain version with the last active rank
+    dropped as a planted fault, then timed beside its bound."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
+        decode_block_k, flash_decode_attention_int8_mxu_plain, k4_geometry)
+
+    L = -(-200 * 2**20 // (2 * KV * T * (D + 2)))
+    k, ks = int8_cache((L, 1, KV, T, D), gen)
+    v, vs = int8_cache((L, 1, KV, T, D), gen)
+    qd = randn((1, 1, H, D), gen)
+    pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+    bk = decode_block_k(T, KV, D, True)
+    what = f"K4 int8 dots, tile {bk}, B=1 T={T} pos={p} (request A's decode)"
+    got = torch.stack([k4_call(qd, k, v, ks, vs, pos, li) for li in range(4)])
+    ref = torch.stack([flash_decode_attention_int8_mxu_plain(qd, k, v, ks, vs, pos, li, bk)
+                       for li in range(4)])
+    errs["K4"] = max(errs["K4"], kernel_err(got, ref, what))
+    kernel_err(k4_last_rank_dropped(qd, k, v, ks, vs, pos, 0), ref[0],
+               what + ", the last active rank's keys dropped", planted=True)
+    state = {"li": 0}
+
+    def call():
+        state["li"] = (state["li"] + 1) % L
+        return k4_call(qd, k, v, ks, vs, pos, state["li"])
+    ms, _ = cuda_ms(call, iters=64)
+    plain, _ = cuda_ms(lambda: flash_decode_attention_int8_mxu_plain(
+        qd, k, v, ks, vs, pos, 1, bk), iters=2, warmup=1)
+    b_ms, b_by = bound_ms(*k34_work([p], T, int8_ops=True))
+    log(f"{what}: {ms:.4f} ms (plain {plain:.2f}, bound {b_ms:.4f} by {b_by}; "
+        f"{L} layers cycled); " + k4_geometry_note(k4_geometry(1, KV, T, bk), p + 1))
+    del k, v, ks, vs
+    torch.cuda.empty_cache()
+    return dict(shape=f"B=1 L={L} T={T} pos={p} H={H} KV={KV} D={D} int8, tile {bk}",
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def quant_main_path(tk, vocab, errs):
     """The quantized main path: the 32-layer 8B with int4 weights (seed 0)
     and an int8 cache at a context of 8192, through generate_string --
@@ -1301,8 +1375,10 @@ def quant_main_path(tk, vocab, errs):
     log(f"int4/int8-KV peak device memory: {peak / 2**30:.2f} GiB")
     results["peak_memory_gib"] = peak / 2**30
     results["decode_profile"] = profile_decode(engine, long_prompt)
+    # K4 at A's shapes: the middle of its 64 decode steps
     rows, extra = time_quant_kernels(params, errs, results["B"]["prompt"],
-                                     results["B"]["cache_len"])
+                                     results["B"]["cache_len"], results["A"]["prompt"] + 32,
+                                     results["A"]["cache_len"])
     results["kernels"] = extra
     del engine, model, params
     torch.cuda.empty_cache()

@@ -28,7 +28,11 @@ tensors take:
     (``kernels/quant_attn_math.py``). Its numerics depend on the tile, so the
     kernel, :func:`flash_decode_attention_int8_mxu_plain` and the wrapper all
     take it from :func:`decode_block_k`; counted in
-    ``flash_decode_attention_int8_mxu.launches``.
+    ``flash_decode_attention_int8_mxu.launches``. A thread-block cluster of
+    :func:`k4_cluster` blocks serves each (KV head, row), every rank a
+    contiguous slice of each tile (:class:`K4Geometry`); the tile-wide max
+    and quantization scale cross the cluster, so the function stays the
+    tile's, whatever the cluster.
 
 K5, ``blocked=False`` (``_decode_kernel``), is the whole-head kernel over a
 single-layer ``[B, KV, T, D]`` cache (``layer=`` raises, as in the JAX
@@ -72,6 +76,17 @@ K2_GROUP = 4          # H / KV the kernels are built for: Llama-3.1-8B's 32 / 8
 K2_TARGET_BLOCKS = 256  # blocks of a call when every split is active: ~2 per SM of 132
 K2_MAX_SPLITS = 256   # splits of one row the kernel's combine takes (csrc: MAX_SPLITS)
 FOLD_TILE_BYTES = 2 * 1024 * 1024
+# K4's cluster rule and partition (csrc/decode_attention_int8.cu)
+K4_TARGET_BLOCKS = 64   # blocks a call should reach: C * B * KV
+K4_MIN_CHUNK = 16       # keys a rank takes of a tile, at least (any cluster)
+# keys a rank takes of a tile, at least, in the clusters the rule picks: a
+# split tile pays two exchanges across the cluster, which a short tile does
+# not earn back (kernels/k4_clusters.py times the rule's size beside 8 at
+# T=256; PERF.md §6)
+K4_RULE_CHUNK = 256
+K4_CLUSTERS = (1, 2, 4, 8, 16)  # 16 only when forced: needs a non-portable cluster
+K4_MAX_CLUSTER = 8      # the most the rule picks (the portable cluster size)
+K4_PIECE = 256          # keys of one bulk copy, at most
 
 
 def k2_split_k(B: int, KV: int, T: int) -> int:
@@ -111,6 +126,80 @@ def k2_geometry(B: int, KV: int, T: int, positions: List[int]) -> K2Geometry:
     n_keys = [max(0, min(p + 1, T)) for p in positions]
     return K2Geometry(split_k=split, grid=(-(-T // split), KV, B), n_keys=n_keys,
                       active_splits=[max(1, -(-n // split)) for n in n_keys])
+
+
+def k4_cluster_takes(block_k: int, cluster: int) -> bool:
+    """Whether K4 can cut a ``block_k`` tile over ``cluster`` ranks: a
+    cluster size it is built for, and chunks of whole 8-key units (16-byte
+    copies of the bf16 scales), 16 keys at least when the tile is split."""
+    chunk = block_k // cluster
+    return (cluster in K4_CLUSTERS and block_k % cluster == 0 and chunk % 8 == 0
+            and (cluster == 1 or chunk >= K4_MIN_CHUNK))
+
+
+def k4_cluster(B: int, KV: int, T: int, block_k: int) -> int:
+    """K4's cluster size, from shapes only, never positions: the smallest
+    power of two up to ``K4_MAX_CLUSTER`` whose ``C * B * KV`` blocks reach
+    ``K4_TARGET_BLOCKS`` while every rank keeps ``K4_RULE_CHUNK`` keys of a
+    tile, else the largest such. At B=1, KV=8 and a 2048-key tile that is 8
+    (64 blocks on the H100's 132 SMs), at B=4 2, at B=16 1; a 256-key tile
+    (T=256) is never split. The tile, not ``T``, bounds the split."""
+    C = 1
+    while (C < K4_MAX_CLUSTER and C * B * KV < K4_TARGET_BLOCKS
+           and block_k // (2 * C) >= K4_RULE_CHUNK and k4_cluster_takes(block_k, 2 * C)):
+        C *= 2
+    return C
+
+
+@dataclass(frozen=True)
+class K4Geometry:
+    """K4's launch arithmetic: a ``(cluster, KV, B)`` grid in clusters of
+    ``(cluster, 1, 1)``; rank ``r`` owns keys ``[t0 + r * chunk, t0 + (r + 1)
+    * chunk)`` of the tile at ``t0``, copied in pieces of at most ``piece``
+    keys (only the visible ones)."""
+
+    cluster: int
+    block_k: int
+    chunk: int
+    piece: int
+    grid: Tuple[int, int, int]
+
+    def rank_keys(self, n_keys: int, t0: int, r: int) -> Tuple[int, int]:
+        """The visible keys ``[start, end)`` rank ``r`` reads of the tile at
+        ``t0`` in a row with ``n_keys`` of them (empty past the position)."""
+        start = t0 + r * self.chunk
+        return start, max(start, min(start + self.chunk, n_keys))
+
+    def active_ranks(self, n_keys: int, t0: int) -> int:
+        """How many ranks hold visible keys of the tile at ``t0``."""
+        return min(self.cluster, max(0, -(-(n_keys - t0) // self.chunk)))
+
+    def copies(self, n_keys: int, t0: int, r: int) -> List[Tuple[int, int, int]]:
+        """Rank ``r``'s bulk copies of the tile at ``t0``, per k piece and
+        then per v piece: ``(first key, row bytes, scale bytes)``. A k piece
+        carries both scale rows, each rounded up to 16-byte units; a v piece
+        carries none."""
+        start, end = self.rank_keys(n_keys, t0, r)
+        out = []
+        for kind in (0, 1):
+            for key in range(start, end, self.piece):
+                n = min(self.piece, end - key)
+                out.append((key, n * HEAD_DIM, 0 if kind else 2 * (-(-n // 8) * 8) * 2))
+        return out
+
+
+def k4_geometry(B: int, KV: int, T: int, block_k: int,
+                cluster: Optional[int] = None) -> K4Geometry:
+    """The geometry of a K4 launch: :func:`k4_cluster`'s size unless
+    ``cluster`` forces one."""
+    C = k4_cluster(B, KV, T, block_k) if cluster is None else cluster
+    if not k4_cluster_takes(block_k, C):
+        raise ValueError(f"K4 cannot cut a {block_k}-key tile over a cluster of {C}: "
+                         f"sizes {K4_CLUSTERS}, chunks of 8k keys, at least "
+                         f"{K4_MIN_CHUNK} when split")
+    chunk = block_k // C
+    return K4Geometry(cluster=C, block_k=block_k, chunk=chunk, piece=min(chunk, K4_PIECE),
+                      grid=(C, KV, B))
 
 
 def decode_block_k(T: int, kv_heads: int, head_dim: int, quantized: bool,
@@ -362,23 +451,32 @@ def flash_decode_attention_whole_head(q, k, v, positions, k_scale=None,
 
 
 def flash_decode_attention_int8_mxu(q, k, v, k_scale, v_scale, positions,
-                                    layer: int, block_k: int) -> torch.Tensor:
-    """K4 ``int8_mxu``: the int8-dot kernel over ``block_k`` tiles.
-    Arguments as :func:`flash_decode_attention`'s, already checked."""
+                                    layer: int, block_k: int,
+                                    cluster: Optional[int] = None) -> torch.Tensor:
+    """K4 ``int8_mxu``: the int8-dot cluster kernel over ``block_k`` tiles.
+    Arguments as :func:`flash_decode_attention`'s, already checked.
+    ``cluster`` is the blocks a (KV head, row) takes; the model's path
+    leaves it to :func:`k4_cluster` (None), tests and ``k4_clusters`` force
+    other sizes with it. The function does not depend on it."""
     B, _, H, D = q.shape
     KV, T = k.shape[2], k.shape[3]
     _require_group(H, KV)
     if T % block_k:
         raise ValueError(f"cache length {T} must be a multiple of block_k={block_k}")
+    geo = k4_geometry(B, KV, T, block_k, cluster)
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"the K4 kernel takes a 16-byte aligned {name}")
     out = torch.empty_like(q)
     fn = library("decode_attention_int8").lnb_flash_decode_int8_mxu
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p]
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                  v_scale.data_ptr(), positions.data_ptr(), out.data_ptr(), B, H, KV,
-                 T, layer, block_k, 1.0 / math.sqrt(D), cuda_stream(q.device))
+                 T, layer, block_k, geo.cluster, 1.0 / math.sqrt(D),
+                 cuda_stream(q.device))
     check_launch(err, "flash_decode_attention_int8_mxu")
     flash_decode_attention_int8_mxu.launches += 1
     return out

@@ -23,6 +23,8 @@ from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
     flash_decode_attention_whole_head,
     k2_scratch,
     k2_split_k,
+    k4_cluster,
+    k4_geometry,
 )
 from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
     paged_chunk,
@@ -191,6 +193,94 @@ def test_k3_k4_kernels_match_plain(cuda, L, layer, T, positions):
     torch.cuda.synchronize()
     assert flash_decode_attention.launches == n2 + 1
     assert_matches(got, flash_decode_attention_plain(q, kb, vb, pos, layer))
+
+
+def k4_case(gen, device, L, T, positions):
+    B = len(positions)
+    q = rand((B, 1, H, D), gen, device)
+    k, ks = int8_cache((L, B, KV, T, D), gen, device)
+    v, vs = int8_cache((L, B, KV, T, D), gen, device)
+    return q, k, v, ks, vs, torch.tensor(positions, dtype=torch.int32, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("L,layer,T,positions", [
+    (1, 0, 256, [70]), (1, 0, 256, [134]), (1, 0, 256, [0]), (1, 0, 256, [255]),
+    (2, 1, 4096, [3000]), (1, 0, 8192, [2047]), (1, 0, 8192, [8191]),
+    (1, 0, 2048, [3, 700, 2047, 1000])])
+def test_k4_every_cluster_size_matches_plain(cuda, cluster, L, layer, T, positions):
+    """K4's int8-dot kernel forced to each cluster size the rule can pick
+    (and 16), against the plain version at the JAX tile: ranks past a row's
+    position (pos 70 at T=256 leaves 3 of 8 ranks with keys, pos 0 one),
+    rows on a tile's last key, several tiles, mixed rows in one launch. The
+    cluster moves only the fp32 order of l's sum, so the kernel limits hold."""
+    gen = torch.Generator(device=cuda).manual_seed(T + cluster + positions[0])
+    q, k, v, ks, vs, pos = k4_case(gen, cuda, L, T, positions)
+    bk = decode_block_k(T, KV, D, True)
+    geo = k4_geometry(len(positions), KV, T, bk, cluster)
+    assert geo.grid == (cluster, KV, len(positions))
+    before = flash_decode_attention_int8_mxu.launches
+    got = flash_decode_attention_int8_mxu(q, k, v, ks, vs, pos, layer, bk, cluster)
+    torch.cuda.synchronize()
+    assert flash_decode_attention_int8_mxu.launches == before + 1
+    assert_matches(got, flash_decode_attention_int8_mxu_plain(q, k, v, ks, vs, pos,
+                                                              layer, bk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,T,positions", [(2, 4096, [3000]), (1, 256, [103]),
+                                           (1, 2048, [3, 700, 2047, 1000])])
+def test_k4_two_calls_give_the_same_bits(cuda, L, T, positions):
+    """Every float sum of the cluster kernel has a fixed order (the slots
+    reduced in rank order, int32 partials added exactly), and the wrapper
+    never synchronises with the host."""
+    gen = torch.Generator(device=cuda).manual_seed(T + 1)
+    q, k, v, ks, vs, pos = k4_case(gen, cuda, L, T, positions)
+    bk = decode_block_k(T, KV, D, True)
+    assert k4_cluster(len(positions), KV, T, bk) == {4096: 8, 256: 1, 2048: 2}[T]
+    first = flash_decode_attention_int8_mxu(q, k, v, ks, vs, pos, L - 1, bk)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = [flash_decode_attention_int8_mxu(q, k, v, ks, vs, pos, L - 1, bk)
+                 for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for got in again:
+        assert torch.equal(got, first)
+
+
+@pytest.mark.gpu
+def test_k4_calls_on_two_streams_do_not_interfere(cuda):
+    """Two streams launching K4 at B's shape at once, each on its own
+    inputs: the clusters keep their exchanges in their own shared memory, so
+    every output matches its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    cases = [k4_case(gen, cuda, 1, 4096, [p]) for p in (3000, 1500)]
+    bk = decode_block_k(4096, KV, D, True)
+    refs = [flash_decode_attention_int8_mxu_plain(*c[:5], c[5], 0, bk) for c in cases]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    outs = []
+    for c, stream in zip(cases, streams):
+        with torch.cuda.stream(stream):
+            outs.append([flash_decode_attention_int8_mxu(*c[:5], c[5], 0, bk)
+                         for _ in range(16)])
+    torch.cuda.synchronize()
+    for calls, ref in zip(outs, refs):
+        for got in calls:
+            assert_matches(got, ref)
+
+
+@pytest.mark.gpu
+def test_k4_refuses_a_cluster_it_cannot_cut(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    q, k, v, ks, vs, pos = k4_case(gen, cuda, 1, 256, [100])
+    for cluster in (3, 32):                         # not a size it is built for
+        with pytest.raises(ValueError, match="cluster"):
+            flash_decode_attention_int8_mxu(q, k, v, ks, vs, pos, 0, 256, cluster)
+    with pytest.raises(ValueError, match="cluster"):  # 8-key chunks, < 16
+        flash_decode_attention_int8_mxu(q, k, v, ks, vs, pos, 0, 64, 8)
 
 
 def k8_case(gen, device, rows, out_dim, in_dim):

@@ -19,6 +19,7 @@ from llama_nuts_and_bolts_tpu.kernels.decode_attention import (
 )
 
 from llama_nuts_and_bolts_tpu_torch.kernels import decode_attention as dk
+from llama_nuts_and_bolts_tpu_torch.kernels import k4_clusters, k4_timeline
 from llama_nuts_and_bolts_tpu_torch.kernels import quant_attn_math as math8
 from llama_nuts_and_bolts_tpu_torch.models.llama.convert import (
     tensor_from_numpy,
@@ -203,6 +204,96 @@ def test_k3_plain_matches_pallas_interpret(T, positions, block_k):
     ref = dk.flash_decode_attention(t(q), t(deq(k, ks)), t(deq(v, vs)),
                                     torch.from_numpy(positions), layer=2)
     assert torch.equal(ref, got)
+
+
+# n_keys of a row: the first key, around 16-key chunks, around the tile
+# edge, a ragged middle, a full cache
+def k4_rows(T, bk):
+    return sorted({n for n in (1, 2, 15, 16, 17, 33, bk - 1, bk, bk + 1, T // 2 + 3, T)
+                   if 1 <= n <= T})
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 16])
+@pytest.mark.parametrize("T", [256, 1024, 2048, 4096, 8192])
+def test_k4_cluster_geometry(T, B):
+    """K4's cluster rule and partition at the shapes the paths use (KV = 8,
+    the JAX tile): a cluster of at most 8 (16 only when forced), the
+    smallest that reaches 64 blocks with 256 keys a rank; a grid of one
+    cluster per (KV head, row); every visible key of a tile read by exactly
+    one rank, in order; every bulk copy a whole number of 16-byte units
+    from a 16-byte aligned offset."""
+    KV = 8
+    bk = dk.decode_block_k(T, KV, D, True)
+    C = dk.k4_cluster(B, KV, T, bk)
+    geo = dk.k4_geometry(B, KV, T, bk)
+    assert geo.cluster == C and C in (1, 2, 4, 8)
+    assert geo.grid == (C, KV, B)
+    assert C * geo.chunk == bk and geo.chunk % 8 == 0
+    assert C == 1 or geo.chunk >= dk.K4_RULE_CHUNK
+    if C > 1:                                  # no smaller cluster would do
+        assert (C // 2) * B * KV < dk.K4_TARGET_BLOCKS
+    if C < dk.K4_MAX_CLUSTER and bk // (2 * C) >= dk.K4_RULE_CHUNK:
+        assert C * B * KV >= dk.K4_TARGET_BLOCKS
+    for n_keys in k4_rows(T, bk):
+        for t0 in range(0, n_keys, bk):        # every tile the row reaches
+            owned = []
+            for r in range(C):
+                start, end = geo.rank_keys(n_keys, t0, r)
+                owned += range(start, end)
+                copies = geo.copies(n_keys, t0, r)
+                k_part, v_part = copies[:len(copies) // 2], copies[len(copies) // 2:]
+                for part in (k_part, v_part):  # k pieces, then v pieces: the rank's keys
+                    got = [key + i for key, rows, _ in part for i in range(rows // D)]
+                    assert got == list(range(start, end))
+                for key, rows, scale_bytes in copies:
+                    assert rows % 16 == 0 and scale_bytes % 16 == 0
+                    assert (key * 2) % 16 == 0 and rows <= geo.piece * D
+                    assert scale_bytes // 4 <= geo.piece      # rounded within the piece
+                assert all(sb > 0 for _, _, sb in k_part) and all(
+                    sb == 0 for _, _, sb in v_part)
+            assert owned == list(range(t0, min(t0 + bk, n_keys)))
+            active = geo.active_ranks(n_keys, t0)   # the ranks that hold keys, a prefix
+            assert all((geo.rank_keys(n_keys, t0, r)[1] > geo.rank_keys(n_keys, t0, r)[0])
+                       == (r < active) for r in range(C))
+
+
+@pytest.mark.parametrize("cluster,ok", [(1, True), (2, True), (8, True), (16, True),
+                                        (3, False), (32, False)])
+def test_k4_forced_cluster_sizes(cluster, ok):
+    """A forced cluster: the sizes the kernel is built for, 16 included
+    (the rule never picks it), and the chunks it can cut: whole 8-key units,
+    at least 16 keys once the tile is split."""
+    if ok:
+        geo = dk.k4_geometry(1, 8, 256, 256, cluster)
+        assert geo.grid == (cluster, 8, 1) and geo.chunk == 256 // cluster
+    else:
+        with pytest.raises(ValueError, match="cluster"):
+            dk.k4_geometry(1, 8, 256, 256, cluster)
+    assert not dk.k4_cluster_takes(64, 8)          # 8-key chunks
+    assert not dk.k4_cluster_takes(200, 2)         # 100-key chunks: not 8-key units
+    assert dk.k4_cluster_takes(200, 1)
+    assert dk.k4_cluster(1, 8, 8192, 2048) == 8 and dk.k4_cluster(16, 8, 8192, 2048) == 1
+
+
+@pytest.mark.parametrize("shape", sorted(k4_clusters.SHAPES))
+def test_k4_clusters_times_sizes_the_kernel_takes(shape):
+    """The sweep times the rule's cluster, half and twice it and 8, each one
+    the kernel can cut the shape's tile over."""
+    T, _ = k4_clusters.SHAPES[shape]
+    bk = dk.decode_block_k(T, 8, D, True)
+    tried = k4_clusters.clusters_tried(1, T)
+    assert dk.k4_cluster(1, 8, T, bk) in tried and dk.K4_MAX_CLUSTER in tried
+    assert all(dk.k4_cluster_takes(bk, c) for c in tried)
+
+
+def test_k4_timeline_stamps_apply_to_the_kernel_source():
+    """Every stamp k4_timeline puts into K4's source finds the text it goes
+    beside exactly once, and a phase name for every stamp it writes."""
+    src = (k4_timeline.CSRC / "decode_attention_int8.cu").read_text()
+    for old, new in k4_timeline.EDITS:
+        assert src.count(old) == 1 and new != old
+    assert len(k4_timeline.PHASES) == k4_timeline.SLOTS
+    assert k4_timeline.stamped_source().count("clock64()") == len(k4_timeline.EDITS) - 1
 
 
 def test_int8_wrapper_refusals():
