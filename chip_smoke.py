@@ -213,8 +213,9 @@ def setup():
                 kernel = line[entry.end():entry.end() + int(entry.group(1))]
                 rest = line[entry.end() + len(kernel):]
                 count = re.match(r"ILi(\d+)E", rest)          # an int template argument
-                kind = ("<int8>" if rest.startswith("IaE") else
-                        "<bf16>" if rest.startswith("I13__nv_bfloat16E") else
+                flag = re.match(r"ILb([01])E", rest)          # K6's int8 flag
+                kind = ("<int8>" if rest.startswith("IaE") or (flag and flag.group(1) == "1")
+                        else "<bf16>" if rest.startswith("I13__nv_bfloat16E") or flag else
                         f"<{count.group(1)}>" if count else "")
                 log(f"ptxas {src}: {kernel}{kind}")
             elif "registers" in line or "spill" in line or "error" in line.lower():
@@ -1495,18 +1496,46 @@ def paged_work(positions, int8: bool):
     return nbytes, ops * (BF16_FLOPS_PER_S / INT8_OPS_PER_S if int8 else 1.0)
 
 
+def last_split_dropped(pos: torch.Tensor, M: int, split: int) -> torch.Tensor:
+    """Planted fault: K6/K7 combining every active split but the last (of
+    the row at the largest position, by the partition at ``split``
+    entries): the sound kernel run with that row's position at its last
+    active split's first key - 1."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import paged_geometry
+
+    geo = paged_geometry(len(pos), KV, M, BS, pos.tolist(), 1, split)
+    b = int(torch.argmax(pos))
+    if geo.active_splits[b] < 2:
+        fail(f"last_split_dropped: row {b} at {int(pos[b])} has one split of {split}")
+    cut = pos.clone()
+    cut[b] = (geo.active_splits[b] - 1) * split * BS - 1
+    return cut
+
+
+def split_edge_tables(tables: torch.Tensor, split: int) -> torch.Tensor:
+    """Planted fault: each split's first table entry read from the split
+    before it (entry s * split from s * split - 1)."""
+    out = tables.clone()
+    for e in range(split, tables.shape[1], split):
+        out[:, e] = tables[:, e - 1]
+    return out
+
+
 def check_paged_kernels():
     """K6 (bf16 and int8 pools), K7 and K5 against their plain versions at
     8B widths and bs 32: B = 1, 4, 8, positions at 0, 31, 32, 2047 and 8191,
     scattered tables up to M = 256 over a 32-layer stacked pool read at
-    varying layers. Planted faults, read in every run: the mask off by one,
-    the last used block (K5: key tile) skipped, and a table entry read from
-    the neighbouring row."""
+    varying layers; K6 and K7 at paged_split's partition of the table walk
+    and at forced splits of 1 and 2 entries. Planted faults, read in every
+    run at the rule's split: the mask off by one, the last used block (K5:
+    key tile) skipped, a table entry read from the neighbouring row, the
+    last active split dropped from the combine, and each split's first
+    table entry read from the split before it."""
     from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
         K2_BLOCK_K, flash_decode_attention, flash_decode_attention_plain)
     from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
         paged_chunk, paged_flash_decode, paged_flash_decode_int8_plain,
-        paged_flash_decode_plain)
+        paged_flash_decode_plain, paged_split)
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     errs = {"K5": 0.0, "K6": 0.0, "K6i8": 0.0, "K7": 0.0}
@@ -1517,39 +1546,56 @@ def check_paged_kernels():
         tables = scattered_tables(B, M, n_blocks, seed=B)
         pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
         q = randn((B, 1, H, D), gen)
+        rule = paged_split(B, KV, M, BS)
         what = f"B={B} M={M} layer={layer}/{L} pos={positions}"
         faults = {"mask off by one": (tables, pos - 1),
-                  "last used block skipped": (tables, pos // BS * BS - 1)}
+                  "last used block skipped": (tables, pos // BS * BS - 1),
+                  f"last active split of {rule} entries dropped":
+                      (tables, last_split_dropped(pos, M, rule)),
+                  f"each split's first entry from the split before ({rule} entries)":
+                      (split_edge_tables(tables, rule), pos)}
         if B > 1:
             faults["neighbour row's table entry"] = (neighbour_tables(tables, pos), pos)
         k, v = randn((L, n_blocks, KV, BS, D), gen), randn((L, n_blocks, KV, BS, D), gen)
         chunk = paged_chunk(M, BS)
-        got = paged_flash_decode(q, k, v, tables, pos, layer=layer)
-        torch.cuda.synchronize()
-        ref = paged_flash_decode_plain(q, k, v, tables, pos, layer, chunk)
-        errs["K6"] = max(errs["K6"], kernel_err(got, ref, f"K6 bf16 (span {chunk}) " + what))
-        for name, (tbl, p) in faults.items():
-            kernel_err(paged_flash_decode(q, k, v, tbl, p, layer=layer), ref,
-                       f"K6 bf16 {what}, {name}", planted=True)
+        for split in (rule, 1, 2):
+            got = paged_flash_decode(q, k, v, tables, pos, layer=layer, split=split)
+            torch.cuda.synchronize()
+            ref = paged_flash_decode_plain(q, k, v, tables, pos, layer, chunk, split=split)
+            errs["K6"] = max(errs["K6"], kernel_err(
+                got, ref, f"K6 bf16 (span {chunk}, split {split}) " + what))
+            if split == rule:
+                for name, (tbl, p) in faults.items():
+                    kernel_err(paged_flash_decode(q, k, v, tbl, p, layer=layer), ref,
+                               f"K6 bf16 {what}, {name}", planted=True)
         # K7: the same layer as a single-layer pool, one update per block
-        got = paged_flash_decode(q, k[layer], v[layer], tables, pos, fold_heads=False)
-        torch.cuda.synchronize()
-        ref = paged_flash_decode_plain(q, k[layer:layer + 1], v[layer:layer + 1], tables,
-                                       pos, 0, 1)
-        errs["K7"] = max(errs["K7"], kernel_err(got, ref, "K7 " + what))
-        for name, (tbl, p) in faults.items():
-            kernel_err(paged_flash_decode(q, k[layer], v[layer], tbl, p, fold_heads=False),
-                       ref, f"K7 {what}, {name}", planted=True)
+        for split in (rule, 1, 2):
+            got = paged_flash_decode(q, k[layer], v[layer], tables, pos, fold_heads=False,
+                                     split=split)
+            torch.cuda.synchronize()
+            ref = paged_flash_decode_plain(q, k[layer:layer + 1], v[layer:layer + 1], tables,
+                                           pos, 0, 1, split=split)
+            errs["K7"] = max(errs["K7"], kernel_err(got, ref, f"K7 (split {split}) " + what))
+            if split == rule:
+                for name, (tbl, p) in faults.items():
+                    kernel_err(paged_flash_decode(q, k[layer], v[layer], tbl, p,
+                                                  fold_heads=False),
+                               ref, f"K7 {what}, {name}", planted=True)
         del k, v
         (k, ks), (v, vs) = (int8_cache((L, n_blocks, KV, BS, D), gen) for _ in range(2))
-        got = paged_flash_decode(q, k, v, tables, pos, layer=layer, pool_ks=ks, pool_vs=vs)
-        torch.cuda.synchronize()
-        ref = paged_flash_decode_int8_plain(q, k, v, ks, vs, tables, pos, layer)
-        errs["K6i8"] = max(errs["K6i8"], kernel_err(got, ref, "K6 int8 " + what))
-        for name, (tbl, p) in faults.items():
-            kernel_err(paged_flash_decode(q, k, v, tbl, p, layer=layer, pool_ks=ks,
-                                          pool_vs=vs), ref, f"K6 int8 {what}, {name}",
-                       planted=True)
+        for split in (rule, 1, 2):
+            got = paged_flash_decode(q, k, v, tables, pos, layer=layer, pool_ks=ks,
+                                     pool_vs=vs, split=split)
+            torch.cuda.synchronize()
+            ref = paged_flash_decode_int8_plain(q, k, v, ks, vs, tables, pos, layer,
+                                                split=split)
+            errs["K6i8"] = max(errs["K6i8"], kernel_err(
+                got, ref, f"K6 int8 (split {split}) " + what))
+            if split == rule:
+                for name, (tbl, p) in faults.items():
+                    kernel_err(paged_flash_decode(q, k, v, tbl, p, layer=layer, pool_ks=ks,
+                                                  pool_vs=vs), ref,
+                               f"K6 int8 {what}, {name}", planted=True)
         del k, v, ks, vs
 
         # K5: blocked=False over a single-layer [B, KV, T, D] cache
@@ -1645,7 +1691,14 @@ def check_paged_model_path(tk, vocab):
         "K6 mask off by one": lambda q, k, v, t, p, **kw: paged_flash_decode(q, k, v, t, p - 1,
                                                                              **kw),
         "K6 last used block skipped": lambda q, k, v, t, p, **kw: paged_flash_decode(
-            q, k, v, t, p // BS * BS - 1, **kw)}
+            q, k, v, t, p // BS * BS - 1, **kw),
+        # the rows' 4 and 2 used entries cut into splits of 2
+        "K6 last active split dropped (splits of 2 entries)":
+            lambda q, k, v, t, p, **kw: paged_flash_decode(
+                q, k, v, t, last_split_dropped(p, t.shape[1], 2), split=2, **kw),
+        "K6 each split's first entry from the split before (splits of 2 entries)":
+            lambda q, k, v, t, p, **kw: paged_flash_decode(
+                q, k, v, split_edge_tables(t, 2), p, split=2, **kw)}
     readings = {}
     for int8, limit in ((False, PAGED_LOGITS_REL_L2), (True, PAGED_INT8_LOGITS_REL_L2)):
         pool = paged.PagedKVPool.create(cfg, n_blocks, BS, torch.int8 if int8 else
@@ -1899,7 +1952,7 @@ def profile_batched_step(batcher, steps: int = 8):
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     ours = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / steps
-            for name in ("paged_decode_kernel", "paged_decode_int8_kernel")}
+            for name in ("paged_split_kernel",)}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     log(f"batched decode step ({batcher.n_slots} slots, positions {positions.tolist()}): "
         f"wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
@@ -2072,6 +2125,28 @@ def time_paged_kernels(pool, tables, positions, int8: bool):
     log(f"K6 {'int8' if int8 else 'bf16'}, every row at position {M * BS - 1}: "
         f"{full_ms:.4f} ms (bound {full_bound:.4f} by bytes)")
     full = dict(ms_full_context=full_ms, bound_ms_full_context=full_bound)
+    # K6 at B = 1 with the row at position 1850 (the long chat's), over a
+    # scattered table: the split walk's case (one row, 8 KV heads)
+    long_tables = scattered_tables(1, M, pool.k.shape[1], seed=12)
+    long_pos = torch.tensor([1850], dtype=torch.int32, device="cuda")
+    q1 = randn((1, 1, H, D), gen)
+    kv_scales = (pool.k_scale, pool.v_scale) if int8 else ()
+    long_ms, got = cuda_ms(cycled(lambda li: paged_flash_decode(
+        q1, pool.k, pool.v, long_tables, long_pos, layer=li, **scales)), iters=64)
+    li = state["li"]
+    ref = (paged_flash_decode_int8_plain(q1, pool.k, pool.v, *kv_scales, long_tables,
+                                         long_pos, li) if int8 else
+           paged_flash_decode_plain(q1, pool.k, pool.v, long_tables, long_pos, li,
+                                    paged_chunk(M, BS)))
+    kernel_err(got, ref, f"K6 {'int8' if int8 else 'bf16'} B=1 pos=[1850] layer {li}")
+    long_gather, _ = cuda_ms(cycled(lambda li: _gathered_attention(
+        q1, pool.k[li], pool.v[li], long_tables, long_pos,
+        *(t[li] for t in kv_scales))), iters=16)
+    long_bound = bound_ms(*paged_work([1850], int8))[0]
+    log(f"K6 {'int8' if int8 else 'bf16'}, B=1 at position 1850: {long_ms:.4f} ms "
+        f"(gather path {long_gather:.4f}, bound {long_bound:.4f} by bytes)")
+    full.update(ms_b1_pos1850=long_ms, bound_ms_b1_pos1850=long_bound,
+                gather_path_ms_b1_pos1850=long_gather)
     if int8:
         ms, got = cuda_ms(cycled(lambda li: paged_flash_decode(
             q, pool.k, pool.v, tables, positions, layer=li, **scales)), iters=64)
@@ -2197,7 +2272,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "dense_bf16_mm_ms", "gather_path_ms", "ms_full_context",
-            "bound_ms_full_context", "more_shapes")
+            "bound_ms_full_context", "ms_b1_pos1850", "bound_ms_b1_pos1850",
+            "gather_path_ms_b1_pos1850", "more_shapes")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -27,6 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import paged_kernel_takes
 from llama_nuts_and_bolts_tpu_torch.models.llama.paged import (
     DEFAULT_BLOCK_SIZE,
     TRASH_BLOCK,
@@ -68,17 +69,20 @@ class BlockAllocator:
         self._free.extend(blocks)
 
 
-def default_attn_impl(engine) -> str:
+def default_attn_impl(engine, block_size: int = DEFAULT_BLOCK_SIZE) -> str:
     """An engine forced to ``"plain"`` or to the kernels (``"flash"``,
     ``"flash_folded"``) forces the pool's path too; ``"auto"`` takes the JAX
     package's rule (``runtime/paged.py:204-221`` there): K6 (``"flash"``) for
     a bf16 pool on a card whose model fits the kernels, else the gather path
-    (``"plain"``)."""
+    (``"plain"``). A pool whose ``block_size`` K6 cannot copy (not a
+    multiple of 8 up to 64, :func:`paged_kernel_takes`) takes the gather
+    path too."""
     forced = engine.args.attn_impl
     if forced != "auto":
         return "plain" if forced == "plain" else "flash"
     card = engine.device.type == "cuda" and engine._kernels_viable()
-    return "flash" if card and engine.args.kv_cache_dtype != "int8" else "plain"
+    return ("flash" if card and engine.args.kv_cache_dtype != "int8"
+            and paged_kernel_takes(block_size) else "plain")
 
 
 class PagedBatcher(ContinuousBatcher):
@@ -100,11 +104,15 @@ class PagedBatcher(ContinuousBatcher):
                  allocator_backend: str = "auto",
                  speculate_k: int = 0,
                  step_quantum: Optional[int] = None) -> None:
-        self._init_common(engine, n_slots, speculate_k, step_quantum)
-        kv_is_int8 = engine.args.kv_cache_dtype == "int8"
-        attn_impl = attn_impl or default_attn_impl(engine)
+        attn_impl = attn_impl or default_attn_impl(engine, block_size)
         if attn_impl not in ("plain", "flash"):
             raise ValueError(f"attn_impl must be 'plain' or 'flash', got {attn_impl!r}")
+        if (attn_impl == "flash" and engine.device.type == "cuda"
+                and not paged_kernel_takes(block_size)):
+            raise ValueError(f"attn_impl='flash' on a card needs pool blocks of a multiple "
+                             f"of 8 positions up to 64 (K6's copies), got {block_size}")
+        self._init_common(engine, n_slots, speculate_k, step_quantum)
+        kv_is_int8 = engine.args.kv_cache_dtype == "int8"
         self.attn_impl = attn_impl
         self.block_size = block_size
         self.max_blocks = math.ceil(self.seq_len / block_size)

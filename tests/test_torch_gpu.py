@@ -33,6 +33,8 @@ from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
     paged_flash_decode_int8_plain,
     paged_flash_decode_per_head,
     paged_flash_decode_plain,
+    paged_scratch,
+    paged_split,
 )
 from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import (
     k8_scratch,
@@ -518,3 +520,91 @@ def test_k7_kernel_matches_plain(cuda):
         paged_flash_decode(q, pk, pv, tables, pos, fold_heads=False, layer=0)
     with pytest.raises(ValueError, match="G = H/KV"):
         paged_flash_decode(rand((4, 1, 2 * KV, D), gen, cuda), pk[0], pv[0], tables, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [1, 2, 3, 5, None])
+@pytest.mark.parametrize("int8", [False, True])
+def test_k6_forced_splits_match_plain(cuda, split, int8):
+    """K6 at forced splits of its table walk (entries a split takes) and at
+    paged_split's, bf16 and int8: rows with nothing visible, on a split's
+    first and last key, and at the table's end, beside each other; one
+    launch a call, and every ticket back at zero after it."""
+    gen = torch.Generator(device=cuda).manual_seed(40 + (split or 0) + 10 * int8)
+    B, M = 6, 16
+    positions = [-1, 0, 63, 64, 300, 511]
+    q, pk, pv, pks, pvs, tables, pos = paged_case(
+        gen, cuda, B, M, B * M + 1, 4, positions, torch.int8 if int8 else torch.bfloat16)
+    scales = dict(pool_ks=pks, pool_vs=pvs) if int8 else {}
+    counter = paged_flash_decode_int8 if int8 else paged_flash_decode
+    before = counter.launches
+    got = paged_flash_decode(q, pk, pv, tables, pos, layer=2, split=split, **scales)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    if int8:
+        ref = paged_flash_decode_int8_plain(q, pk, pv, pks, pvs, tables, pos, 2, split=split)
+    else:
+        ref = paged_flash_decode_plain(q, pk, pv, tables, pos, 2, paged_chunk(M, 32),
+                                       split=split)
+    assert_matches(got, ref)
+    assert float(got[0].float().abs().max()) == 0.0          # position -1: zeros
+    n_splits = -(-M // (split or paged_split(B, KV, M, 32)))
+    assert int(paged_scratch(cuda, B, KV, n_splits)[1].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [1, 3, None])
+def test_k7_forced_splits_match_plain(cuda, split):
+    gen = torch.Generator(device=cuda).manual_seed(70 + (split or 0))
+    q, pk, pv, _, _, tables, pos = paged_case(gen, cuda, 4, 64, 257, 1, [0, 31, 32, 2047])
+    before = paged_flash_decode_per_head.launches
+    got = paged_flash_decode(q, pk[0], pv[0], tables, pos, fold_heads=False, split=split)
+    torch.cuda.synchronize()
+    assert paged_flash_decode_per_head.launches == before + 1
+    assert_matches(got, paged_flash_decode_plain(q, pk, pv, tables, pos, 0, 1, split=split))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_k6_calls_on_two_streams_keep_their_own_tickets(cuda, int8):
+    """Two streams launching K6 at one shape at once: each has its own
+    partials and tickets, so neither combines the other's splits, every
+    output matches the plain version and every ticket is back at zero."""
+    gen = torch.Generator(device=cuda).manual_seed(13 + int8)
+    B, M = 2, 64
+    q, pk, pv, pks, pvs, tables, pos = paged_case(
+        gen, cuda, B, M, B * M + 1, 2, [2047, 1000], torch.int8 if int8 else torch.bfloat16)
+    scales = dict(pool_ks=pks, pool_vs=pvs) if int8 else {}
+    qs = [q, rand((B, 1, H, D), gen, cuda)]
+    if int8:
+        refs = [paged_flash_decode_int8_plain(x, pk, pv, pks, pvs, tables, pos, 1) for x in qs]
+    else:
+        refs = [paged_flash_decode_plain(x, pk, pv, tables, pos, 1, paged_chunk(M, 32))
+                for x in qs]
+    n_splits = -(-M // paged_split(B, KV, M, 32))
+    assert n_splits > 1
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    outs, tickets = [], []
+    for x, stream in zip(qs, streams):
+        with torch.cuda.stream(stream):
+            outs.append([paged_flash_decode(x, pk, pv, tables, pos, layer=1, **scales)
+                         for _ in range(16)])
+            tickets.append(paged_scratch(cuda, B, KV, n_splits)[1])
+    torch.cuda.synchronize()
+    assert tickets[0].data_ptr() != tickets[1].data_ptr()
+    for calls, ref, t in zip(outs, refs, tickets):
+        for got in calls:
+            assert_matches(got, ref)
+        assert int(t.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_k6_refuses_block_sizes_it_cannot_copy(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = rand((1, 1, H, D), gen, cuda)
+    tables = torch.ones((1, 4), dtype=torch.int32, device=cuda)
+    for bs in (4, 12):
+        pool = rand((1, 3, KV, bs, D), gen, cuda)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            paged_flash_decode(q, pool, pool, tables, 5, layer=0)

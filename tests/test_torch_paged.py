@@ -138,6 +138,172 @@ def test_k7_plain_matches_pallas_interpret():
     compare_tensor(got.float().numpy(), np.asarray(want, np.float32), "bfloat16")
 
 
+# Forced splits of the table walk (entries a split takes), each with positions
+# on a split's first and last key and rows with 1, 2 and 3 active splits. At
+# M=6, bs=8 the Pallas span is all 6 entries, so every split edge lies inside
+# a span: p is rounded relative to the split's running max, and the splits
+# combine in fp32.
+SPLIT_CASES = [(2, [5, 16, 47]), (2, [15, 31, 32]), (3, [23, 24, 47]), (3, [0, 8, 40])]
+
+
+def rel_l2(got, want):
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("split,pos", SPLIT_CASES)
+def test_k6_split_plain_matches_pallas_interpret(split, pos):
+    """The kernel's partition against the Pallas kernel's single walk: spans
+    cut at the split's edges change where p is rounded to bf16, and the
+    combine changes the order of the fp32 sums. Both move an output by about
+    one bf16 rounding: the bf16 tolerance of the unsplit test (1e-2 absolute
+    and relative per element), and 3e-3 relative L2. Read here: at most
+    7.8e-3 absolute (one ulp at |x| ~ 1) and 1.2e-3 relative L2, where the
+    unsplit walk is bit-equal to the JAX kernel."""
+    q, k, v, _, _, tables = pool_case(20 + split)
+    pos = np.array(pos, np.int32)
+    want = jax_paged_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jnp.asarray(tables), jnp.asarray(pos), layer=1,
+                                  interpret=True)
+    got = pa.paged_flash_decode(t(q), t(k), t(v), torch.from_numpy(tables),
+                                torch.from_numpy(pos), layer=1, split=split)
+    geo = pa.paged_geometry(3, 2, 6, 8, pos.tolist(), pa.paged_chunk(6, 8), split)
+    assert sorted(set(geo.active_splits)) == sorted(set(-(-(p // 8 + 1) // split)
+                                                        for p in pos.tolist()))
+    assert max(geo.active_splits) > 1
+    assert rel_l2(got, want) <= 3e-3
+    compare_tensor(got.float().numpy(), np.asarray(want, np.float32), "bfloat16")
+
+
+@pytest.mark.parametrize("split,pos", SPLIT_CASES)
+def test_k6_int8_split_plain_matches_pallas_interpret(split, pos):
+    """A split's edge is a pool block's, so p's quantization rows stay the
+    Pallas kernel's and only the fp32 combine is new: against the unsplit
+    walk, one bf16 ulp per element (read here: the same bits). Against the
+    JAX kernel, where XLA's and PyTorch's exp may round an fp32 p to
+    neighbouring values that quantize to neighbouring int8 steps, one step
+    of p_i moves an output by up to ~4e-3 and its row by up to ~4e-3
+    relative L2: the bf16 tolerance per element (1e-2) and 2e-3 relative L2
+    over the output (read here: at most 3.9e-3 absolute, 3.8e-3 in the row
+    with a flipped step, 6.4e-4 overall: the unsplit walk's own drift)."""
+    q, k, v, ks, vs, tables = pool_case(30 + split, quantized=True)
+    pos = np.array(pos, np.int32)
+    want = jax_paged_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jnp.asarray(tables), jnp.asarray(pos), layer=0,
+                                  pool_ks=jnp.asarray(ks), pool_vs=jnp.asarray(vs),
+                                  interpret=True)
+    args = (t(q), t(k), t(v), torch.from_numpy(tables), torch.from_numpy(pos))
+    got = pa.paged_flash_decode(*args, layer=0, pool_ks=t(ks), pool_vs=t(vs), split=split)
+    whole = pa.paged_flash_decode(*args, layer=0, pool_ks=t(ks), pool_vs=t(vs))
+    torch.testing.assert_close(got.float(), whole.float(), rtol=2.0 ** -7, atol=1e-6)
+    compare_tensor(got.float().numpy(), np.asarray(want, np.float32), "bfloat16")
+    assert rel_l2(got, want) <= 2e-3
+
+
+@pytest.mark.parametrize("split,pos", SPLIT_CASES)
+def test_k7_split_plain_matches_pallas_interpret(split, pos):
+    """K7 updates once per block on both sides; the splits add only the fp32
+    combine, which moves an output by about one bf16 rounding: the bf16
+    tolerance and 3e-3 relative L2 (read here: at most 3.9e-3 absolute and
+    1.3e-3 relative L2)."""
+    q, k, v, _, _, tables = pool_case(40 + split, L=1)
+    pos = np.array(pos, np.int32)
+    want = jax_paged_flash_decode(jnp.asarray(q), jnp.asarray(k[0]), jnp.asarray(v[0]),
+                                  jnp.asarray(tables), jnp.asarray(pos),
+                                  fold_heads=False, interpret=True)
+    got = pa.paged_flash_decode(t(q), t(k[0]), t(v[0]), torch.from_numpy(tables),
+                                torch.from_numpy(pos), fold_heads=False, split=split)
+    assert rel_l2(got, want) <= 3e-3
+    compare_tensor(got.float().numpy(), np.asarray(want, np.float32), "bfloat16")
+
+
+def test_one_split_is_the_unsplit_walk():
+    """A split covering the whole table is the Pallas walk: the rule's
+    choice at the tests' tiny shapes, and forced, give the same bits."""
+    q, k, v, _, _, tables = pool_case(11)
+    args = (t(q), t(k), t(v), torch.from_numpy(tables), torch.tensor([3, 30, 47],
+                                                                      dtype=torch.int32))
+    assert pa.paged_split(3, 2, 6, 8) == 6
+    assert torch.equal(pa.paged_flash_decode(*args, layer=0),
+                       pa.paged_flash_decode(*args, layer=0, split=6))
+    assert not torch.equal(pa.paged_flash_decode(*args, layer=0),
+                           pa.paged_flash_decode(*args, layer=0, split=1))
+
+
+@pytest.mark.parametrize("B,M,bs,want", [(1, 64, 32, 2), (4, 64, 32, 8), (16, 64, 32, 32),
+                                         (64, 64, 32, 64), (1, 256, 32, 8), (3, 6, 8, 6),
+                                         (1, 4096, 32, 128), (2, 100, 16, 8), (1, 8, 64, 1)])
+def test_paged_split_rule(B, M, bs, want):
+    """From 64 keys up, doubled until the B * KV heads reach about 256
+    blocks and no row has more than 256 splits; never more than M."""
+    KV = 8
+    split = pa.paged_split(B, KV, M, bs)
+    assert split == want
+    assert 1 <= split <= M and -(-M // split) <= pa.PAGED_MAX_SPLITS
+    floor = max(1, 64 // bs)
+    # the rule stops at its floor, at M, or where half the split would
+    # exceed the target
+    assert split in (min(M, floor), M) or (split // 2) * dk.K2_TARGET_BLOCKS < B * KV * M
+
+
+@pytest.mark.parametrize("split", [None, 1, 3])
+def test_paged_geometry_from_shapes_only(split):
+    """The grid comes from the shapes alone, whatever the positions; the
+    active splits of a row cover its used entries exactly, and each span
+    lies inside one Pallas span and one split."""
+    B, KV, M, bs = 4, 8, 64, 32
+    chunk = pa.paged_chunk(M, bs)
+    rows = [[-1, 0, 31, 32], [2047, 114, 1850, 64], [9000, 63, 95, 96]]
+    geos = [pa.paged_geometry(B, KV, M, bs, p, chunk, split) for p in rows]
+    assert len({(g.split, g.grid) for g in geos}) == 1
+    for geo, pos in zip(geos, rows):
+        assert geo.grid == (-(-M // geo.split), KV, B)
+        for b, p in enumerate(pos):
+            used = 0 if p < 0 else min(p // bs, M - 1) + 1
+            assert geo.n_entries[b] == used
+            assert geo.active_splits[b] == max(1, -(-used // geo.split))
+            assert geo.active_splits[b] <= geo.grid[0]
+            entries = []
+            for s in range(geo.active_splits[b]):
+                lo, hi = geo.split_entries(b, s)
+                for a, a1 in geo.spans(b, s):
+                    assert lo <= a < a1 <= hi
+                    assert a // chunk == (a1 - 1) // chunk
+                    entries += range(a, a1)
+            assert entries == list(range(used))
+    with pytest.raises(ValueError, match="splits"):
+        pa.paged_geometry(B, KV, 512, bs, rows[0], chunk, 1)
+
+
+def test_paged_block_size_refusal_and_rule():
+    """The kernel copies 16-byte runs, so it takes pool blocks of a multiple
+    of 8 positions up to 64: the wrapper refuses others before a launch, the
+    default rule sends them to the gather path, and a forced ``flash`` on a
+    card is refused when the batcher is built."""
+    assert [bs for bs in range(1, 80) if pa.paged_kernel_takes(bs)] == list(range(8, 65, 8))
+    q = torch.zeros((1, 1, 8, D), dtype=torch.bfloat16)
+    for bs, ok in ((4, False), (12, False), (72, False), (8, True), (32, True)):
+        pool = torch.zeros((1, 3, 2, bs, D), dtype=torch.bfloat16)
+        if ok:
+            pa._require_kernel_shape(q, (pool, pool))
+        else:
+            with pytest.raises(ValueError, match="multiple of 8"):
+                pa._require_kernel_shape(q, (pool, pool))
+
+    def engine(impl="auto"):
+        return types.SimpleNamespace(
+            device=torch.device("cuda"), _kernels_viable=lambda: True,
+            args=types.SimpleNamespace(kv_cache_dtype="bf16", attn_impl=impl))
+
+    assert default_attn_impl(engine(), 32) == "flash"
+    assert default_attn_impl(engine(), 12) == "plain"
+    assert default_attn_impl(engine(), 128) == "plain"
+    with pytest.raises(ValueError, match="multiple of 8"):
+        PagedBatcher(engine(), block_size=12, attn_impl="flash")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        PagedBatcher(engine("flash"), block_size=4)
+
+
 @pytest.mark.parametrize("quantized", [False, True])
 def test_k5_plain_matches_pallas_interpret(quantized):
     """blocked=False over a single-layer cache: the Pallas kernel's tiles are
