@@ -361,20 +361,11 @@ def group_dropped_params(params):
 
 def counters():
     """Every kernel's wrapper, whose ``launches`` counts its kernel (K6's
-    bf16 and int8 modes apart)."""
-    from llama_nuts_and_bolts_tpu_torch.kernels.attention import flash_gqa_attention
-    from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
-        flash_decode_attention, flash_decode_attention_int8_mxu,
-        flash_decode_attention_q8, flash_decode_attention_whole_head)
-    from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
-        paged_flash_decode, paged_flash_decode_int8, paged_flash_decode_per_head)
-    from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import q4_matmul
+    bf16 and int8 modes apart), in ``KERNEL_WRAPPERS``' order."""
+    from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import KERNEL_WRAPPERS
 
-    return {"K1": flash_gqa_attention, "K2": flash_decode_attention,
-            "K3": flash_decode_attention_q8, "K4": flash_decode_attention_int8_mxu,
-            "K5": flash_decode_attention_whole_head, "K6": paged_flash_decode,
-            "K6i8": paged_flash_decode_int8, "K7": paged_flash_decode_per_head,
-            "K8": q4_matmul}
+    return dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K6i8", "K7", "K8"),
+                    KERNEL_WRAPPERS))
 
 
 def reset_counts() -> None:
@@ -847,18 +838,25 @@ def check_model_path(tk, vocab):
     cycle = 8
     model = LoadedModel(params=cyclic_params(params, cycle), cfg=cfg, vocab=vocab,
                         mergeable_ranks=tk.mergeable_ranks, tensor_meta={})
+    # captured decode: auto replays a one-step graph per token, decode_chunk 8
+    # an 8-step one, generate_block a stop-tracking 8-step one; the eager
+    # per-token path is the yardstick
+    from llama_nuts_and_bolts_tpu_torch.runtime.device_loop import generate_block
+
+    prompt = list(range(cycle)) * 3
     streams = {}
-    for impl in ("plain", "flash"):
-        eng = InferenceEngine(model, InferenceArgs(sequence_length=512,
-                                                   attn_impl=impl), device="cuda")
-        streams[impl] = [t for _, t in eng.generate_tokens(
-            list(range(cycle)) * 3, max_new_tokens=32)]
+    for name, args in (("plain", dict(attn_impl="plain")), ("flash", {}),
+                       ("flash, decode_chunk 8", dict(decode_chunk=8))):
+        eng = InferenceEngine(model, InferenceArgs(sequence_length=512, **args),
+                              device="cuda")
+        streams[name] = [t for _, t in eng.generate_tokens(prompt, max_new_tokens=32)]
+    streams["generate_block"] = generate_block(eng, prompt, 32)[0]
+    streams["eager steps"] = eager_greedy(eng, prompt, 32, eng.cache_bucket(len(prompt), 32))
     expect = [i % cycle for i in range(32)]
-    if streams["plain"] != expect or streams["flash"] != expect:
-        fail(f"cyclic model tokens differ: plain {streams['plain']}, flash "
-             f"{streams['flash']}, expected {expect}")
-    log("cyclic 2-layer model: 32 greedy tokens equal (plain, flash, expected)")
-    del params, model
+    if any(tokens != expect for tokens in streams.values()):
+        fail(f"cyclic model tokens differ: {streams}, expected {expect}")
+    log(f"cyclic 2-layer model: 32 greedy tokens equal ({', '.join(streams)}, expected)")
+    del params, model, eng
     torch.cuda.empty_cache()
 
 
@@ -959,14 +957,34 @@ def check_quant_model_path(tk, vocab):
     torch.cuda.empty_cache()
 
 
-def run_request(engine, tokens, max_new, expect, what):
+def decode_steps(n_tokens: int, k: int, room: int) -> int:
+    """Decode steps the card runs for a request that emits ``n_tokens``,
+    with ``room`` cache positions past the prompt: at k = 1 one a token after
+    the prefill's; at k > 1 the k-step chunks the later tokens need, and the
+    one chunk in flight when the last of them is read (the engine queues the
+    next chunk before it reads one). Far from the horizon only, where no
+    per-token tail runs."""
+    if k == 1 or n_tokens <= 1:
+        return max(n_tokens - 1, 0)
+    if n_tokens + 2 * k >= room:
+        fail(f"{n_tokens} tokens at decode_chunk {k} reach the horizon ({room})")
+    return k * (-(-(n_tokens - 1) // k) + 1)
+
+
+def run_request(engine, tokens, max_new, expect, what, captures=()):
     """One request through ``generate_string``, with every kernel count set to
     0 just before and read just after. ``expect(steps, prefill_len)`` gives
-    the launches each kernel must show (absent: 0)."""
+    the launches each kernel must show (absent: 0), where ``steps`` counts
+    every decode step the card ran: the replayed ones (:func:`decode_steps`)
+    and the one warm-up step of each decode graph the request captures.
+    ``captures`` lists those graphs' k: a cache bucket's first request on
+    an engine captures its graph."""
     from llama_nuts_and_bolts_tpu_torch.runtime.engine import prefill_bucket
 
     cache_len = engine.cache_bucket(len(tokens), max_new)
     prefill_len = prefill_bucket(len(tokens), cache_len)
+    graphs_before = dict(engine._chunk_fns)
+    replays_before = {key: g.replays for key, g in graphs_before.items()}
     reset_counts()
     t0 = time.perf_counter()
     parts, t_first = [], None
@@ -981,20 +999,34 @@ def run_request(engine, tokens, max_new, expect, what):
     if not ids or any(not 0 <= i < engine.model.cfg.vocab_size for i in ids):
         fail(f"{what}: bad token ids {ids[:8]}")
     text = "".join(p.decoded_string for p in parts)
-    steps = len(ids) - 1            # every emitted token but the last ran a step
+    k = engine._decode_chunk_size()
+    new = [key for key in engine._chunk_fns if key not in graphs_before]
+    if sorted(key[0] for key in new) != sorted(captures):
+        fail(f"{what}: captured decode graphs {new}, expected graphs of k = "
+             f"{list(captures)}")
+    warm = len(captures)
+    steps = decode_steps(len(ids), k, cache_len - len(tokens))
+    # the graphs' own tally of the steps they ran must agree
+    ran = sum(g.k * (g.replays - replays_before.get(key, 0))
+              + (g.warmup_steps if key in new else 0)
+              for key, g in engine._chunk_fns.items())
+    if ran != steps + warm:
+        fail(f"{what}: the decode graphs ran {ran} steps, expected {steps} replayed "
+             f"+ {warm} warm-up")
     want = {name: 0 for name in launches}
-    want.update(expect(steps, prefill_len))
+    want.update(expect(steps + warm, prefill_len))
     if launches != want:
-        fail(f"{what}: launches {launches}, expected {want} ({steps} decode steps, "
-             f"prefill bucket {prefill_len})")
+        fail(f"{what}: launches {launches}, expected {want} ({steps} decode steps "
+             f"+ {warm} warm-up at decode_chunk {k}, prefill bucket {prefill_len})")
     ttft = t_first - t0
-    tok_s = steps / (t_end - t_first) if steps else float("nan")
+    tok_s = (len(ids) - 1) / (t_end - t_first) if len(ids) > 1 else float("nan")
     log(f"{what}: prompt {len(tokens)} tokens, {len(ids)} generated, "
-        f"TTFT {ttft * 1e3:.1f} ms, decode {tok_s:.2f} tok/s, launches "
+        f"TTFT {ttft * 1e3:.1f} ms, decode {tok_s:.2f} tok/s at decode_chunk {k} "
+        f"({steps} steps + {warm} warm-up), launches "
         f"{ {k: n for k, n in launches.items() if n} }; text[:60]={text[:60]!r}")
     return dict(prompt=len(tokens), generated=len(ids), ttft_ms=ttft * 1e3,
                 cache_len=cache_len, prefill_len=prefill_len, decode_tok_s=tok_s,
-                launches=launches)
+                decode_chunk=k, steps=steps, warmup_steps=warm, launches=launches)
 
 
 def prompts(engine, vocab):
@@ -1039,11 +1071,21 @@ def main_path(tk, vocab):
     torch.cuda.reset_peak_memory_stats()
     results = {}
     results["A"] = run_request(engine, chat, 64, expect,
-                               "request A (chat, 64 new tokens)")
+                               "request A (chat, 64 new tokens)", captures=(1,))
     results["B"] = run_request(engine, long_prompt, 32, expect,
-                               "request B (3000-token prompt, 32 new tokens)")
+                               "request B (3000-token prompt, 32 new tokens)",
+                               captures=(1,))
     peak = torch.cuda.max_memory_allocated()
     log(f"peak device memory: {peak / 2**30:.2f} GiB")
+    chunked = InferenceEngine(model, InferenceArgs(sequence_length=8192, decode_chunk=8),
+                              device="cuda")
+    for key, tokens, max_new, what in (
+            ("A", chat, 64, "request A at decode_chunk 8"),
+            ("B", long_prompt, 32, "request B at decode_chunk 8")):
+        results[key + "_chunk8"] = run_request(chunked, tokens, max_new, expect, what,
+                                               captures=(8,))
+    results["graphs"] = graph_costs(chunked, "bf16, decode_chunk 8")
+    del chunked
 
     # the first token's logits on the full model, kernels vs plain path
     logits = {}
@@ -1070,6 +1112,8 @@ def main_path(tk, vocab):
         fail("32-layer first token differs where the plain argmax is decisive")
     results["peak_memory_gib"] = peak / 2**30
     results["decode_profile"] = profile_decode(engine, long_prompt)
+    results["captured_vs_eager"] = check_captured_deep(engine, long_prompt, chat)
+    results["graphs"] += graph_costs(engine, "bf16, auto")
     return results
 
 
@@ -1365,17 +1409,27 @@ def quant_main_path(tk, vocab, errs):
         return {"K8": k8_prefill + (7 * L + 1) * steps, "K4": L * steps}
 
     results = {}
-    for key, tokens, max_new, what in (
-            ("A", chat, 64, "int4/int8-KV request A (chat, 64 new tokens)"),
-            ("B", long_prompt, 32, "int4/int8-KV request B (3000-token prompt, 32 new)"),
-            ("C", short, 32, "int4/int8-KV request C (24-token prompt, 32 new)")):
-        results[key] = run_request(engine, tokens, max_new, expect, what)
+    chunked = InferenceEngine(model, InferenceArgs(sequence_length=8192, decode_chunk=8,
+                                                   kv_cache_dtype="int8"), device="cuda")
+    # C's cache bucket is A's (256): its graphs are captured already
+    for key, tokens, max_new, what, captures in (
+            ("A", chat, 64, "int4/int8-KV request A (chat, 64 new tokens)", 1),
+            ("B", long_prompt, 32, "int4/int8-KV request B (3000-token prompt, 32 new)", 1),
+            ("C", short, 32, "int4/int8-KV request C (24-token prompt, 32 new)", 0)):
+        results[key] = run_request(engine, tokens, max_new, expect, what,
+                                   captures=(1,) * captures)
+        results[key + "_chunk8"] = run_request(chunked, tokens, max_new, expect,
+                                               what + " at decode_chunk 8",
+                                               captures=(8,) * captures)
+    results["graphs"] = graph_costs(chunked, "int4/int8-KV, decode_chunk 8")
+    del chunked
     if results["C"]["prefill_len"] != 32:
         fail(f"request C's prefill bucket is {results['C']['prefill_len']}, not 32")
     peak = torch.cuda.max_memory_allocated()
     log(f"int4/int8-KV peak device memory: {peak / 2**30:.2f} GiB")
     results["peak_memory_gib"] = peak / 2**30
     results["decode_profile"] = profile_decode(engine, long_prompt)
+    results["graphs"] += graph_costs(engine, "int4/int8-KV, auto")
     # K4 at A's shapes: the middle of its 64 decode steps
     rows, extra = time_quant_kernels(params, errs, results["B"]["prompt"],
                                      results["B"]["cache_len"], results["A"]["prompt"] + 32,
@@ -1390,45 +1444,36 @@ def quant_main_path(tk, vocab, errs):
     engine = InferenceEngine(model, InferenceArgs(sequence_length=8192), device="cuda")
     results["int8_weights_A"] = run_request(
         engine, chat, 64, lambda steps, _: {"K1": L, "K2": L * steps},
-        "int8-weight request A (chat, 64 new tokens, bf16 cache)")
+        "int8-weight request A (chat, 64 new tokens, bf16 cache)", captures=(1,))
     del engine, model, params
     torch.cuda.empty_cache()
     return results, rows
 
 
-def profile_decode(engine, prompt, steps: int = 8):
-    """Decode steps at request B's shapes: the host clock per step without
-    the profiler, then the device time of the kernels under torch.profiler
-    -- the device's idle share and the kernels that take its time."""
+def step_profile(run, steps: int, what: str) -> dict:
+    """``run()`` runs ``steps`` decode steps and synchronises. The host clock
+    per step without the profiler, then the device time of the kernels
+    under torch.profiler: the device's idle share and the kernels that take
+    its time, the port's by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cache_len = engine.cache_bucket(len(prompt), 32)
-    logits, cache = engine._prefill(prompt, cache_len)
-    tok = int(torch.argmax(logits[0, -1]))
-
-    def run(first):
-        for i in range(steps):
-            engine._forward([[tok]], first + i, cache)
-        torch.cuda.synchronize()
-
-    run(len(prompt))                                        # warm
+    run()                                                   # warm
     t0 = time.perf_counter()
-    run(len(prompt) + steps)
+    run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(len(prompt) + 2 * steps)
+        run()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"decode step at request B's shapes: wall {wall_ms:.2f} ms, device busy "
-        f"{device_ms:.2f} ms ({1 - device_ms / wall_ms:.1%} idle), "
+    log(f"{what}: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
+        f"({1 - device_ms / wall_ms:.1%} idle), "
         f"{sum(e.count for e in kernels) // steps} kernels/step")
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
             f"{e.count // steps:5d} calls/step  {e.key[:90]}")
-    # the port's kernels by name: their device ms per step and share of it
     ours = {}
     for tag, name in (("K2", "flash_decode_kernel"), ("K4", "int8_dot_decode_kernel"),
                       ("K8", "q4_matmul_kernel")):
@@ -1442,6 +1487,151 @@ def profile_decode(engine, prompt, steps: int = 8):
                 kernels_per_step=sum(e.count for e in kernels) // steps,
                 top=[(e.key[:90], e.self_device_time_total / 1e3 / steps) for e in top],
                 ours=ours)
+
+
+def profile_decode(engine, prompt, steps: int = 8):
+    """Decode steps at request B's shapes, eager beside captured, in the same
+    run: the eager step (``engine._forward``, its launches queued back to
+    back, one synchronisation per 8 steps), then the captured ones as the
+    engine runs them, a one-step graph replayed and its token read each
+    step (auto) and an 8-step graph replayed once per 8 steps. For each
+    graph also its device time per step by CUDA events, replays queued
+    behind a spin."""
+    cache_len = engine.cache_bucket(len(prompt), 32)
+    logits, cache = engine._prefill(prompt, cache_len)
+    tok = int(torch.argmax(logits[0, -1]))
+    at = [len(prompt)]
+
+    def eager():
+        for i in range(steps):
+            engine._forward([[tok]], at[0] + i, cache)
+        torch.cuda.synchronize()
+        at[0] += steps
+
+    out = {"eager": step_profile(eager, steps, "eager decode step at request B's shapes")}
+    del cache
+    with engine._lease(1, cache_len) as slot:
+        engine._prefill(prompt, cache_len, cache=slot.cache)
+        slot.set([tok], [len(prompt)])
+        for k in (1, 8):
+            graph = engine._decode_chunk(k, cache_len=cache_len, slot=slot)
+
+            def captured():
+                for _ in range(steps // k):
+                    graph.replay()
+                    graph.tokens(graph.fetch())
+
+            out[f"captured_k{k}"] = step_profile(
+                captured, steps, f"captured decode step (k = {k}) at request B's shapes")
+            ms, _ = cuda_ms(graph.replay, steps // k)
+            out[f"captured_k{k}"]["graph_device_ms"] = ms / k
+            log(f"  graph of {k} step(s): {ms / k:.3f} ms a step on the device (events)")
+    return out
+
+
+def graph_costs(engine, what: str) -> list:
+    """Each decode graph ``engine`` captured: its chunk size and cache
+    bucket, the host seconds of its warm-up and capture, the device memory
+    they reserved, and its slot's cache."""
+    rows = []
+    for key, graph in engine._chunk_fns.items():
+        if graph.graph is None:
+            continue
+        cache = graph.slot.cache
+        cache_mib = sum(t.numel() * t.element_size() for t in (
+            cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None) / 2**20
+        rows.append(dict(path=what, k=graph.k, bucket=key[1], capture_s=graph.capture_s,
+                         capture_mib=graph.capture_bytes / 2**20, cache_mib=cache_mib))
+        log(f"decode graph, {what}, k = {graph.k}, bucket {key[1]}: warm-up and capture "
+            f"{graph.capture_s * 1e3:.1f} ms, {graph.capture_bytes / 2**20:.1f} MiB "
+            f"reserved; its slot's cache {cache_mib:.1f} MiB")
+    return rows
+
+
+def eager_greedy(engine, prompt, n: int, cache_len: int) -> list:
+    """``n`` greedy tokens by the eager per-token path: a prefill, then
+    ``engine._forward`` steps (the uncaptured yardstick)."""
+    logits, cache = engine._prefill(prompt, cache_len)
+    ids = [int(torch.argmax(logits[0, -1]))]
+    while len(ids) < n:
+        logits, cache = engine._forward([[ids[-1]]], len(prompt) + len(ids) - 1, cache)
+        ids.append(int(torch.argmax(logits[0, -1])))
+    return ids
+
+
+def check_captured_deep(engine, prompt, chat, steps: int = 8) -> dict:
+    """The 32-layer bf16 model, where attention moves the logits (the
+    cyclic model zeroes wo and w_down): at request B's shapes, 8 captured
+    steps (a one-step graph replayed 8 times, an 8-step graph replayed
+    once) against 8 eager ones (``engine._forward``): the tokens, the cache
+    rows written and the last logits, held to the kernel limits (the same
+    kernels in the same order: bit-equality expected). A planted fault, the
+    positions not advanced between steps, must fail them. Then a seeded
+    sampled request through ``generate_tokens``, captured at k = 1 and 8,
+    against the eager steps' stream, and the generator state after each."""
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import DecodeGraph
+
+    class PositionsStuck(DecodeGraph):
+        def _advance(self, nxt):                     # the planted fault
+            self.slot.feed.copy_(nxt[:, None])
+
+    P = len(prompt)
+    cache_len = engine.cache_bucket(P, 32)
+    logits, ref_cache = engine._prefill(prompt, cache_len)
+    ref = [int(torch.argmax(logits[0, -1]))]
+    for i in range(steps):
+        logits, _ = engine._forward([[ref[-1]]], P + i, ref_cache)
+        ref.append(int(torch.argmax(logits[0, -1])))
+    ref_logits = logits[:, -1]
+    rows = slice(P, P + steps)
+    errs = {}
+    for what, k, planted in (("one-step graph x 8", 1, False), ("8-step graph", 8, False),
+                             ("8-step graph, positions not advanced", 8, True)):
+        with engine._lease(1, cache_len) as slot:
+            engine._prefill(prompt, cache_len, cache=slot.cache)
+            slot.set([ref[0]], [P])
+            graph = (PositionsStuck(engine, slot, k) if planted
+                     else engine._decode_chunk(k, cache_len=cache_len, slot=slot))
+            got = []
+            for _ in range(steps // k):
+                graph.replay()
+                got += [row[0] for row in graph.tokens(graph.fetch())]
+            torch.cuda.synchronize()
+            what = f"32-layer bf16, {steps} captured steps ({what}) vs eager"
+            if got != ref[1:] and not planted:
+                check_failed(f"{what}: tokens {got}, eager {ref[1:]}")
+            worst = max(kernel_err(getattr(slot.cache, name)[:, :, :, rows],
+                                   getattr(ref_cache, name)[:, :, :, rows],
+                                   f"{what}, cache {name} rows", planted=planted)
+                        for name in ("k", "v"))
+            worst = max(worst, kernel_err(slot.logits, ref_logits, f"{what}, last logits",
+                                          planted=planted))
+            errs[what] = worst
+    del ref_cache
+
+    sampling = dict(sequence_length=8192, temperature=0.8, top_k=50, top_p=0.95, seed=3)
+    eager = InferenceEngine(engine.model, InferenceArgs(**sampling), device="cuda")
+    logits, cache = eager._prefill(chat, eager.cache_bucket(len(chat), 16))
+    want = [eager._select_token(logits[0, 0])]
+    while len(want) < 16:
+        logits, cache = eager._forward([[want[-1]]], len(chat) + len(want) - 1, cache)
+        want.append(eager._select_token(logits[0, -1]))
+    del cache
+    for k in (1, 8):
+        captured = InferenceEngine(engine.model, InferenceArgs(decode_chunk=k, **sampling),
+                                   device="cuda")
+        got = [t for _, t in captured.generate_tokens(chat, max_new_tokens=16)]
+        same_rng = torch.equal(captured._generator.get_state(), eager._generator.get_state())
+        log(f"seeded sampled request (T=0.8, top-k 50, top-p 0.95), captured at k = {k}: "
+            f"{'equals' if got == want else 'differs from'} the eager stream; generator "
+            f"state after it {'equal' if same_rng else 'differs'}")
+        if got != want or not same_rng:
+            check_failed(f"sampled request at k = {k}: {got} vs eager {want}")
+        del captured
+    errs["sampled_tokens"] = want
+    torch.cuda.empty_cache()
+    return errs
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2243,8 +2433,8 @@ def main() -> int:
     # each kernel's launches are those of its path's requests
     for row, tag, runs in zip(rows, ("K1", "K2", "K3", "K4", "K8"),
                               ((results,) * 2 + (qresults,) * 3)):
-        row["launches"] = sum(runs[r]["launches"][tag] for r in ("A", "B", "C")
-                              if r in runs)
+        row["launches"] = sum(runs[r]["launches"][tag] for r in (
+            "A", "B", "C", "A_chunk8", "B_chunk8", "C_chunk8") if r in runs)
     log("phase 6: paged kernels K6 (bf16, int8), K7 and K5 vs plain at 8B widths")
     errs.update(check_paged_kernels())
     log("phase 7: 2-layer paged decode, K6 vs the gather path; cyclic batchers")

@@ -85,6 +85,12 @@ def parse_args(argv=None):
                    help="attention: auto (the CUDA kernels on a card when "
                         "head_dim is a multiple of 128), plain (PyTorch), or "
                         "flash (the CUDA kernels K1/K2, K4 for an int8 cache)")
+    p.add_argument("--decode-chunk", type=int, default=0, metavar="K",
+                   help="streaming (greedy or sampled) decodes K tokens per "
+                        "device dispatch (a captured K-step CUDA graph, identical "
+                        "transcript; sampled runs keep their seeded RNG "
+                        "sequence); 0 = auto: per-token on a host-attached "
+                        "card, each step one captured graph")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the model runs (default cuda; no fallback)")
     p.add_argument("--debug", action="store_true", help="write debug.log trace")
@@ -268,7 +274,8 @@ def main(argv=None) -> int:
                       top_k=args.top_k, top_p=args.top_p,
                       kv_cache_dtype=args.kv_cache,
                       prefill_chunk=args.prefill_chunk,
-                      attn_impl=args.attn_impl),
+                      attn_impl=args.attn_impl,
+                      decode_chunk=args.decode_chunk),
         log_fn=live_log,
         device=device,
     )

@@ -111,6 +111,17 @@ class KVCache:
                        v=self.v[:, :, :, :max_seq].clone(),
                        k_scale=cut(self.k_scale), v_scale=cut(self.v_scale))
 
+    def load_(self, src: "KVCache") -> "KVCache":
+        """Copy ``src``'s first positions into this buffer, in place, as
+        many as both hold: a prefix-cache snapshot seeds a decode graph's
+        cache, whose address the graph keeps."""
+        n = min(self.max_seq, src.max_seq)
+        for dst, s in ((self.k, src.k), (self.v, src.v), (self.k_scale, src.k_scale),
+                       (self.v_scale, src.v_scale)):
+            if dst is not None:
+                dst[:, :, :, :n].copy_(s[:, :, :, :n])
+        return self
+
     @property
     def max_seq(self) -> int:
         return self.k.shape[3]

@@ -17,6 +17,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from llama_nuts_and_bolts_tpu_torch.device import exact_div
+
 _U64 = (1 << 64) - 1
 
 
@@ -35,22 +37,45 @@ def sample_token(
 ) -> torch.Tensor:
     if temperature <= 0.0 or generator is None:
         return greedy(logits)
-    logits = logits.float() / temperature
+    return draw_token(logits, generator, temperature, top_k, top_p)
+
+
+def draw_token(logits: torch.Tensor, generator: torch.Generator, temperature,
+               top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+    """The sampled branch of :func:`sample_token`, with no host read, so a
+    captured decode step can run it. ``temperature`` is a positive float or
+    a 0-d tensor on ``logits``' device; either way the logits are divided,
+    never multiplied by the reciprocal (``device.exact_div``), so the eager
+    and the captured step give the same bits. The draw is
+    ``torch.multinomial``'s own for one sample, ``argmax(probs / q)`` with
+    ``q ~ Exp(1)`` from ``generator``, without its host-side checks of the
+    probabilities."""
+    scaled = logits.float()
+    if isinstance(temperature, torch.Tensor):
+        scaled = scaled / temperature
+    else:
+        scaled = exact_div(scaled, float(temperature))
     if top_k > 0:
-        kth = torch.sort(logits, dim=-1).values[..., -top_k][..., None]
-        logits = torch.where(logits < kth, float("-inf"), logits)
+        kth = torch.sort(scaled, dim=-1).values[..., -top_k][..., None]
+        scaled = torch.where(scaled < kth, float("-inf"), scaled)
     if top_p < 1.0:
-        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
         cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
         # keep the smallest prefix with cumulative prob >= top_p
         cutoff_idx = torch.sum(cum < top_p, dim=-1, keepdim=True)
         cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
-        logits = torch.where(logits < cutoff, float("-inf"), logits)
-    probs = torch.softmax(logits, dim=-1)
+        scaled = torch.where(scaled < cutoff, float("-inf"), scaled)
+    probs = torch.softmax(scaled, dim=-1)
     lead = probs.shape[:-1]
-    draw = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
-                             generator=generator)
+    probs = probs.reshape(-1, probs.shape[-1])
+    draw = torch.argmax(probs / exponential_noise(probs, generator), dim=-1)
     return draw.reshape(lead).to(torch.int32)
+
+
+def exponential_noise(like: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """``Exp(1)`` noise shaped as ``like``: the generator state one sampled
+    token consumes (an engine rewinds a generator by replaying these)."""
+    return torch.empty_like(like).exponential_(1, generator=generator)
 
 
 def row_seed(seed: int, position: int) -> int:

@@ -14,8 +14,10 @@ Within a group, byte ``j`` holds element ``j`` in its low nibble and element
 ``j + K/2`` in its high nibble, each offset by +8. ``ops.linear`` runs a
 :class:`Q4Tensor` through K8 (``kernels/q4_matmul.py``) for decode-shaped
 calls on the card and through :func:`unpack_q4` and a dense product
-otherwise. The JAX package's ``Q4Native`` / ``nativize_q4`` exist for its
-jitted on-device decode loops and come with them (ROADMAP queue 1, item 11).
+otherwise. The JAX package's ``Q4Native`` / ``nativize_q4`` unpack the int4
+weights once per jitted on-device decode block; the port has no
+counterpart, because K8 reads the packed bytes themselves, so a captured
+decode block (``runtime/device_loop.py``) has nothing to unpack.
 """
 
 from __future__ import annotations

@@ -24,8 +24,11 @@ weight reads with the requests already decoding.
     for a read-back. Occupancy changes never flush: every entry carries a
     slots snapshot, and delivery drops rows whose slot changed hands.
   * ``step_quantum`` k runs k decode steps back to back per iteration; with
-    k > 1 admission and stops act every k tokens. Chaining them on the device
-    is the decode CUDA graph (ROADMAP item 19); the default is 1.
+    k > 1 admission and stops act every k tokens; the default is 1. The
+    steps run eagerly: a captured batched step needs the block tables and
+    slot positions in static buffers and a per-row generator drawn on the
+    device (ROADMAP queue 1), where the sequential engine's decode replays
+    graphs (``runtime/decode_graph.py``).
 """
 
 from __future__ import annotations

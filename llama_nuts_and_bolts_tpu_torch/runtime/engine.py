@@ -1,19 +1,21 @@
-"""Inference engine: bucketed prefill, one decode step per token, streaming.
+"""Inference engine: bucketed prefill, captured decode steps, streaming.
 
 Port of the plain path of ``llama_nuts_and_bolts_tpu/runtime/engine.py``:
 power-of-two prefill buckets (``prefill_chunk`` included), request cache
-buckets, the prefix cache, a bf16 or int8 KV cache, per-token greedy/sampled
-decode and streaming detokenization. PyTorch runs eagerly, so there are no
-executables to cache; the buckets are kept because they bound the cache each
-request allocates and keep the kernels' shapes few.
+buckets, the prefix cache, a bf16 or int8 KV cache, greedy/sampled decode in
+chunks of ``decode_chunk`` steps and streaming detokenization. Prefill runs
+eagerly; decode replays CUDA graphs (``runtime/decode_graph.py``), the
+counterparts of the JAX engine's jitted step and chunk scans, kept per
+request cache bucket in ``_chunk_fns`` under the same LRU rule.
 
-Speculation, the ``probe`` attention choice and multi-step decode dispatch
-(the CUDA-graph counterpart of ``decode_chunk``) are later items of
+Speculation and the ``probe`` attention choice are later items of
 ROADMAP.md: asking for them raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -24,6 +26,7 @@ from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import K2_GROUP
 from llama_nuts_and_bolts_tpu_torch.models.llama.loader import LoadedModel
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache, forward
 from llama_nuts_and_bolts_tpu_torch.ops.sampling import sample_token
+from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import DecodeGraph, DecodeSlot
 from llama_nuts_and_bolts_tpu_torch.runtime.detokenizer import (
     token_batch_to_string,
     token_to_string,
@@ -66,9 +69,6 @@ def _check_args(args: InferenceArgs) -> None:
     if args.attn_impl not in ATTN_CHOICES:
         raise ValueError(f"attn_impl must be one of {ATTN_CHOICES}, got "
                          f"{args.attn_impl!r}")
-    if args.decode_chunk > 1:
-        raise NotImplementedError("multi-step decode dispatch is a later item "
-                                  "of ROADMAP.md (queue 1, decode CUDA graph)")
 
 
 class InferenceEngine:
@@ -86,6 +86,12 @@ class InferenceEngine:
         self._generator = torch.Generator(device=self.device).manual_seed(self.args.seed)
         # prefix cache: token-tuple -> KVCache snapshot (see cache_prefix)
         self._prefix_cache: Dict[tuple, KVCache] = {}
+        # decode graphs (LRU, see _decode_chunk) and the slots they run over,
+        # by (rows, cache bucket)
+        self._chunk_fns: Dict[tuple, DecodeGraph] = {}
+        self._slots: Dict[Tuple[int, int], List[DecodeSlot]] = {}
+        self._slots_made = 0
+        self._slots_lock = threading.Lock()
         if self.args.attn_impl.startswith("flash") and not self._kernels_viable():
             raise ValueError(
                 f"attn_impl={self.args.attn_impl!r} needs head_dim {HEAD_DIM} and G = "
@@ -173,6 +179,10 @@ class InferenceEngine:
     # ------------------------------------------------------- prefix caching
 
     MAX_CACHED_PREFIXES = 4
+    # decode graphs kept (LRU, sampled evicted first): greedy needs one per
+    # (chunk size, cache bucket), and sampled adds one per distinct
+    # (top_k, top_p)
+    MAX_CHUNK_EXECUTABLES = 16
 
     def cache_prefix(self, prefix_tokens: Sequence[int]) -> None:
         """Prefill ``prefix_tokens`` once and snapshot the KV state: a later
@@ -223,10 +233,12 @@ class InferenceEngine:
         padded = list(tokens) + [0] * (bucket - n)
         return self._forward([padded], start_pos, cache, logits_at=n - 1)
 
-    def _prefill(self, prompt_tokens: Sequence[int],
-                 cache_len: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
+    def _prefill(self, prompt_tokens: Sequence[int], cache_len: Optional[int] = None,
+                 cache: Optional[KVCache] = None) -> Tuple[torch.Tensor, KVCache]:
         """Bucketed-padded prefill; returns logits at the last prompt row.
-        Reuses the longest cached prefix snapshot when one matches."""
+        Reuses the longest cached prefix snapshot when one matches. The
+        prefill writes into ``cache`` when one is given (a decode slot's),
+        else into a new ``cache_len`` buffer."""
         prompt_len = len(prompt_tokens)
         if prompt_len >= self.seq_len:
             raise ValueError(
@@ -240,15 +252,77 @@ class InferenceEngine:
                 # prompt == prefix: re-run its last token for the logits row
                 plen -= 1
             suffix = list(prompt_tokens[plen:])
-            cache = self._prefix_cache[prefix].truncated(cache_len)
+            snapshot = self._prefix_cache[prefix]
+            cache = (snapshot.truncated(cache_len) if cache is None
+                     else cache.load_(snapshot))
             self.log("Prefix cache hit: %d of %d prompt tokens reused",
                      plen, prompt_len)
             return self._run_prefill(suffix, cache, plen)
         self.log("Running prefill: prompt_len=%d", prompt_len)
         return self._run_prefill(list(prompt_tokens),
-                                 self.new_cache(1, cache_len), 0)
+                                 cache or self.new_cache(1, cache_len), 0)
 
     # ------------------------------------------------------------- decode
+
+    def _decode_chunk_size(self) -> int:
+        """Resolve ``args.decode_chunk``: 0 is auto, which is 1 on a card.
+        The JAX engine's auto takes 8 only on an RPC-attached device, where
+        each dispatch costs a network round trip; a card is host-attached,
+        and its step replays as one graph at k = 1 too."""
+        return max(1, self.args.decode_chunk)
+
+    @contextlib.contextmanager
+    def _lease(self, batch: int, cache_len: int):
+        """A decode slot of ``batch`` rows over a ``cache_len`` cache, for
+        one request at a time: a second live request on the same bucket
+        gets a slot (and graphs) of its own."""
+        with self._slots_lock:
+            slot = next((s for s in self._slots.get((batch, cache_len), ())
+                         if not s.leased), None) or self._new_slot(batch, cache_len)
+            slot.leased = True
+        try:
+            yield slot
+        finally:
+            slot.leased = False
+
+    def _new_slot(self, batch: int, cache_len: int) -> DecodeSlot:
+        slot = DecodeSlot(self, batch, cache_len, self._slots_made)
+        self._slots_made += 1
+        self._slots.setdefault((batch, cache_len), []).append(slot)
+        return slot
+
+    def _decode_chunk(self, k: int, sampled: bool = False,
+                      cache_len: Optional[int] = None,
+                      slot: Optional[DecodeSlot] = None,
+                      stops: bool = False) -> DecodeGraph:
+        """The graph of k decode steps over ``slot`` (default: the first
+        one-row slot of the bucket), greedy, sampled with this engine's
+        top_k/top_p (the temperature is the slot's, so one graph serves any),
+        or greedy with stop tracking. Keyed as the JAX engine keys its chunk
+        executables, ``(k, bucket, "g" | "b" | ("s", top_k, top_p))``, and by
+        the slot. At most MAX_CHUNK_EXECUTABLES are kept, refreshed on use;
+        a sampled entry is evicted first (client-controlled top_k/top_p must
+        not push out the greedy graphs), and a slot that no graph and no
+        request holds any more goes with its cache."""
+        bucket = cache_len or self.seq_len
+        if slot is None:
+            slot = next(iter(self._slots.get((1, bucket), ())), None) or \
+                self._new_slot(1, bucket)
+        key = ((k, bucket, "s", self.args.top_k, self.args.top_p) if sampled
+               else (k, bucket, "b" if stops else "g")) + (slot.index,)
+        if key in self._chunk_fns:
+            self._chunk_fns[key] = self._chunk_fns.pop(key)
+            return self._chunk_fns[key]
+        while len(self._chunk_fns) >= self.MAX_CHUNK_EXECUTABLES:
+            victim = next((c for c in self._chunk_fns if "s" in c),
+                          next(iter(self._chunk_fns)))
+            self._chunk_fns.pop(victim)
+        self._chunk_fns[key] = DecodeGraph(self, slot, k, sampled=sampled, stops=stops)
+        held = {g.slot for g in self._chunk_fns.values()}
+        with self._slots_lock:
+            for slots in self._slots.values():
+                slots[:] = [s for s in slots if s.leased or s in held]
+        return self._chunk_fns[key]
 
     def generate_tokens(
         self, prompt_tokens: Sequence[int],
@@ -267,27 +341,86 @@ class InferenceEngine:
         self, prompt_tokens: Sequence[int], cache_len: int,
         max_new_tokens: Optional[int] = None,
     ) -> Iterator[Tuple[GenerationState, int]]:
+        """Prefill into a leased decode slot, then decode by replaying its
+        graphs: k-step chunks while a whole chunk fits below the horizon,
+        one-step graphs after. As in the JAX engine, one chunk stays in
+        flight: the next chunk is queued (its feed is this chunk's last
+        token, already on the device) before this one's tokens are read, and
+        a stop abandons it (its cache writes are never read). A sampled run
+        that ends mid-chunk sets the generator where per-token decoding
+        would have left it."""
         vocab = self.model.vocab
         horizon = min(self.seq_len, cache_len)
         cap = max_new_tokens if max_new_tokens is not None else float("inf")
         emitted = 0
-        logits, cache = self._prefill(prompt_tokens, cache_len)
-        next_token = self._select_token(logits[0, 0])
-        cur_pos = len(prompt_tokens)
-        while True:
-            if vocab.is_stop(next_token):
-                yield GenerationState.FINISHED_BY_REACHING_EOS, next_token
-                return
-            if cur_pos + 1 >= horizon:
-                yield GenerationState.FINISHED_BY_REACHING_SEQ_LEN, next_token
-                return
-            yield GenerationState.IN_PROGRESS, next_token
-            emitted += 1
-            if emitted >= cap:
-                return
-            logits, cache = self._forward([[next_token]], cur_pos, cache)
-            next_token = self._select_token(logits[0, -1])
-            cur_pos += 1
+        chunk_k = self._decode_chunk_size()
+        sampled = self.args.temperature > 0.0
+        gen = self._generator
+        with self._lease(1, cache_len) as slot:
+            logits, _ = self._prefill(prompt_tokens, cache_len, cache=slot.cache)
+            next_token = self._select_token(logits[0, 0])
+            if sampled:
+                slot.temperature.fill_(self.args.temperature)
+            step = chunk = None          # made when first needed
+            pending = None               # (queued chunk, generator state before it)
+            cur_pos = len(prompt_tokens)
+            while True:
+                if vocab.is_stop(next_token):
+                    yield GenerationState.FINISHED_BY_REACHING_EOS, next_token
+                    return
+                if cur_pos + 1 >= horizon:
+                    yield GenerationState.FINISHED_BY_REACHING_SEQ_LEN, next_token
+                    return
+                yield GenerationState.IN_PROGRESS, next_token
+                emitted += 1
+                if emitted >= cap:
+                    # cap hit at a chunk boundary (or a one-step graph): the
+                    # generator is exact
+                    return
+
+                if chunk_k > 1 and cur_pos + chunk_k < horizon:
+                    chunk = chunk or self._decode_chunk(chunk_k, sampled, cache_len, slot)
+                    if pending is None:
+                        slot.set([next_token], [cur_pos])
+                        rng = gen.get_state() if sampled else None
+                        chunk.replay()
+                        pending = (chunk.fetch(), rng)
+                    run, rng_before = pending
+                    pending = None
+                    # queue the next chunk before reading this one, when the
+                    # next iteration takes the chunked branch
+                    if cur_pos + 2 * chunk_k < horizon:
+                        rng = gen.get_state() if sampled else None
+                        chunk.replay()
+                        pending = (chunk.fetch(), rng)
+                    chunk_tokens = [row[0] for row in chunk.tokens(run)]
+                    cur_pos += 1
+                    for i, tok in enumerate(chunk_tokens):
+                        next_token = tok
+                        if i + 1 == len(chunk_tokens):
+                            break        # the loop head handles the last one
+                        terminal = None
+                        if vocab.is_stop(next_token):
+                            terminal = GenerationState.FINISHED_BY_REACHING_EOS
+                        elif cur_pos + 1 >= horizon:
+                            terminal = GenerationState.FINISHED_BY_REACHING_SEQ_LEN
+                        if terminal is not None or emitted + 1 >= cap:
+                            if sampled:
+                                # the chunk drew k times, per-token decoding i + 1
+                                chunk.rewind_rng(rng_before, i + 1)
+                            yield (terminal if terminal is not None
+                                   else GenerationState.IN_PROGRESS), next_token
+                            return
+                        yield GenerationState.IN_PROGRESS, next_token
+                        emitted += 1
+                        cur_pos += 1
+                    continue
+
+                step = step or self._decode_chunk(1, sampled, cache_len, slot)
+                slot.set([next_token], [cur_pos])
+                step.replay()
+                next_token = step.tokens(step.fetch())[0][0]
+                cur_pos += 1
 
     # ---------------------------------------------------------- streaming
 

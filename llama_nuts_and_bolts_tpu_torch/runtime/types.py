@@ -72,8 +72,8 @@ class InferenceArgs:
     # kernels K1 and K2, or K4 for an int8 cache) | "flash_folded" (K4 to
     # decode)
     attn_impl: str = "auto"
-    # decode steps per dispatch: 0 and 1 both mean one step per token; more
-    # waits for the decode CUDA graph (ROADMAP.md)
+    # decode steps per captured graph replay: 0 is auto (1 on a card), and
+    # k > 1 streams in k-step chunks (runtime/decode_graph.py)
     decode_chunk: int = 0
     # n-gram prompt-lookup speculative decoding (ROADMAP.md; 0 disables)
     speculate_k: int = 0

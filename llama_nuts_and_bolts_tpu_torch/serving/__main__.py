@@ -3,7 +3,8 @@
 The JAX package's server flags, plus ``--device {cuda,cpu}`` (default
 ``cuda``; no fallback). Flags that reach parts not ported yet raise and name
 their ROADMAP item: ``--tp`` (17), ``--speculate`` and ``--draft-model`` (12),
-``--decode-chunk`` above 1 (19), ``--attn-impl probe`` (20).
+``--attn-impl probe`` (20). ``--decode-chunk K`` reaches the engine: the
+sequential path (no ``--continuous``) streams in captured K-step chunks.
 """
 
 import argparse
@@ -51,8 +52,9 @@ def parse_args(argv=None):
                    help="attention: the CUDA kernels on a card (auto), forced, "
                         "or a measured probe (ROADMAP item 20)")
     p.add_argument("--decode-chunk", type=int, default=0, metavar="K",
-                   help="decode steps per dispatch; above 1 is the decode CUDA "
-                        "graph (ROADMAP item 19)")
+                   help="streaming (greedy or sampled) decodes K tokens per "
+                        "captured graph replay; sampled keeps seeded RNG parity "
+                        "(0 = auto: per-token on a host-attached card)")
     p.add_argument("--max-pending", type=int, default=0, metavar="N",
                    help="admit at most N concurrent generation requests; "
                         "excess get an immediate 429 + Retry-After "
@@ -113,8 +115,7 @@ def main(argv=None) -> int:
                                  quant=quant, fused=quant is None and not args.paged_blocks)
         name = "llama-3.1-8b-instruct"
 
-    # the engine refuses --decode-chunk > 1 and --attn-impl probe, naming
-    # their ROADMAP items
+    # the engine refuses --attn-impl probe, naming its ROADMAP item
     engine = InferenceEngine(model, InferenceArgs(sequence_length=args.seq_len,
                                                   kv_cache_dtype=args.kv_cache,
                                                   prefill_chunk=args.prefill_chunk,

@@ -164,11 +164,15 @@ def test_attention_choice_and_refusals():
     for bad, exc in (({"speculate_k": 2}, NotImplementedError),
                      ({"kv_cache_dtype": "fp8"}, ValueError),
                      ({"attn_impl": "probe"}, NotImplementedError),
-                     ({"decode_chunk": 4}, NotImplementedError),
                      ({"attn_impl": "xla"}, ValueError),
                      ({"attn_impl": "flash"}, ValueError)):   # head_dim 16
         with pytest.raises(exc):
             InferenceEngine(eng.model, InferenceArgs(**bad), device="cpu")
+    # decode_chunk is accepted (the chunks are decode graphs); 0 is auto, 1
+    for chunk, k in ((4, 4), (0, 1), (1, 1)):
+        chunked = InferenceEngine(eng.model, InferenceArgs(decode_chunk=chunk),
+                                  device="cpu")
+        assert chunked._decode_chunk_size() == k
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             InferenceEngine(eng.model, InferenceArgs())

@@ -608,3 +608,164 @@ def test_k6_refuses_block_sizes_it_cannot_copy(cuda):
         pool = rand((1, 3, KV, bs, D), gen, cuda)
         with pytest.raises(ValueError, match="multiple of 8"):
             paged_flash_decode(q, pool, pool, tables, 5, layer=0)
+
+
+# ------------------------------------------------------------ decode graphs
+
+
+def tiny_engine(device, **args):
+    """A 2-layer model at the kernels' shape (head_dim 128, G = 4), random
+    bf16 weights in the fused layout, byte-level vocab of 512."""
+    from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel
+    from llama_nuts_and_bolts_tpu_torch.models.llama.model import init_random_params
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.tokenizer import TiktokenModel, Vocabulary
+    from llama_nuts_and_bolts_tpu_torch.tokenizer.tiktoken_io import build_special_tokens
+
+    ranks = {bytes([i]): i for i in range(256)}
+    special = build_special_tokens(len(ranks))
+    vocab = Vocabulary.from_tiktoken(TiktokenModel(
+        mergeable_ranks=ranks, special_tokens=special, bos_id=special["<|begin_of_text|>"],
+        eos_id=special["<|end_of_text|>"],
+        stop_token_ids=[special["<|eom_id|>"], special["<|eot_id|>"]]))
+    cfg = ModelArgs(dim=512, n_layers=2, n_heads=4, n_kv_heads=1, vocab_size=512,
+                    multiple_of=32, norm_eps=1e-5, max_sequence_length=512)
+    model = LoadedModel(params=init_random_params(cfg, seed=0, device=device, fused=True),
+                        cfg=cfg, vocab=vocab, mergeable_ranks=ranks, tensor_meta={})
+    return InferenceEngine(model, InferenceArgs(sequence_length=512, **args), device=device)
+
+
+PROMPT_IDS = list(range(40, 60))
+
+
+def eager_decode(engine, prompt, cache_len, steps):
+    """The uncaptured yardstick: prefill, then ``steps`` eager decode steps
+    (``engine._forward`` + ``engine._select_token``). Returns the tokens
+    (the prefill's first), the cache and the last logits."""
+    logits, cache = engine._prefill(prompt, cache_len)
+    tokens = [engine._select_token(logits[0, 0])]
+    for i in range(steps):
+        logits, cache = engine._forward([[tokens[-1]]], len(prompt) + i, cache)
+        tokens.append(engine._select_token(logits[0, -1]))
+    return tokens, cache, logits[:, -1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_captured_decode_equals_eager(cuda, k, kv):
+    """Tokens, cache rows and last logits of captured steps (k-step graphs)
+    are bit-equal to the eager steps': the same kernels in the same order."""
+    engine = tiny_engine(cuda, decode_chunk=k, kv_cache_dtype=kv)
+    cache_len, steps = 256, 12
+    assert engine._attn_impl(1, cache_len) == "flash"
+    ref, ref_cache, ref_logits = eager_decode(engine, PROMPT_IDS, cache_len, steps)
+    with engine._lease(1, cache_len) as slot:
+        logits, _ = engine._prefill(PROMPT_IDS, cache_len, cache=slot.cache)
+        first = engine._select_token(logits[0, 0])
+        slot.set([first], [len(PROMPT_IDS)])
+        graph = engine._decode_chunk(k, cache_len=cache_len, slot=slot)
+        got = [first]
+        for _ in range(steps // k):
+            graph.replay()
+            got += [row[0] for row in graph.tokens(graph.fetch())]
+        torch.cuda.synchronize()
+        assert got == ref
+        rows = slice(len(PROMPT_IDS), len(PROMPT_IDS) + steps)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            mine, theirs = getattr(slot.cache, name), getattr(ref_cache, name)
+            if mine is not None:
+                assert torch.equal(mine[:, :, :, rows], theirs[:, :, :, rows]), name
+        assert torch.equal(slot.logits, ref_logits)
+    assert graph.graph is not None and graph.warmup_steps == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_captured_request_counts_launches_exactly(cuda, k):
+    """K1 once a layer for the prefill; K2 once a layer for every step the
+    card ran: the one warm-up step of each new graph, and every replayed
+    step (a chunk in flight when the cap is reached ran too)."""
+    engine = tiny_engine(cuda, decode_chunk=k)
+    L = engine.model.cfg.n_layers
+    for request in range(2):
+        flash_gqa_attention.launches = flash_decode_attention.launches = 0
+        n = len(list(engine.generate_tokens(PROMPT_IDS, max_new_tokens=17)))
+        torch.cuda.synchronize()
+        graphs = list(engine._chunk_fns.values())
+        steps = sum(g.k * g.replays + g.warmup_steps for g in graphs)
+        for g in graphs:
+            g.replays = g.warmup_steps = 0
+        # k = 1: a step a token but the first; k = 4: the chunks the 16
+        # decoded tokens need and one in flight
+        want = n - 1 if k == 1 else k * (-(-(n - 1) // k) + 1)
+        warm = 0 if request else 1
+        assert n == 17 and steps == want + warm
+        assert flash_gqa_attention.launches == L
+        assert flash_decode_attention.launches == L * steps
+
+
+@pytest.mark.gpu
+def test_sampled_captured_stream_equals_eager_and_chunked(cuda):
+    """A seeded sampled request: the captured per-token stream equals the
+    eager steps', a 4-step chunked one equals both, and a mid-chunk end
+    leaves the generator where per-token decoding leaves it."""
+    args = dict(temperature=0.9, top_k=40, top_p=0.95, seed=7)
+    engine = tiny_engine(cuda, **args)
+    ref, _, _ = eager_decode(engine, PROMPT_IDS, 256, 9)
+    for k in (1, 4):
+        engine = tiny_engine(cuda, decode_chunk=k, **args)
+        got = [t for _, t in engine.generate_tokens(PROMPT_IDS, max_new_tokens=10)]
+        assert got == ref, k
+        if k == 1:
+            state = engine._generator.get_state()
+        else:
+            assert torch.equal(engine._generator.get_state(), state)
+
+
+@pytest.mark.gpu
+def test_capture_failure_raises_without_an_eager_fallback(cuda, monkeypatch):
+    """A kernel that raises during capture makes the request raise: no
+    token is decoded after the prefill's, on any path."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import model as model_mod
+
+    def refuses_capture(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("planted: K2 refuses to be captured")
+        return flash_decode_attention(*args, **kwargs)
+
+    monkeypatch.setattr(model_mod, "flash_decode_attention", refuses_capture)
+    engine = tiny_engine(cuda)
+    tokens = []
+    with pytest.raises(RuntimeError, match="planted"):
+        for _, tok in engine.generate_tokens(PROMPT_IDS, max_new_tokens=8):
+            tokens.append(tok)
+    assert len(tokens) == 1
+    assert not torch.cuda.is_current_stream_capturing()
+
+
+@pytest.mark.gpu
+def test_batched_generation_replays_one_graph_at_two_rows(cuda):
+    """generate_tokens_batched on the card: two rows with the same prompt
+    give the same tokens, every step replays the two-row one-step graph,
+    and K2 runs once a layer for each step and the one warm-up step."""
+    from llama_nuts_and_bolts_tpu_torch.runtime.batch import generate_tokens_batched
+
+    engine = tiny_engine(cuda)
+    engine.model.vocab.stop_token_ids.clear()     # the rows run to the 12th step
+    L = engine.model.cfg.n_layers
+    flash_decode_attention.launches = 0
+    rows = {0: [], 1: []}
+    steps = 0
+    for step in generate_tokens_batched(engine, [PROMPT_IDS, PROMPT_IDS]):
+        steps += 1
+        for r in step:
+            rows[r.row].append((r.position, r.token_id))
+        if steps == 12:
+            break
+    torch.cuda.synchronize()
+    assert rows[0] == rows[1] and len(rows[0]) == 12
+    (graph,) = engine._chunk_fns.values()
+    assert graph.slot.batch == 2 and graph.replays == 11
+    assert flash_decode_attention.launches == L * (11 + 1)
