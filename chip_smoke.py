@@ -10,9 +10,19 @@ cache (K1, K2), then int4 weights with an int8 cache (K8, K4), with a last
 request on int8 weights; then the OpenAI-compatible server
 (``LlamaHTTPServer``) over the paged continuous batcher, with concurrent
 HTTP requests on a bf16 pool (K6) and an int8 pool (K6's int8 mode) -- and
-times the kernels (K5 and K7 too, which serve no path). Every limit is also
-read against planted faults, which must fail it. Any failed check exits
-non-zero.
+times the kernels (K5 and K7 too, which serve no path). Then speculative
+decoding (k = 4): the sequential engine on the 32-layer 8B, bf16, with
+n-gram drafts on the constructed-cyclic model and on the random-weight one,
+and with draft models at Llama-3.2-1B's widths (a 2-layer cyclic draft, a
+16-layer random one), each against plain greedy, with acceptance, the
+captured verify step's device time and host wall, and exact launch counts,
+and the planted fault "the slot's position not rewound after a rejection";
+the same with int4 weights and an int8 cache (K8 in the verify step); the
+dense and paged speculative batchers on the 2-layer cyclic model (a pool
+that clamps the drafts, greedy beside sampled); the speculative server over
+HTTP with its ``llama_spec_*`` counters and ``continuous.speculation``.
+Every limit is also read against planted faults, which must fail it. Any
+failed check exits non-zero.
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it is
@@ -1530,9 +1540,9 @@ def profile_decode(engine, prompt, steps: int = 8):
 
 
 def graph_costs(engine, what: str) -> list:
-    """Each decode graph ``engine`` captured: its chunk size and cache
-    bucket, the host seconds of its warm-up and capture, the device memory
-    they reserved, and its slot's cache."""
+    """Each decode (or verify) graph ``engine`` captured: its chunk size (or
+    drafts) and cache bucket, the host seconds of its warm-up and capture,
+    the device memory they reserved, and its slot's cache."""
     rows = []
     for key, graph in engine._chunk_fns.items():
         if graph.graph is None:
@@ -1540,9 +1550,12 @@ def graph_costs(engine, what: str) -> list:
         cache = graph.slot.cache
         cache_mib = sum(t.numel() * t.element_size() for t in (
             cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None) / 2**20
-        rows.append(dict(path=what, k=graph.k, bucket=key[1], capture_s=graph.capture_s,
+        kind = "verify graph" if key[0] == "verify" else "decode graph"
+        bucket = graph.slot.cache_len
+        rows.append(dict(path=what, kind=kind, k=graph.k, bucket=bucket,
+                         capture_s=graph.capture_s,
                          capture_mib=graph.capture_bytes / 2**20, cache_mib=cache_mib))
-        log(f"decode graph, {what}, k = {graph.k}, bucket {key[1]}: warm-up and capture "
+        log(f"{kind}, {what}, k = {graph.k}, bucket {bucket}: warm-up and capture "
             f"{graph.capture_s * 1e3:.1f} ms, {graph.capture_bytes / 2**20:.1f} MiB "
             f"reserved; its slot's cache {cache_mib:.1f} MiB")
     return rows
@@ -2413,6 +2426,608 @@ def time_paged_kernels(pool, tables, positions, int8: bool):
     return rows
 
 
+# ---------------------------------------------------------------- phase 10-13
+
+SPEC_K = 4                       # drafts a verify step checks
+SPEC_CYCLE = 8                   # the cyclic models walk 0 -> 1 -> ... -> 7 -> 0
+SPEC_CONTEXT = 8192              # the speculative path keeps the full-context cache
+
+
+def cfg_1b(n_layers: int):
+    """Meta Llama-3.2-1B params.json (the usual draft of Llama-3.1-8B), depth
+    cut to n_layers: head_dim 64, which no port kernel takes."""
+    from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
+
+    return ModelArgs(dim=2048, n_layers=n_layers, n_heads=32, n_kv_heads=8,
+                     vocab_size=128256, multiple_of=256, ffn_dim_multiplier=1.5,
+                     norm_eps=1e-5, rope_theta=500000.0, use_scaled_rope=True,
+                     rope_scale_factor=32.0, max_sequence_length=SPEC_CONTEXT)
+
+
+@contextlib.contextmanager
+def timed_proposes():
+    """``DraftModelProposer.propose`` under the host clock: the yielded list
+    gets each call's seconds (its catch-up and drafts, synchronised)."""
+    from llama_nuts_and_bolts_tpu_torch.runtime import speculative
+
+    real = speculative.DraftModelProposer.propose
+    seconds = []
+
+    def propose(self, k):
+        t0 = time.perf_counter()
+        out = real(self, k)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    speculative.DraftModelProposer.propose = propose
+    try:
+        yield seconds
+    finally:
+        speculative.DraftModelProposer.propose = real
+
+
+@contextlib.contextmanager
+def scripted_ngram(truth, prompt_len: int):
+    """The n-gram proposer replaced by a script over the expected stream
+    ``truth``: in turn every draft wrong, all right, none (the one-step
+    graph runs), the first right and the rest wrong."""
+    from llama_nuts_and_bolts_tpu_torch.runtime import speculative
+
+    real = speculative.NgramProposer.propose
+    calls = []
+
+    def propose(self, k):
+        e = len(self.context) - prompt_len          # tokens emitted so far
+        good = truth[e:e + k]
+        kind = len(calls) % 4
+        calls.append(kind)
+        wrong = [(t + 3) % SPEC_CYCLE for t in good]
+        return [wrong, good, [], good[:1] + wrong[1:]][kind]
+
+    speculative.NgramProposer.propose = propose
+    try:
+        yield calls
+    finally:
+        speculative.NgramProposer.propose = real
+
+
+def plain_greedy(model, prompt, n: int, **args) -> list:
+    """The first ``n`` tokens of the plain greedy stream at the full context
+    (the speculative path's cache length), on an engine of its own."""
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+
+    engine = InferenceEngine(model, InferenceArgs(sequence_length=SPEC_CONTEXT, **args),
+                             device="cuda")
+    out, stream = [], engine.generate_tokens(prompt)
+    try:
+        for _, tok in stream:
+            out.append(tok)
+            if len(out) == n:
+                break
+    finally:
+        stream.close()
+    return out
+
+
+def decisive_divergence(model, prompt, got, want, what) -> dict:
+    """Speculative tokens ``got`` against plain greedy ones ``want``,
+    compared where the argmax is decisive (ROADMAP.md): they must be equal
+    up to the first token that differs, and there the plain stream's next
+    token must be a near-tie -- its top-two margin (kernels' logits over the
+    plain stream's context) within twice the largest difference between the
+    kernels' logits and the plain attention path's (which the verify step
+    takes) at that position. Else the check fails."""
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+
+    same = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if same is None and len(got) == len(want):
+        return dict(equal=True, equal_prefix=len(got))
+    ctx = list(prompt) + want[:same]
+    logits = {}
+    for impl in ("auto", "plain"):
+        engine = InferenceEngine(model, InferenceArgs(sequence_length=SPEC_CONTEXT,
+                                                      attn_impl=impl), device="cuda")
+        _, cache = engine._prefill(ctx[:-1], SPEC_CONTEXT)
+        logits[impl], _ = engine._forward([[ctx[-1]]], len(ctx) - 1, cache)
+        del engine, cache
+    top2 = torch.topk(logits["auto"][0, -1], 2).values
+    margin = float(top2[0] - top2[1])
+    diff = float((logits["auto"] - logits["plain"]).abs().max())
+    out = dict(equal=False, equal_prefix=same, margin=margin, path_diff=diff,
+               decisive=margin > 2 * diff)
+    log(f"{what}: tokens equal the plain greedy stream's for {same} of {len(want)}; at the "
+        f"next one the plain top-two margin is {margin:.4e} against a kernels-vs-plain "
+        f"difference of {diff:.4e}: {'decisive' if out['decisive'] else 'a near-tie'}")
+    if out["decisive"]:
+        check_failed(f"{what}: tokens differ from plain greedy at {same} where the argmax "
+                     f"is decisive: {got[same:same + 4]} vs {want[same:same + 4]}")
+    return out
+
+
+def run_spec_request(engine, tokens, max_new, expect, what):
+    """One speculative request through ``generate_string``, every kernel count
+    set to 0 just before and read just after. ``expect(one_step, verify,
+    prefill_len)`` gives the launches each kernel must show (absent: 0):
+    ``one_step`` counts the steps the one-step graph ran on the card (its
+    replays and, when this request captured it, its warm-up step) and
+    ``verify`` the verify graph's likewise. The graphs' replays must agree
+    with ``spec_stats``."""
+    from llama_nuts_and_bolts_tpu_torch.runtime.engine import prefill_bucket
+
+    prefill_len = prefill_bucket(len(tokens), engine.seq_len)
+    before = {key: (g.replays, g.warmup_steps) for key, g in engine._chunk_fns.items()}
+    reset_counts()
+    t0 = time.perf_counter()
+    parts, t_first = [], None
+    for part in engine.generate_string(tokens, max_new_tokens=max_new):
+        if t_first is None:
+            t_first = time.perf_counter()
+        parts.append(part)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = read_counts()
+    ids = [p.token_id for p in parts if not p.is_resend_of_waiting]
+    if not ids or any(not 0 <= i < engine.model.cfg.vocab_size for i in ids):
+        fail(f"{what}: bad token ids {ids[:8]}")
+    stats = dict(engine.spec_stats)
+    ran, replayed = {"verify": 0, "step": 0}, {"verify": 0, "step": 0}
+    for key, g in engine._chunk_fns.items():
+        r0, w0 = before.get(key, (0, 0))
+        kind = "verify" if key[0] == "verify" else "step"
+        replayed[kind] += g.replays - r0
+        ran[kind] += g.replays - r0 + g.warmup_steps - w0
+    if (replayed["verify"], replayed["step"]) != (stats["spec_steps"],
+                                                  stats["steps"] - stats["spec_steps"]):
+        fail(f"{what}: graphs replayed {replayed}, spec_stats {stats}")
+    want = {name: 0 for name in launches}
+    want.update(expect(ran["step"], ran["verify"], prefill_len))
+    if launches != want:
+        check_failed(f"{what}: launches {launches}, expected {want} ({ran['step']} one-step "
+                     f"and {ran['verify']} verify steps on the card, prefill bucket "
+                     f"{prefill_len})")
+    tok_s = (len(ids) - 1) / (t_end - t_first) if len(ids) > 1 else float("nan")
+    verifies = stats["spec_steps"]
+    per_verify = (stats["accepted"] + verifies) / verifies if verifies else float("nan")
+    acceptance = stats["accepted"] / stats["drafted"] if stats["drafted"] else float("nan")
+    log(f"{what}: prompt {len(tokens)} tokens, {len(ids)} generated, TTFT "
+        f"{(t_first - t0) * 1e3:.1f} ms, decode {tok_s:.2f} tok/s; {stats['steps']} steps, "
+        f"{verifies} verify steps, drafted {stats['drafted']}, accepted {stats['accepted']} "
+        f"(acceptance {acceptance:.3f}), {per_verify:.2f} tokens a verify step; one-step "
+        f"graph {ran['step']} steps, verify graph {ran['verify']} (warm-ups included); "
+        f"launches { {k: n for k, n in launches.items() if n} }")
+    return dict(ids=ids, prompt=len(tokens), generated=len(ids),
+                ttft_ms=(t_first - t0) * 1e3, decode_tok_s=tok_s, steps=stats["steps"],
+                verify_steps=verifies, drafted=stats["drafted"], accepted=stats["accepted"],
+                acceptance=acceptance, tokens_per_verify=per_verify,
+                one_step_ran=ran["step"], verify_ran=ran["verify"], launches=launches)
+
+
+def time_spec_graphs(engine, prompt, what: str, steps: int = 8) -> dict:
+    """The verify graph and the one-step graph of one slot at the full
+    context, after ``prompt``'s prefill: each step's host wall with its
+    tokens read back every step (as the engine runs it), the verify step's
+    device busy time and idle share under torch.profiler, and each graph's
+    device time a step by CUDA events (replays queued behind a spin)."""
+    cache_len = engine.seq_len
+    P = len(prompt)
+    feed = [prompt[-1]] + [(prompt[-1] + 1 + j) % SPEC_CYCLE for j in range(SPEC_K)]
+    out = {}
+    with engine._lease(1, cache_len) as slot:
+        engine._prefill(prompt, cache_len, cache=slot.cache)
+        verify = engine._verify_graph(SPEC_K, slot)
+        step = engine._decode_chunk(1, False, cache_len, slot)
+
+        def run_verify():
+            for _ in range(steps):
+                verify.set(feed, P)
+                verify.replay()
+                verify.tokens(verify.fetch())
+            torch.cuda.synchronize()
+
+        def run_step():
+            for _ in range(steps):
+                slot.set([feed[0]], [P])
+                step.replay()
+                step.tokens(step.fetch())
+            torch.cuda.synchronize()
+
+        out["verify"] = step_profile(run_verify, steps,
+                                     f"{what}: captured verify step (S={SPEC_K + 1})")
+        out["one_step"] = step_profile(run_step, steps, f"{what}: captured one-step graph")
+        for name, graph in (("verify", verify), ("one_step", step)):
+            if name == "one_step":
+                slot.set([feed[0]], [P])
+            else:
+                verify.set(feed, P)
+            ms, _ = cuda_ms(graph.replay, steps)
+            out[name]["graph_device_ms"] = ms
+            out[name]["capture_ms"] = graph.capture_s * 1e3
+            out[name]["capture_mib"] = graph.capture_bytes / 2**20
+        log(f"{what}: verify step {out['verify']['graph_device_ms']:.3f} ms on the device "
+            f"(events), host wall {out['verify']['wall_ms']:.2f} ms; one-step graph "
+            f"{out['one_step']['graph_device_ms']:.3f} ms, wall {out['one_step']['wall_ms']:.2f} "
+            f"ms; verify graph warm-up and capture {verify.capture_s * 1e3:.1f} ms, "
+            f"{verify.capture_bytes / 2**20:.1f} MiB reserved")
+    return out
+
+
+def check_spec_positions(cyc_model, prompt, n: int) -> dict:
+    """The slot's position after a rejection, on the cyclic 32-layer model:
+    a scripted proposer (every draft wrong, all right, none, the first right)
+    runs a speculative request; its tokens must be the expected cycle, and
+    the cache rows its slot holds those of the plain greedy run's slot
+    (kernel limits: only the products' row counts differ). The planted
+    fault, a verify graph that leaves the position where its last replay
+    put it, moved on by k+1 (not rewound after a rejection), must fail the
+    rows."""
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.runtime import engine as engine_mod
+    from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import VerifyGraph
+
+    class PositionNotRewound(VerifyGraph):
+        def set(self, tokens, position):             # the planted fault
+            if self.replays == 0:
+                super().set(tokens, position)
+            else:
+                self.feed.copy_(torch.tensor([tokens], dtype=torch.int32, device="cuda"))
+
+        def _body(self):
+            super()._body()
+            self.slot.pos.add_(self.k + 1)
+
+    P = len(prompt)
+    truth = [(prompt[-1] + 1 + i) % SPEC_CYCLE for i in range(n + SPEC_K)]
+    plain = InferenceEngine(cyc_model, InferenceArgs(sequence_length=SPEC_CONTEXT),
+                            device="cuda")
+    stream = plain.generate_tokens(prompt)
+    ref = [tok for _, (_, tok) in zip(range(n), stream)]
+    stream.close()
+    if ref != truth[:n]:
+        fail(f"cyclic 32-layer plain greedy: {ref}, expected {truth[:n]}")
+    rows = slice(0, P + n - 1)
+    (ref_slot,) = plain._slots[(1, SPEC_CONTEXT)]
+    errs = {}
+    for name, graph_cls in (("sound", VerifyGraph), ("position not rewound", PositionNotRewound)):
+        planted = graph_cls is not VerifyGraph
+        engine_mod.VerifyGraph = graph_cls
+        try:
+            engine = InferenceEngine(cyc_model, InferenceArgs(
+                sequence_length=SPEC_CONTEXT, speculate_k=SPEC_K), device="cuda")
+            with scripted_ngram(truth, P) as calls:
+                got = [t for _, t in engine.generate_tokens(prompt, max_new_tokens=n)]
+        finally:
+            engine_mod.VerifyGraph = VerifyGraph
+        torch.cuda.synchronize()
+        (slot,) = engine._slots[(1, SPEC_CONTEXT)]
+        what = (f"cyclic 32-layer speculative request, scripted drafts "
+                f"({sorted(set(calls))} kinds, {engine.spec_stats}), {name}")
+        if not planted and got != truth[:n]:
+            check_failed(f"{what}: tokens {got}, expected {truth[:n]}")
+        errs[name] = max(kernel_err(getattr(slot.cache, c)[:, :, :, rows],
+                                    getattr(ref_slot.cache, c)[:, :, :, rows],
+                                    f"{what}, cache {c} rows vs plain greedy's",
+                                    planted=planted) for c in ("k", "v"))
+        del engine, slot
+    del plain, ref_slot
+    torch.cuda.empty_cache()
+    return errs
+
+
+def spec_main_path(tk, vocab):
+    """Speculation on the sequential engine, 32-layer 8B, bf16 weights and
+    cache, context 8192, k = 4: (a) the cyclic model with n-gram drafts, (b)
+    the random-weight model with n-gram drafts on request A's prompt (the
+    acceptance floor), (c) draft models at Llama-3.2-1B's widths on the
+    cyclic target, a 2-layer cyclic draft of its cycle and a 16-layer random
+    one; each against plain greedy, with launch counts, acceptance, the
+    verify graph's device time, host wall and capture; then the position
+    check with its planted fault."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel, init_random_params
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+
+    cfg = cfg_8b(32)
+    L = cfg.n_layers
+    params = init_random_params(cfg, seed=0, device="cuda", fused=True)
+    rand = LoadedModel(params=params, cfg=cfg, vocab=vocab,
+                       mergeable_ranks=tk.mergeable_ranks, tensor_meta={})
+    cyc = LoadedModel(params=cyclic_params(params, SPEC_CYCLE), cfg=cfg, vocab=vocab,
+                      mergeable_ranks=tk.mergeable_ranks, tensor_meta={})
+    prompt_c = list(range(SPEC_CYCLE)) * 3
+    n = 64
+    expect_c = [i % SPEC_CYCLE for i in range(n)]
+
+    def expect(one_step, verify, prefill_len):
+        return {"K1": L, "K2": L * one_step}
+
+    def spec_engine(model, draft=None):
+        return InferenceEngine(model, InferenceArgs(sequence_length=SPEC_CONTEXT,
+                                                    speculate_k=SPEC_K),
+                               draft_model=draft, device="cuda")
+
+    results = {}
+    torch.cuda.reset_peak_memory_stats()
+    engine = spec_engine(cyc)
+    r = results["a_cyclic_ngram"] = run_spec_request(
+        engine, prompt_c, n, expect, "speculative (a): cyclic 32-layer, n-gram, k = 4")
+    if r["ids"] != expect_c or plain_greedy(cyc, prompt_c, n) != expect_c:
+        check_failed(f"speculative (a): tokens {r['ids']}, expected {expect_c}")
+    r["graphs"] = time_spec_graphs(engine, prompt_c, "speculative (a), bf16")
+    del engine
+
+    chat, _, _ = prompts(InferenceEngine(rand, InferenceArgs(sequence_length=SPEC_CONTEXT),
+                                         device="cuda"), vocab)
+    engine = spec_engine(rand)
+    r = results["b_random_ngram"] = run_spec_request(
+        engine, chat, n, expect, "speculative (b): random 32-layer, n-gram, k = 4, request A")
+    r["vs_plain"] = decisive_divergence(rand, chat, r["ids"], plain_greedy(rand, chat, n),
+                                        "speculative (b)")
+    r["graphs"] = time_spec_graphs(engine, chat, "speculative (b), bf16")
+    del engine
+
+    draft_cfg = cfg_1b(2)
+    draft_params = init_random_params(draft_cfg, seed=5, device="cuda")
+    for key, draft, what in (
+            ("c_cyclic_draft", LoadedModel(
+                params=cyclic_params(draft_params, SPEC_CYCLE), cfg=draft_cfg, vocab=vocab,
+                mergeable_ranks=tk.mergeable_ranks, tensor_meta={}),
+             "2-layer cyclic draft of the target's cycle"),
+            ("c_random_draft", LoadedModel(
+                params=init_random_params(cfg_1b(16), seed=6, device="cuda"),
+                cfg=cfg_1b(16), vocab=vocab, mergeable_ranks=tk.mergeable_ranks,
+                tensor_meta={}), "16-layer random draft")):
+        engine = spec_engine(cyc, draft)
+        with timed_proposes() as seconds:
+            r = results[key] = run_spec_request(
+                engine, prompt_c, n, expect,
+                f"speculative (c): cyclic 32-layer target, {what} at Llama-3.2-1B widths")
+        r["propose_ms"] = 1e3 * sum(seconds) / max(len(seconds), 1)
+        r["proposes"] = len(seconds)
+        log(f"speculative (c), {what}: {len(seconds)} proposes, {r['propose_ms']:.2f} ms of "
+            f"host wall each (catch-up and {SPEC_K} drafts, eager)")
+        if r["ids"] != expect_c:
+            check_failed(f"speculative (c), {what}: tokens {r['ids']}, expected {expect_c}")
+        if key == "c_cyclic_draft" and r["accepted"] != r["drafted"]:
+            check_failed(f"speculative (c), {what}: accepted {r['accepted']} of "
+                         f"{r['drafted']} drafts, expected all")
+        r["graphs"] = time_spec_graphs(engine, prompt_c, f"speculative (c), {what}")
+        del engine, draft
+    del draft_params
+    results["positions"] = check_spec_positions(cyc, prompt_c, 40)
+    results["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for r in results.values():
+        if isinstance(r, dict):
+            r.pop("ids", None)
+    del rand, cyc, params
+    torch.cuda.empty_cache()
+    return results
+
+
+def spec_quant_path(tk, vocab):
+    """(a) again with int4 weights and an int8 cache: the cyclic 32-layer
+    model quantized (groups of 256), context 8192. The one-step graph runs
+    K4 and K8, the verify step K8 on every projection and the head (R = 5)."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel, init_random_params
+    from llama_nuts_and_bolts_tpu_torch.quant import quantize_params_q4
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+
+    cfg = cfg_8b(32)
+    L = cfg.n_layers
+    bf16 = init_random_params(cfg, seed=0, device="cuda")
+    cyc = LoadedModel(params=quantize_params_q4(cyclic_params(bf16, SPEC_CYCLE)), cfg=cfg,
+                      vocab=vocab, mergeable_ranks=tk.mergeable_ranks, tensor_meta={})
+    del bf16
+    torch.cuda.empty_cache()
+    prompt, n = list(range(SPEC_CYCLE)) * 3, 64
+    per_pass = 7 * L + 1
+
+    def expect(one_step, verify, prefill_len):
+        k8_prefill = per_pass if prefill_len <= 32 else 1
+        return {"K8": k8_prefill + per_pass * (one_step + verify), "K4": L * one_step}
+
+    engine = InferenceEngine(cyc, InferenceArgs(sequence_length=SPEC_CONTEXT,
+                                                speculate_k=SPEC_K, kv_cache_dtype="int8"),
+                             device="cuda")
+    r = run_spec_request(engine, prompt, n, expect,
+                         "speculative (a), int4 + int8 KV: cyclic 32-layer, n-gram, k = 4")
+    want = [i % SPEC_CYCLE for i in range(n)]
+    if r.pop("ids") != want or plain_greedy(cyc, prompt, n, kv_cache_dtype="int8") != want:
+        check_failed(f"speculative (a), int4 + int8 KV: tokens differ from {want}")
+    if r["verify_ran"] == 0 or r["launches"]["K8"] == 0:
+        check_failed("speculative (a), int4 + int8 KV: no verify step launched K8")
+    r["graphs"] = time_spec_graphs(engine, prompt, "speculative (a), int4 + int8 KV")
+    del engine, cyc
+    torch.cuda.empty_cache()
+    return r
+
+
+def spec_batchers(tk, vocab):
+    """The dense and paged speculative batchers (k = 4) on the cyclic model at
+    2 full-width layers, context 512: greedy requests against the
+    sequential engine's tokens; on a pool of 4 blocks, where the drafts are
+    clamped to what the pool backs (each request a prefix of its
+    sequential stream); a greedy and a sampled request sharing steps. The
+    verify steps run the gather path, the paged batcher's no-draft steps
+    K6."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel, init_random_params
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.runtime import speculative
+    from llama_nuts_and_bolts_tpu_torch.runtime.continuous import ContinuousBatcher
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+
+    cfg = cfg_8b(2)
+    params = cyclic_params(init_random_params(cfg, seed=2, device="cuda"), SPEC_CYCLE)
+    model = LoadedModel(params=params, cfg=cfg, vocab=vocab,
+                        mergeable_ranks=tk.mergeable_ranks, tensor_meta={})
+    engine = InferenceEngine(model, InferenceArgs(sequence_length=512), device="cuda")
+    requests = [(list(range(SPEC_CYCLE)) * 3, 40), ([3, 4, 5], 24),
+                (list(range(SPEC_CYCLE)) * 9, 33), ([6, 7], 12)]
+    seq = [[t for _, t in engine.generate_tokens(p, max_new_tokens=m)] for p, m in requests]
+    if seq != [[(p[-1] + 1 + i) % SPEC_CYCLE for i in range(m)] for p, m in requests]:
+        fail(f"cyclic 2-layer sequential engine: {seq}")
+    asked = []
+    real = speculative.NgramProposer.propose
+
+    def propose(self, k):
+        asked.append(k)
+        return real(self, k)
+
+    out = {}
+    speculative.NgramProposer.propose = propose
+    try:
+        for name, make, tight in (
+                ("dense", lambda: ContinuousBatcher(engine, n_slots=2, speculate_k=SPEC_K),
+                 False),
+                ("paged", lambda: PagedBatcher(engine, n_slots=2, n_blocks=33,
+                                               speculate_k=SPEC_K), False),
+                ("paged, pool of 4 blocks", lambda: PagedBatcher(
+                    engine, n_slots=2, n_blocks=5, speculate_k=SPEC_K), True)):
+            batcher = make()
+            asked.clear()
+            reset_counts()
+            reqs = [batcher.submit(p, max_new_tokens=m) for p, m in requests]
+            batcher.run_until_idle()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got = [[t for _, t in r.tokens(timeout=60)] for r in reqs]
+            what = f"cyclic 2-layer speculative {name} batcher"
+            if tight:
+                if any(g != s[:len(g)] or not g for g, s in zip(got, seq)):
+                    fail(f"{what}: {got} is not a prefix of {seq}")
+                if batcher.allocator.available != 4 or min(asked, default=SPEC_K) >= SPEC_K:
+                    check_failed(f"{what}: blocks free {batcher.allocator.available}, draft "
+                                 f"sizes asked {sorted(set(asked))} (no clamping)")
+            elif got != seq:
+                fail(f"{what}: {got}, sequential engine {seq}")
+            want = {"K6": cfg.n_layers * batcher.decode_steps} if name != "dense" else {}
+            if {k: v for k, v in counts.items() if v} != {k: v for k, v in want.items() if v}:
+                check_failed(f"{what}: launches {counts}, expected {want}")
+            stats = batcher.spec_stats_snapshot()
+            out[name] = dict(stats, verify_steps=batcher.verify_steps,
+                             plain_steps=batcher.decode_steps, draft_sizes=sorted(set(asked)),
+                             tokens=[len(g) for g in got])
+            log(f"{what}: {len(reqs)} requests on 2 slots, tokens "
+                f"{'a prefix of' if tight else 'equal to'} the sequential engine's; "
+                f"{batcher.verify_steps} verify steps, {batcher.decode_steps} plain steps, "
+                f"spec_stats {stats}, draft sizes asked {sorted(set(asked))}, launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            del batcher
+        for name, make in (("dense", lambda k: ContinuousBatcher(engine, n_slots=2,
+                                                                 speculate_k=k)),
+                           ("paged", lambda k: PagedBatcher(engine, n_slots=2, n_blocks=33,
+                                                            speculate_k=k))):
+            streams = []
+            for k in (SPEC_K, SPEC_K, 0):
+                batcher = make(k)
+                greedy = batcher.submit(requests[0][0], max_new_tokens=24)
+                sampled = batcher.submit([3, 4, 5], max_new_tokens=24, temperature=0.8,
+                                         top_k=50, seed=7)
+                batcher.run_until_idle()
+                streams.append([[t for _, t in r.tokens(timeout=60)]
+                                for r in (greedy, sampled)])
+                del batcher
+            what = f"cyclic 2-layer speculative {name} batcher, greedy beside sampled"
+            if streams[0][0] != seq[0][:24] or streams[0] != streams[1]:
+                fail(f"{what}: {streams[:2]}, greedy expected {seq[0][:24]}")
+            out[name + "_mixed"] = dict(sampled_equals_plain_batcher=streams[0][1] ==
+                                        streams[2][1])
+            log(f"{what}: greedy tokens equal the sequential engine's, the sampled stream "
+                f"repeats with its seed and {'equals' if streams[0][1] == streams[2][1] else 'differs from'} "
+                f"the plain batcher's for that seed")
+    finally:
+        speculative.NgramProposer.propose = real
+    del engine, model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_serving_path(tk, vocab):
+    """The server with speculation: the cyclic 32-layer 8B (split layout),
+    context 2048, 4 slots over a bf16 paged pool of 257 blocks, k = 4,
+    through LlamaHTTPServer on an ephemeral port; greedy and sampled
+    requests sent at once. Every response 200; ``/metrics`` carries the
+    ``llama_spec_*`` counters (accepted <= drafted, verify steps > 0) and
+    ``/health`` ``continuous.speculation``; K6 runs once a layer for every
+    plain (no-draft) batched step."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel, init_random_params
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.serving.server import LlamaHTTPServer
+
+    cfg = cfg_8b(32)
+    params = cyclic_params(init_random_params(cfg, seed=0, device="cuda"), SPEC_CYCLE)
+    model = LoadedModel(params=params, cfg=cfg, vocab=vocab,
+                        mergeable_ranks=tk.mergeable_ranks, tensor_meta={})
+    engine = InferenceEngine(model, InferenceArgs(sequence_length=SERVE_CONTEXT,
+                                                  speculate_k=SPEC_K), device="cuda")
+    srv = LlamaHTTPServer(engine, continuous_slots=SERVE_SLOTS, paged_blocks=SERVE_BLOCKS)
+    batcher = srv.batcher
+    if batcher.attn_impl != "flash" or batcher.speculate_k != SPEC_K:
+        fail(f"speculative serving: batcher {batcher.attn_impl!r}, k {batcher.speculate_k}")
+    log(f"speculative serving: prewarm {srv.prewarm():.1f}s")
+    url = f"http://127.0.0.1:{srv.start_background()}"
+
+    def chat(user, **kw):
+        return "/v1/chat/completions", {"messages": [{"role": "user", "content": user}],
+                                        "max_tokens": 48, **kw}
+
+    sampled = {"prompt": "The quick brown fox", "max_tokens": 96, "temperature": 0.8,
+               "top_p": 0.95, "seed": 1234, "stream": True}
+    reqs = [("chat A, stream", *chat("Where are we?", stream=True), True),
+            ("chat A, blocking", *chat("Where are we?"), False),
+            ("chat B, stream", *chat("Name three rivers.", stream=True), True),
+            ("sampled, seed 1234", "/v1/completions", sampled, True),
+            ("sampled, seed 99", "/v1/completions", dict(sampled, seed=99), True),
+            ("completion, logprobs", "/v1/completions",
+             {"prompt": "Once upon a time", "max_tokens": 32, "logprobs": 2}, False)]
+    reset_counts()
+    steps0, tokens0 = batcher.decode_steps, srv.metrics["tokens_generated_total"]
+    before = batcher.spec_stats_snapshot()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(reqs)) as pool:
+        futures = [pool.submit(sse_request, url + path, body, stream)
+                   for _, path, body, stream in reqs]
+        results = [f.result() for f in futures]
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = read_counts()
+    steps = batcher.decode_steps - steps0
+    tokens = srv.metrics["tokens_generated_total"] - tokens0
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+        metrics = {line.split()[0]: float(line.split()[1]) for line in
+                   resp.read().decode().splitlines() if line.startswith("llama_spec_")}
+    with urllib.request.urlopen(url + "/health", timeout=60) as resp:
+        health = json.loads(resp.read())["continuous"].get("speculation")
+    out = {"requests": {}, "wall_s": wall, "tokens": tokens, "aggregate_tok_s": tokens / wall,
+           "plain_steps": steps, "metrics": metrics, "health": health, "launches": counts}
+    for (name, _, _, stream), (status, text, t_first, t_end, n) in zip(reqs, results):
+        out["requests"][name] = dict(status=status, ttft_ms=t_first * 1e3, end_ms=t_end * 1e3,
+                                     tokens_or_chunks=n)
+        log(f"speculative serving, {name}: status {status}, {n} "
+            f"{'chunks' if stream else 'tokens'}, end {t_end * 1e3:.1f} ms")
+        if status != 200 or not text:
+            fail(f"speculative serving, {name}: status {status}, text {text!r}")
+    drafted = metrics.get("llama_spec_drafted_total", -1)
+    accepted = metrics.get("llama_spec_accepted_total", -1)
+    verifies = metrics.get("llama_spec_verify_steps_total", -1)
+    if not (0 <= accepted <= drafted and verifies > 0 and drafted > before["drafted"]):
+        check_failed(f"speculative serving: /metrics spec counters {metrics}")
+    if not health or health.get("k") != SPEC_K or health.get("drafted") != drafted:
+        check_failed(f"speculative serving: /health continuous.speculation {health}")
+    if {k: n for k, n in counts.items() if n} != ({"K6": cfg.n_layers * steps} if steps else {}):
+        check_failed(f"speculative serving: launches {counts} over {steps} plain batched "
+                     f"steps, expected K6 {cfg.n_layers} x {steps}")
+    log(f"speculative serving: {len(reqs)} requests in {wall:.2f}s, {tokens} tokens, "
+        f"aggregate {tokens / wall:.2f} tok/s, {batcher.verify_steps} batched verify steps, "
+        f"{steps} plain steps (K6 {counts['K6']}); /metrics {metrics}; /health {health}")
+    srv.shutdown()
+    del srv, batcher, engine, model, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     name, smi = setup()
     log("phase 2: kernels vs plain at 8B widths")
@@ -2443,11 +3058,25 @@ def main() -> int:
     serving, srows = serving_path(tk, vocab, int8=False)
     log("phase 9: serving path, 32-layer 8B over HTTP, int8 pool (K6's int8 mode)")
     serving8, srows8 = serving_path(tk, vocab, int8=True)
+    log("phase 10: speculative sequential engine, 32-layer 8B, bf16, k = 4")
+    spec = spec_main_path(tk, vocab)
+    log("phase 11: speculative sequential engine, 32-layer 8B, int4 weights, int8 cache")
+    spec_q = spec_quant_path(tk, vocab)
+    log("phase 12: speculative dense and paged batchers, 2-layer cyclic model")
+    spec_b = spec_batchers(tk, vocab)
+    log("phase 13: speculative serving, 32-layer 8B over HTTP, bf16 pool")
+    spec_s = spec_serving_path(tk, vocab)
+    # the speculative paths' launches join their kernels' counts
+    spec_launches = [r["launches"] for r in spec.values() if isinstance(r, dict)
+                     and "launches" in r] + [spec_q["launches"], spec_s["launches"]]
+    for row, tag in zip(rows, ("K1", "K2", "K3", "K4", "K8")):
+        row["launches"] += sum(c[tag] for c in spec_launches)
     # K6's launches are the serving runs'; K5 and K7 serve no path (0)
     for row in srows + srows8:
         tag = row.pop("tag")
         row["max_abs_err"] = errs[tag]
-        row["launches"] = serving["launches"][tag] + serving8["launches"][tag]
+        row["launches"] = (serving["launches"][tag] + serving8["launches"][tag]
+                           + sum(c[tag] for c in spec_launches))
     rows += srows + srows8
     rows.sort(key=lambda r: r["name"].split("(K")[-1])
     log(f"summary: {json.dumps(results)}")
@@ -2455,6 +3084,10 @@ def main() -> int:
     log(f"summary, paged 2-layer logits (relative L2 per step): {json.dumps(paged_readings)}")
     log(f"summary, serving bf16 pool: {json.dumps(serving)}")
     log(f"summary, serving int8 pool: {json.dumps(serving8)}")
+    log(f"summary, speculative engine (bf16): {json.dumps(spec)}")
+    log(f"summary, speculative engine (int4 + int8 KV): {json.dumps(spec_q)}")
+    log(f"summary, speculative batchers: {json.dumps(spec_b)}")
+    log(f"summary, speculative serving: {json.dumps(spec_s)}")
     if FAILED:
         fail(f"{len(FAILED)} checks failed: " + "; ".join(FAILED))
     log(f"total {time.perf_counter() - T_START:.1f}s on {smi}")

@@ -1,8 +1,9 @@
 """Interactive CLI: prompt menu, streaming generation, live console repaint.
 
 Port of ``llama_nuts_and_bolts_tpu/cli/main.py`` for the single-request
-path, with bf16, int8 or int4 weights (``--quant``) and a bf16 or int8 KV
-cache (``--kv-cache``). Runs on ``cuda`` unless ``--device cpu`` is given.
+path, with bf16, int8 or int4 weights (``--quant``), a bf16 or int8 KV cache
+(``--kv-cache``) and greedy speculative decoding (``--speculate``, with
+``--draft-model``). Runs on ``cuda`` unless ``--device cpu`` is given.
 
 Run: ``python -m llama_nuts_and_bolts_tpu_torch.cli [flags]``
 """
@@ -25,6 +26,9 @@ from llama_nuts_and_bolts_tpu_torch.utils.logging import Logger, set_logger
 
 MODELS_DIR_NAME = "models-original"
 MODEL_NAME = "Meta-Llama-3.1-8B-Instruct"
+TINY_DRAFT_REFUSAL = ("error: --draft-model needs a checkpoint directory whose "
+                      "vocabulary matches the target's; the --tiny model has "
+                      "none (use --speculate alone: n-gram prompt lookup)")
 
 
 @dataclass
@@ -76,6 +80,13 @@ def parse_args(argv=None):
                    help="KV cache dtype: int8 halves the cache's bytes; it "
                         "decodes through the K4 kernel when the context is a "
                         "multiple of 128, else on the plain path")
+    p.add_argument("--draft-model", default=None, metavar="DIR",
+                   help="with --speculate: directory of a smaller Llama "
+                        "checkpoint used as the speculation draft model "
+                        "(default: n-gram prompt lookup, no second model)")
+    p.add_argument("--speculate", type=int, default=0, metavar="K",
+                   help="n-gram prompt-lookup speculative decoding: verify up "
+                        "to K drafts per step (greedy only; 0 disables)")
     p.add_argument("--prefill-chunk", type=int, default=0, metavar="C",
                    help="process prompts longer than C tokens in C-token "
                         "chunks (bounds prefill memory at long context; "
@@ -220,6 +231,8 @@ def run_generation(engine: InferenceEngine, prompt_input: PromptInput,
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.tiny and args.draft_model:
+        raise SystemExit(TINY_DRAFT_REFUSAL)
     device = resolve_device(args.device)
     print("Welcome to Llama 3.1 Nuts and Bolts (PyTorch/CUDA port)!")
     print("=================================\n\n")
@@ -268,15 +281,24 @@ def main(argv=None) -> int:
         if app.prompt_text:
             app.update_output()
 
+    draft = None
+    if args.draft_model:
+        from llama_nuts_and_bolts_tpu_torch.models.llama.loader import load_llama_model
+
+        draft = load_llama_model(args.draft_model, max_sequence_length=args.seq_len,
+                                 device=device)
+        print(f'Draft model "{args.draft_model}" was loaded.\n')
+
     engine = InferenceEngine(
         model,
         InferenceArgs(sequence_length=args.seq_len, temperature=args.temperature,
                       top_k=args.top_k, top_p=args.top_p,
-                      kv_cache_dtype=args.kv_cache,
+                      speculate_k=args.speculate, kv_cache_dtype=args.kv_cache,
                       prefill_chunk=args.prefill_chunk,
                       attn_impl=args.attn_impl,
                       decode_chunk=args.decode_chunk),
         log_fn=live_log,
+        draft_model=draft,
         device=device,
     )
 

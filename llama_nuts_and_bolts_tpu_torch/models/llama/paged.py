@@ -1,7 +1,6 @@
 """Paged KV cache: a shared block pool + per-request block tables.
 
-Port of ``llama_nuts_and_bolts_tpu/models/llama/paged.py`` (without the
-speculative verify step, ROADMAP item 12). The cache is a POOL of fixed-size
+Port of ``llama_nuts_and_bolts_tpu/models/llama/paged.py``. The cache is a POOL of fixed-size
 blocks shared by every request; a request holds ``ceil(len / bs)`` blocks
 and releases them on completion, so device memory tracks live tokens, not
 slots x context.
@@ -23,6 +22,9 @@ slots x context.
     dense copy (the JAX package's ``"xla"`` oracle); ``"flash"`` (JAX's
     ``"pallas"``) runs K6 (``kernels/paged_attention.py``), which walks the
     block tables and reads only the blocks a row owns.
+  * The speculative verify step (``paged_decode_step_spec``) runs S = k+1
+    rows a slot at per-row positions, always on the gather path, as in the
+    JAX package (K6 is S=1-shaped).
 
 Split-layout weights only (``w["wq"]``...), as in the JAX package.
 """
@@ -338,3 +340,57 @@ def paged_decode_step(
         x = _finish_block(x, att, w, cfg)
     x = rms_norm(x, params.norm, cfg.norm_eps)
     return linear(x[:, 0], params.output, out_dtype=torch.float32), pool
+
+
+def paged_decode_step_spec(
+    params: LlamaParams,
+    cfg: ModelArgs,
+    tokens: torch.Tensor,       # int [B, K+1]: per-row feed token + K drafts
+    positions: torch.Tensor,    # int32 [B]: position of each row's FEED token
+    pool: PagedKVPool,
+    tables: torch.Tensor,       # int32 [B, max_blocks]
+) -> Tuple[torch.Tensor, PagedKVPool]:
+    """Speculative verification step over paged caches: row j of slot b runs
+    at position ``positions[b] + j`` (clamped to the table's last slot, as
+    the JAX package clamps). Returns fp32 logits ``[B, K+1, vocab]`` and the
+    pool, written in place.
+
+    The scheduler backs positions ``pos .. pos+K`` with blocks for every
+    active slot (it clamps the draft count otherwise); rows past a slot's
+    blocks write to the trash block. Rejected rows' K/V land beyond the
+    accepted point and stay unseen until overwritten. Always the gather
+    path."""
+    B, S = tokens.shape
+    bs = pool.block_size
+    max_pos = tables.shape[1] * bs - 1
+    dev = tokens.device
+    x = params.tok_embeddings[tokens.long()]                   # [B, S, dim]
+    pos_rows = torch.clamp(positions.long()[:, None] + torch.arange(S, device=dev),
+                           max=max_pos)                        # [B, S]
+    cos, sin = params.rope_cos[pos_rows], params.rope_sin[pos_rows]
+    blocks = torch.gather(tables.long(), 1, pos_rows // bs).reshape(-1)   # [B*S]
+    offsets = (pos_rows % bs).reshape(-1)
+
+    def write(buf, rows):
+        # rows [B, S, KV(, D)] as B*S single rows
+        _write_rows(buf, rows.reshape((B * S,) + tuple(rows.shape[2:])), blocks, offsets)
+
+    for li in range(cfg.n_layers):
+        w = {name: t[li] for name, t in params.layers.items()}
+        q, k, v = _project(x, w, cfg, cos, sin)
+        layer_scales = {}
+        if pool.quantized:
+            kq, ks = quantize_kv_rows(k)                       # [B,S,KV,D], [B,S,KV]
+            vq, vs = quantize_kv_rows(v)
+            for buf, rows in ((pool.k, kq), (pool.v, vq), (pool.k_scale, ks),
+                              (pool.v_scale, vs)):
+                write(buf[li], rows)
+            layer_scales = {"pool_ks": pool.k_scale[li], "pool_vs": pool.v_scale[li]}
+        else:
+            write(pool.k[li], k)
+            write(pool.v[li], v)
+        att = _gathered_attention(q, pool.k[li], pool.v[li], tables, positions,
+                                  **layer_scales)
+        x = _finish_block(x, att, w, cfg)
+    x = rms_norm(x, params.norm, cfg.norm_eps)
+    return linear(x, params.output, out_dtype=torch.float32), pool

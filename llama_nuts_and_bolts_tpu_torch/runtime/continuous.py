@@ -1,10 +1,10 @@
 """Continuous batching: requests join and leave a shared decode loop.
 
-Port of ``llama_nuts_and_bolts_tpu/runtime/continuous.py`` (without
-speculation, ROADMAP item 12). B cache SLOTS advance through one batched
-decode step per iteration, each row at its own position (``forward``'s
-``[B]`` ``start_pos``), so a request admitted mid-flight shares the step's
-weight reads with the requests already decoding.
+Port of ``llama_nuts_and_bolts_tpu/runtime/continuous.py``. B cache SLOTS
+advance through one batched decode step per iteration, each row at its own
+position (``forward``'s ``[B]`` ``start_pos``), so a request admitted
+mid-flight shares the step's weight reads with the requests already
+decoding.
 
   * Prefill targets one slot: it runs on a view of the slot's cache rows and
     writes them in place (the plain attention path, as in the JAX package).
@@ -29,6 +29,14 @@ weight reads with the requests already decoding.
     slot positions in static buffers and a per-row generator drawn on the
     device (ROADMAP queue 1), where the sequential engine's decode replays
     graphs (``runtime/decode_graph.py``).
+  * Speculation (``speculate_k`` K > 0): each greedy slot without logprobs
+    drafts up to K tokens by n-gram prompt lookup, and every slot's feed
+    token and drafts verify in one ``[B, K+1]`` forward at per-row
+    positions (the plain attention path, eager); a speculating slot emits
+    its accepted drafts and the model's own next token, the others their
+    row-0 sample. Admission is synchronous (the proposer needs the first
+    token), the quantum is 1, and the dense cache holds K rows past the
+    context, where rejected draft rows may land.
 """
 
 from __future__ import annotations
@@ -45,8 +53,13 @@ import torch
 
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache, forward
 from llama_nuts_and_bolts_tpu_torch.ops.sampling import (
+    greedy,
     sample_tokens_batched,
     top_logprobs_batched,
+)
+from llama_nuts_and_bolts_tpu_torch.runtime.speculative import (
+    NgramProposer,
+    longest_accepted_prefix,
 )
 from llama_nuts_and_bolts_tpu_torch.runtime.types import GenerationState
 from llama_nuts_and_bolts_tpu_torch.utils.logging import get_logger
@@ -113,7 +126,9 @@ class ContinuousBatcher:
     def __init__(self, engine, n_slots: int = 8, speculate_k: int = 0,
                  step_quantum: Optional[int] = None):
         self._init_common(engine, n_slots, speculate_k, step_quantum)
-        self.cache = engine.new_cache(n_slots)
+        # speculating: rows [seq_len, seq_len + K) hold draft rows written
+        # past the context, so a verify's K+1 rows always fit
+        self.cache = engine.new_cache(n_slots, self.seq_len + speculate_k)
         # the engine's rule for a decode step into this cache: K2 on a card
         # (K4 for an int8 cache whose length is a multiple of 128), which
         # takes the [n_slots] positions
@@ -122,18 +137,20 @@ class ContinuousBatcher:
 
     def _init_common(self, engine, n_slots: int, speculate_k: int,
                      step_quantum: Optional[int]) -> None:
-        if speculate_k:
-            raise NotImplementedError("speculative batching is ROADMAP item 12 "
-                                      "(speculation), not ported yet")
         self.engine = engine
         self.cfg = engine.model.cfg
         self.vocab = engine.model.vocab
         self.device = engine.device
         self.n_slots = n_slots
         self.seq_len = engine.seq_len
-        self.step_quantum = max(1, int(step_quantum or 1))
+        self.speculate_k = speculate_k
+        # speculation steps one token (or one verified chain) at a time
+        self.step_quantum = 1 if speculate_k else max(1, int(step_quantum or 1))
+        self._proposers: List[Optional[NgramProposer]] = [None] * n_slots
+        self.spec_stats = {"spec_steps": 0, "drafted": 0, "accepted": 0}
         self.slots: List[Optional[Request]] = [None] * n_slots
-        self.decode_steps = 0           # batched decode steps dispatched
+        self.decode_steps = 0           # batched plain decode steps dispatched
+        self.verify_steps = 0           # batched speculative verify steps
         # per-slot feed token and the position it is written at
         self._feed = np.zeros(n_slots, dtype=np.int32)
         self._pos = np.zeros(n_slots, dtype=np.int32)
@@ -173,6 +190,12 @@ class ContinuousBatcher:
     @property
     def has_work(self) -> bool:
         return any(r is not None for r in self.slots) or not self.pending.empty()
+
+    def spec_stats_snapshot(self) -> dict:
+        """A copy of ``spec_stats`` taken under the step's lock, so the three
+        counters come from one step."""
+        with self._lock:
+            return dict(self.spec_stats)
 
     def run_until_idle(self) -> None:
         while self.has_work:
@@ -244,14 +267,31 @@ class ContinuousBatcher:
     def _occupy(self, slot: int, req: Request, first, lp) -> None:
         """Seat an admitted request. Its first token stays on the device: the
         next dispatch feeds it, and its delivery rides the in-flight queue,
-        so admission never waits for the prefill."""
+        so admission never waits for the prefill. Speculating, the first
+        token is read and emitted now: its proposer needs it."""
         plen = len(req.prompt)
         req.slot = slot
         self.slots[slot] = req
         self._pos[slot] = plen
         self._splice[slot] = True
+        if self.speculate_k:
+            tok = int(first[0])
+            self._feed[slot] = tok
+            self._first_dev[slot] = None
+            if self._speculates(req):
+                self._proposers[slot] = NgramProposer(req.prompt + [tok])
+            if req.want_logprobs:
+                self._record_logprobs(slot, tok, self._host_lp(lp, True))
+            self._emit(slot, tok, plen)
+            return
         self._first_dev[slot] = first[0]
         self._inflight.append(("admit", slot, req, first[0], lp, plen))
+
+    @staticmethod
+    def _speculates(req: Request) -> bool:
+        """Only greedy requests without logprobs draft (a sampled row cannot
+        be verified by argmax; logprobs need one step a token)."""
+        return req.temperature <= 0.0 and not req.want_logprobs
 
     # ------------------------------------------------------------ delivery
 
@@ -289,6 +329,7 @@ class ContinuousBatcher:
         self.slots[slot] = None
         self._feed[slot] = 0
         self._clear_sampling(slot)
+        self._proposers[slot] = None
 
     def _sweep_cancelled(self) -> None:
         for slot, r in enumerate(self.slots):
@@ -401,24 +442,117 @@ class ContinuousBatcher:
         """Admit, then dispatch one quantum while up to ``PIPELINE_DEPTH``
         earlier quanta are still in flight; deliver the oldest beyond that,
         and every admission's first token (its prefill is queued before the
-        quantum, so this waits at most for the prefill)."""
+        quantum, so this waits at most for the prefill). Speculating, one
+        verify step (:meth:`_step_speculative`)."""
+        if self.speculate_k:
+            self._step_speculative()
+            return
         with self._lock:
             self._sweep_cancelled()
             self._admit()
             if not any(r is not None for r in self.slots):
                 self._flush_inflight()
                 return
-            self._dispatch()
-            while self._quanta_in_flight() > self.PIPELINE_DEPTH:
-                self._process_entry(self._inflight.pop(0))
-            if any(e[0] == "admit" for e in self._inflight):
-                keep = []
-                for e in self._inflight:
-                    if e[0] == "admit":
-                        self._process_entry(e)
-                    else:
-                        keep.append(e)
-                self._inflight = keep
+            self._plain_step_locked()
+
+    def _plain_step_locked(self) -> None:
+        """Dispatch one quantum and deliver what :meth:`step` says; the
+        caller holds the lock and has admitted."""
+        self._dispatch()
+        while self._quanta_in_flight() > self.PIPELINE_DEPTH:
+            self._process_entry(self._inflight.pop(0))
+        if any(e[0] == "admit" for e in self._inflight):
+            keep = []
+            for e in self._inflight:
+                if e[0] == "admit":
+                    self._process_entry(e)
+                else:
+                    keep.append(e)
+            self._inflight = keep
+
+    # --------------------------------------------------------- speculation
+
+    def _verify_logits(self, toks: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """``[B, K+1, vocab]`` fp32 logits of one verify forward."""
+        logits, _ = forward(self.engine.model.params, self.cfg, toks, positions,
+                            self.cache)
+        return logits
+
+    def _verify(self, tokens: np.ndarray, positions: np.ndarray):
+        """One batched verify step of ``tokens [B, K+1]`` at ``positions``:
+        the greedy argmax of every row ``[B, K+1]`` (the verification chain),
+        each slot's row-0 sample (for slots that do not speculate) and its
+        logprob info, all on the host."""
+        toks = torch.from_numpy(tokens.astype(np.int32)).to(self.device)
+        pos = torch.from_numpy(positions.astype(np.int32)).to(self.device)
+        logits = self._verify_logits(toks, pos)
+        sampled0, lp = self._sample(logits[:, 0], list(range(self.n_slots)), positions)
+        self.verify_steps += 1
+        wanted = any(r is not None and r.want_logprobs for r in self.slots)
+        return (greedy(logits).cpu().numpy(), sampled0.cpu().numpy(),
+                self._host_lp(lp, wanted))
+
+    def _accepted_chain(self, slot: int, drafts, preds, sampled0) -> List[int]:
+        """The tokens slot ``slot`` emits after a verify step: the accepted
+        draft prefix plus the model's own continuation for speculating
+        slots; the row-0 sample otherwise."""
+        if self._proposers[slot] is None:
+            return [int(sampled0[slot])]
+        acc = longest_accepted_prefix(drafts, preds[slot, :len(drafts)].tolist())
+        self.spec_stats["spec_steps"] += 1
+        self.spec_stats["drafted"] += len(drafts)
+        self.spec_stats["accepted"] += acc
+        return drafts[:acc] + [int(preds[slot, acc])]
+
+    def _replay_chain(self, slot: int, chain, p0: int, lp, end_hook=None) -> None:
+        """Emit an accepted chain token by token: advance the position,
+        update the feed, the proposer or the logprobs, and apply the stop
+        rules, alike for both batchers. ``end_hook(slot)`` (paged) runs
+        before the last token's emission and may return True to end the
+        request (its next write position cannot be backed)."""
+        for j, tok in enumerate(chain):
+            if self.slots[slot] is None:
+                break                      # a stop token ended it
+            self._pos[slot] = min(p0 + j + 1, self._pos_cap)
+            self._feed[slot] = tok
+            if self._proposers[slot] is not None:
+                self._proposers[slot].extend([tok])
+            else:
+                self._record_logprobs(slot, tok, lp, row=slot)
+            force_finish = bool(end_hook(slot)) if (
+                end_hook is not None and j + 1 == len(chain)) else False
+            self._emit(slot, tok, int(self._pos[slot]), force_finish=force_finish)
+
+    def _step_speculative(self) -> None:
+        """One speculative iteration: every slot's feed token plus up to K
+        n-gram drafts verify in one ``[B, K+1]`` forward at per-row
+        positions; each greedy slot emits its accepted chain, sampled slots
+        their row-0 sample."""
+        K = self.speculate_k
+        with self._lock:
+            self._sweep_cancelled()
+            self._admit()
+            if not any(r is not None for r in self.slots):
+                return
+            step_tokens = np.tile(self._feed[:, None], (1, K + 1))
+            draft_lists: List[List[int]] = [[] for _ in range(self.n_slots)]
+            for slot in range(self.n_slots):
+                prop = self._proposers[slot] if self.slots[slot] else None
+                if prop is not None and int(self._pos[slot]) + 1 + K < self.seq_len:
+                    drafts = prop.propose(K)
+                    draft_lists[slot] = drafts
+                    step_tokens[slot, 1:1 + len(drafts)] = drafts
+            # a free slot's position climbs to the cache's end; its rows are
+            # garbage wherever they land, so they land in the last K+1
+            positions = np.minimum(self._pos, self.cache.max_seq - K - 1)
+            preds, sampled0, lp = self._verify(step_tokens, positions)
+            for slot in range(self.n_slots):
+                p0 = int(self._pos[slot])
+                if self.slots[slot] is None:
+                    self._pos[slot] = min(p0 + 1, self._pos_cap)
+                    continue
+                chain = self._accepted_chain(slot, draft_lists[slot], preds, sampled0)
+                self._replay_chain(slot, chain, p0, lp)
 
     # -------------------------------------------------------- serving glue
 

@@ -29,6 +29,17 @@ layers); a captured one replays them all with one call.
   * :meth:`DecodeGraph.fetch` copies ``out`` to pinned host memory behind
     an event (two buffers in turn), so a second chunk can be queued before
     the first's tokens are read: the engine's pipelining.
+  * :class:`VerifyGraph` is speculative decoding's verify step over a
+    one-row slot, the counterpart of the JAX engine's jitted S=k+1
+    ``forward``: ``forward`` at S = k+1 over a static ``[1, k+1]`` feed
+    (the emitted token and k drafts) from the slot's position, on the plain
+    attention path (the JAX package's ``"xla"``), and the greedy argmax of
+    every row into ``out [k+1]``. It shares the slot's cache and position
+    with the slot's one-step :class:`DecodeGraph`; the host sets the
+    position before each replay of either (:meth:`VerifyGraph.set`,
+    :meth:`DecodeSlot.set`), and rejected rows past it stay unseen until
+    the real tokens overwrite them. Warm-up, capture, counting and "a
+    failed capture raises" are :class:`DecodeGraph`'s.
 """
 
 from __future__ import annotations
@@ -156,24 +167,19 @@ class DecodeSlot:
         return (tokens[:, None] == self.stop_ids).any(-1)
 
 
-class DecodeGraph:
-    """``k`` decode steps over ``slot``: greedy, sampled with the engine's
-    generator and ``top_k``/``top_p`` (its temperature is the slot's), or
-    greedy with stop tracking (``stops``)."""
+class _SlotGraph:
+    """A body over ``slot`` whose tokens land in ``out``: captured at the
+    first :meth:`replay` on a card (one warm-up run first), run eagerly on
+    the CPU. Subclasses give ``_warm_up`` and ``_body``."""
 
-    def __init__(self, engine, slot: DecodeSlot, k: int, sampled: bool = False,
-                 stops: bool = False) -> None:
-        # the model and generator, not the engine: an engine holds its
-        # graphs, and a cycle would leave a dropped engine's graphs to the
-        # cyclic collector, which may run during another graph's capture
-        self.model, self.generator = engine.model, engine._generator
-        self.slot, self.k = slot, k
-        self.sampled, self.stops = sampled, stops
-        self.top_k, self.top_p = engine.args.top_k, engine.args.top_p
-        self.impl = engine._attn_impl(1, slot.cache_len)
+    def __init__(self, engine, slot: DecodeSlot, out_shape: Tuple[int, ...]) -> None:
+        # the model, not the engine: an engine holds its graphs, and a cycle
+        # would leave a dropped engine's graphs to the cyclic collector,
+        # which may run during another graph's capture
+        self.model, self.slot = engine.model, slot
         cuda = slot.device.type == "cuda"
-        self.out = torch.zeros((k, slot.batch), dtype=torch.int32, device=slot.device)
-        self._host = [torch.zeros((k, slot.batch), dtype=torch.int32, pin_memory=cuda)
+        self.out = torch.zeros(out_shape, dtype=torch.int32, device=slot.device)
+        self._host = [torch.zeros(out_shape, dtype=torch.int32, pin_memory=cuda)
                       for _ in range(2)]
         self._turn = 0
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
@@ -183,6 +189,98 @@ class DecodeGraph:
         # the warm-up and capture's host seconds, and the device memory they
         # keep reserved (the graph's pool, the capture stream's workspaces)
         self.capture_s, self.capture_bytes = 0.0, 0
+
+    def _warm_up(self) -> None:
+        """Run the body once, outside the graph, leaving the slot's state as
+        it found it (on the capture stream)."""
+        raise NotImplementedError
+
+    def _body(self) -> None:
+        raise NotImplementedError
+
+    def _register(self, graph: "torch.cuda.CUDAGraph") -> None:
+        """Ready the graph before its capture (a sampled body registers the
+        generator)."""
+
+    def _capture(self) -> None:
+        s = self.slot
+        # the capture empties the allocator's cache: so does the baseline
+        torch.cuda.synchronize(s.device)
+        torch.cuda.empty_cache()
+        t0, reserved = time.perf_counter(), torch.cuda.memory_reserved(s.device)
+        stream = capture_stream(s.device)
+        stream.wait_stream(torch.cuda.current_stream(s.device))
+        with torch.cuda.stream(stream):
+            self._warm_up()
+        torch.cuda.current_stream(s.device).wait_stream(stream)
+        self.warmup_steps += 1
+        graph = torch.cuda.CUDAGraph()
+        self._register(graph)
+        # no collection during the capture: freeing another graph there (its
+        # reset) is an operation a capturing stream does not permit
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with uncounted() as delta:
+                with torch.cuda.graph(graph, pool=s.pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self._body()
+        finally:
+            if collecting:
+                gc.enable()
+        self.launches = tuple(delta)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+        self.capture_bytes = torch.cuda.memory_reserved(s.device) - reserved
+
+    def replay(self) -> None:
+        """Run the body: on a card the captured graph (captured at the first
+        call), on the CPU the body itself."""
+        if self.slot.device.type == "cuda":
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            add_launches(self.launches)
+        else:
+            self._body()
+        self.replays += 1
+
+    def fetch(self):
+        """Queue the copy of the last replay's ``out`` to the host; pass the
+        handle to :meth:`tokens`."""
+        host = self._host[self._turn]
+        self._turn ^= 1
+        host.copy_(self.out, non_blocking=True)
+        event = None
+        if self.slot.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return host, event
+
+    @staticmethod
+    def tokens(handle) -> list:
+        """The tokens of a fetched replay, as a list (waits for its copy
+        only)."""
+        host, event = handle
+        if event is not None:
+            event.synchronize()
+        return host.tolist()
+
+
+class DecodeGraph(_SlotGraph):
+    """``k`` decode steps over ``slot``: greedy, sampled with the engine's
+    generator and ``top_k``/``top_p`` (its temperature is the slot's), or
+    greedy with stop tracking (``stops``). :meth:`tokens` gives ``[k][B]``."""
+
+    def __init__(self, engine, slot: DecodeSlot, k: int, sampled: bool = False,
+                 stops: bool = False) -> None:
+        super().__init__(engine, slot, (k, slot.batch))
+        self.generator = engine._generator
+        self.k = k
+        self.sampled, self.stops = sampled, stops
+        self.top_k, self.top_p = engine.args.top_k, engine.args.top_p
+        self.impl = engine._attn_impl(1, slot.cache_len)
+        self._rng = None
 
     # ------------------------------------------------------------ the body
 
@@ -213,80 +311,24 @@ class DecodeGraph:
             self._advance(nxt)
         self.slot.logits.copy_(row)
 
-    # ---------------------------------------------------------- capture, replay
+    # ---------------------------------------------------------- capture
 
-    def _capture(self) -> None:
-        s, gen = self.slot, self.generator
-        # the capture empties the allocator's cache: so does the baseline
-        torch.cuda.synchronize(s.device)
-        torch.cuda.empty_cache()
-        t0, reserved = time.perf_counter(), torch.cuda.memory_reserved(s.device)
+    def _warm_up(self) -> None:
+        # one step, at a position the request has not reached: the step that
+        # feeds the real token there writes it again first. The slot's state
+        # and the generator are put back for the capture.
+        s = self.slot
         state = (s.feed, s.pos, s.stopped, s.count)
         saved = [t.clone() for t in state]
-        rng = gen.get_state() if self.sampled else None
-        stream = capture_stream(s.device)
-        stream.wait_stream(torch.cuda.current_stream(s.device))
-        with torch.cuda.stream(stream):
-            # the warm-up step runs at a position the request has not
-            # reached: the step that feeds the real token there writes it
-            # again first
-            self._advance(self._step()[0])
-        torch.cuda.current_stream(s.device).wait_stream(stream)
-        self.warmup_steps += 1
+        self._rng = self.generator.get_state() if self.sampled else None
+        self._advance(self._step()[0])
         for t, v in zip(state, saved):
             t.copy_(v)
-        graph = torch.cuda.CUDAGraph()
+
+    def _register(self, graph) -> None:
         if self.sampled:
-            gen.set_state(rng)
-            graph.register_generator_state(gen)
-        # no collection during the capture: freeing another graph there (its
-        # reset) is an operation a capturing stream does not permit
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with uncounted() as delta:
-                with torch.cuda.graph(graph, pool=s.pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    self._body()
-        finally:
-            if collecting:
-                gc.enable()
-        self.launches = tuple(delta)
-        self.graph = graph
-        self.capture_s = time.perf_counter() - t0
-        self.capture_bytes = torch.cuda.memory_reserved(s.device) - reserved
-
-    def replay(self) -> None:
-        """Run the k steps: on a card the captured graph (captured at the
-        first call), on the CPU the body itself."""
-        if self.slot.device.type == "cuda":
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
-            add_launches(self.launches)
-        else:
-            self._body()
-        self.replays += 1
-
-    def fetch(self):
-        """Queue the copy of the last replay's ``out`` to the host; pass the
-        handle to :meth:`tokens`."""
-        host = self._host[self._turn]
-        self._turn ^= 1
-        host.copy_(self.out, non_blocking=True)
-        event = None
-        if self.slot.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        return host, event
-
-    @staticmethod
-    def tokens(handle) -> List[List[int]]:
-        """``[k][B]`` tokens of a fetched replay (waits for its copy only)."""
-        host, event = handle
-        if event is not None:
-            event.synchronize()
-        return host.tolist()
+            self.generator.set_state(self._rng)
+            graph.register_generator_state(self.generator)
 
     def rewind_rng(self, state: torch.Tensor, steps: int) -> None:
         """Set the generator to ``state`` moved on by ``steps`` draws, as
@@ -294,3 +336,43 @@ class DecodeGraph:
         self.generator.set_state(state)
         for _ in range(steps):
             exponential_noise(self.slot.logits, self.generator)
+
+
+class VerifyGraph(_SlotGraph):
+    """Speculative decoding's verify step over a one-row ``slot``: the emitted
+    token and ``k`` drafts through one ``forward`` at S = k+1, the argmax of
+    every row into ``out [k+1]`` (see the module docstring). The caller keeps
+    ``position + k + 1`` within the slot's cache."""
+
+    def __init__(self, engine, slot: DecodeSlot, k: int) -> None:
+        if slot.batch != 1:
+            raise ValueError(f"a verify step runs over a one-row slot, got {slot.batch} rows")
+        super().__init__(engine, slot, (k + 1,))
+        self.k = k
+        cuda = slot.device.type == "cuda"
+        self.feed = torch.zeros((1, k + 1), dtype=torch.int32, device=slot.device)
+        # host staging of the feed and the position, copied in without a sync
+        self._staging = torch.zeros((k + 2,), dtype=torch.int32, pin_memory=cuda)
+        self._staged = torch.cuda.Event() if cuda else None
+
+    def set(self, tokens: Sequence[int], position: int) -> None:
+        """The next verify's ``k+1`` tokens, the first at ``position`` (the
+        slot's position)."""
+        if self._staged is not None:
+            self._staged.synchronize()          # the last copy out of staging
+        self._staging[:-1] = torch.tensor(tokens, dtype=torch.int32)
+        self._staging[-1] = position
+        self.feed.copy_(self._staging[None, :-1], non_blocking=True)
+        self.slot.pos.copy_(self._staging[-1:], non_blocking=True)
+        if self._staged is not None:
+            self._staged.record()
+
+    def _body(self) -> None:
+        s = self.slot
+        logits, _ = forward(self.model.params, self.model.cfg, self.feed, s.pos, s.cache,
+                            attn_impl="plain")
+        self.out.copy_(greedy(logits[0]))
+
+    def _warm_up(self) -> None:
+        # the rows the replay after it writes again; nothing else moves
+        self._body()

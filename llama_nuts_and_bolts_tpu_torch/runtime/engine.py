@@ -1,15 +1,17 @@
 """Inference engine: bucketed prefill, captured decode steps, streaming.
 
-Port of the plain path of ``llama_nuts_and_bolts_tpu/runtime/engine.py``:
-power-of-two prefill buckets (``prefill_chunk`` included), request cache
-buckets, the prefix cache, a bf16 or int8 KV cache, greedy/sampled decode in
-chunks of ``decode_chunk`` steps and streaming detokenization. Prefill runs
-eagerly; decode replays CUDA graphs (``runtime/decode_graph.py``), the
-counterparts of the JAX engine's jitted step and chunk scans, kept per
-request cache bucket in ``_chunk_fns`` under the same LRU rule.
+Port of ``llama_nuts_and_bolts_tpu/runtime/engine.py``: power-of-two prefill
+buckets (``prefill_chunk`` included), request cache buckets, the prefix
+cache, a bf16 or int8 KV cache, greedy/sampled decode in chunks of
+``decode_chunk`` steps, greedy speculative decoding (``speculate_k``, with
+an n-gram or a draft-model proposer) and streaming detokenization. Prefill
+runs eagerly; decode and the speculative verify step replay CUDA graphs
+(``runtime/decode_graph.py``), the counterparts of the JAX engine's jitted
+steps and chunk scans, kept per request cache bucket in ``_chunk_fns`` under
+the same LRU rule.
 
-Speculation and the ``probe`` attention choice are later items of
-ROADMAP.md: asking for them raises.
+The ``probe`` attention choice is a later item of ROADMAP.md: asking for it
+raises.
 """
 
 from __future__ import annotations
@@ -25,11 +27,20 @@ from llama_nuts_and_bolts_tpu_torch.kernels.attention import HEAD_DIM, K1_GROUP
 from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import K2_GROUP
 from llama_nuts_and_bolts_tpu_torch.models.llama.loader import LoadedModel
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache, forward
-from llama_nuts_and_bolts_tpu_torch.ops.sampling import sample_token
-from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import DecodeGraph, DecodeSlot
+from llama_nuts_and_bolts_tpu_torch.ops.sampling import greedy, sample_token
+from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import (
+    DecodeGraph,
+    DecodeSlot,
+    VerifyGraph,
+)
 from llama_nuts_and_bolts_tpu_torch.runtime.detokenizer import (
     token_batch_to_string,
     token_to_string,
+)
+from llama_nuts_and_bolts_tpu_torch.runtime.speculative import (
+    DraftModelProposer,
+    NgramProposer,
+    longest_accepted_prefix,
 )
 from llama_nuts_and_bolts_tpu_torch.runtime.types import (
     DecodingContext,
@@ -57,9 +68,6 @@ def prefill_bucket(prompt_len: int, cap: int) -> int:
 
 
 def _check_args(args: InferenceArgs) -> None:
-    if args.speculate_k > 0:
-        raise NotImplementedError("speculative decoding is a later item of "
-                                  "ROADMAP.md (queue 1, speculation)")
     if args.kv_cache_dtype not in KV_CACHE_DTYPES:
         raise ValueError(f"kv_cache_dtype must be one of {tuple(KV_CACHE_DTYPES)}, "
                          f"got {args.kv_cache_dtype!r}")
@@ -73,14 +81,25 @@ def _check_args(args: InferenceArgs) -> None:
 
 class InferenceEngine:
     def __init__(self, model: LoadedModel, args: Optional[InferenceArgs] = None,
-                 log_fn=None, device=None) -> None:
+                 log_fn=None, draft_model: Optional[LoadedModel] = None,
+                 device=None) -> None:
         self.model = model
         self.args = args or InferenceArgs()
         _check_args(self.args)
         self.device = resolve_device(device)
-        if model.params.device != self.device:
-            raise ValueError(f"model weights are on {model.params.device}, the "
-                             f"engine runs on {self.device}")
+        for what, m in (("model", model), ("draft model", draft_model)):
+            if m is not None and m.params.device != self.device:
+                raise ValueError(f"{what} weights are on {m.params.device}, the "
+                                 f"engine runs on {self.device}")
+        # optional smaller Llama used as the speculation proposer (two-model
+        # speculative decoding); None falls back to n-gram prompt lookup
+        if (draft_model is not None
+                and draft_model.cfg.vocab_size < model.cfg.vocab_size):
+            raise ValueError(
+                f"draft model vocab ({draft_model.cfg.vocab_size}) is smaller "
+                f"than the target's ({model.cfg.vocab_size}): target token ids "
+                "would be clipped by the draft embedding lookup")
+        self.draft_model = draft_model
         self.seq_len = self.args.sequence_length or model.cfg.max_sequence_length
         self.log = log_fn or (lambda fmt, *a: get_logger().debug(fmt, *a))
         self._generator = torch.Generator(device=self.device).manual_seed(self.args.seed)
@@ -310,6 +329,19 @@ class InferenceEngine:
                 self._new_slot(1, bucket)
         key = ((k, bucket, "s", self.args.top_k, self.args.top_p) if sampled
                else (k, bucket, "b" if stops else "g")) + (slot.index,)
+        return self._graph(key, lambda: DecodeGraph(self, slot, k, sampled=sampled,
+                                                    stops=stops))
+
+    def _verify_graph(self, k: int, slot: DecodeSlot) -> VerifyGraph:
+        """The speculative verify step of ``k`` drafts over the one-row
+        ``slot``, kept with the decode graphs as ``("verify", k, bucket,
+        slot)``."""
+        return self._graph(("verify", k, slot.cache_len, slot.index),
+                           lambda: VerifyGraph(self, slot, k))
+
+    def _graph(self, key: tuple, make):
+        """The graph under ``key`` in the LRU of MAX_CHUNK_EXECUTABLES, made
+        by ``make()`` when absent (see :meth:`_decode_chunk`)."""
         if key in self._chunk_fns:
             self._chunk_fns[key] = self._chunk_fns.pop(key)
             return self._chunk_fns[key]
@@ -317,7 +349,7 @@ class InferenceEngine:
             victim = next((c for c in self._chunk_fns if "s" in c),
                           next(iter(self._chunk_fns)))
             self._chunk_fns.pop(victim)
-        self._chunk_fns[key] = DecodeGraph(self, slot, k, sampled=sampled, stops=stops)
+        self._chunk_fns[key] = make()
         held = {g.slot for g in self._chunk_fns.values()}
         with self._slots_lock:
             for slots in self._slots.values():
@@ -330,8 +362,23 @@ class InferenceEngine:
     ) -> Iterator[Tuple[GenerationState, int]]:
         """Greedy/sampled autoregressive generation, one token per yield.
         ``max_new_tokens`` caps the stream and sizes the request's cache
-        buffer to a bucket (cache_bucket)."""
+        buffer to a bucket (cache_bucket). Greedy requests with
+        ``speculate_k`` > 0 take the speculative path, which keeps the
+        full-context cache; sampled ones ignore it."""
         if max_new_tokens is not None and max_new_tokens <= 0:
+            return
+        if self.args.speculate_k > 0 and self.args.temperature == 0.0:
+            it = self._generate_tokens_speculative(prompt_tokens)
+            try:
+                n = 0
+                for state, tok in it:
+                    n += 1
+                    yield state, tok
+                    if (max_new_tokens is not None and n >= max_new_tokens
+                            or state != GenerationState.IN_PROGRESS):
+                        return
+            finally:
+                it.close()                 # releases its slot at once
             return
         cache_len = self.cache_bucket(len(prompt_tokens), max_new_tokens)
         yield from self._generate_tokens_plain(prompt_tokens, cache_len,
@@ -421,6 +468,70 @@ class InferenceEngine:
                 step.replay()
                 next_token = step.tokens(step.fetch())[0][0]
                 cur_pos += 1
+
+    def _generate_tokens_speculative(
+        self, prompt_tokens: Sequence[int]
+    ) -> Iterator[Tuple[GenerationState, int]]:
+        """Greedy decode with speculation (n-gram prompt lookup, or the draft
+        model when the engine has one), over a leased full-context slot.
+
+        Each step verifies the just-emitted token plus up to ``k`` drafts in
+        one replay of the slot's verify graph (S=k+1: the same weight bytes as
+        S=1), and reads its k+1 predictions back once; drafts are padded to k
+        with the last one. A step with no drafts replays the slot's one-step
+        decode graph. Emits exactly the vanilla greedy sequence: a draft is
+        emitted only when it equals the model's own argmax. Rejected and
+        padded rows write K/V beyond the accepted point; those positions are
+        invisible to later queries until the real token there overwrites
+        them, since each replay starts at the position the host sets."""
+        vocab = self.model.vocab
+        k = self.args.speculate_k
+        with self._lease(1, self.seq_len) as slot:
+            logits, _ = self._prefill(prompt_tokens, self.seq_len, cache=slot.cache)
+            queue = [int(greedy(logits[0, 0]))]
+            if self.draft_model is not None:
+                proposer = DraftModelProposer(self.draft_model, list(prompt_tokens),
+                                              self.seq_len)
+            else:
+                proposer = NgramProposer(list(prompt_tokens))
+            self.spec_stats = {"steps": 0, "spec_steps": 0, "drafted": 0, "accepted": 0}
+            n_ctx = len(prompt_tokens)
+            step = verify = None             # made when first needed
+            while True:
+                tok = queue.pop(0)
+                if vocab.is_stop(tok):
+                    yield GenerationState.FINISHED_BY_REACHING_EOS, tok
+                    return
+                if n_ctx + 1 >= self.seq_len:
+                    yield GenerationState.FINISHED_BY_REACHING_SEQ_LEN, tok
+                    return
+                yield GenerationState.IN_PROGRESS, tok
+                proposer.extend([tok])
+                n_ctx += 1
+                if queue:
+                    continue
+
+                start = n_ctx - 1             # the emitted token's position
+                self.spec_stats["steps"] += 1
+                # drafting needs start + k + 1 <= seq_len: the verify rows fit
+                drafts = proposer.propose(k) if n_ctx + k <= self.seq_len else []
+                if drafts:
+                    real = len(drafts)
+                    verify = verify or self._verify_graph(k, slot)
+                    verify.set([tok] + drafts + [drafts[-1]] * (k - real), start)
+                    verify.replay()
+                    preds = verify.tokens(verify.fetch())
+                    n_acc = longest_accepted_prefix(drafts, preds[:real])
+                    self.spec_stats["spec_steps"] += 1
+                    self.spec_stats["drafted"] += real
+                    self.spec_stats["accepted"] += n_acc
+                    queue.extend(drafts[:n_acc])
+                    queue.append(preds[n_acc])
+                else:
+                    step = step or self._decode_chunk(1, False, self.seq_len, slot)
+                    slot.set([tok], [start])
+                    step.replay()
+                    queue.append(step.tokens(step.fetch())[0][0])
 
     # ---------------------------------------------------------- streaming
 

@@ -1,10 +1,15 @@
 """Paged continuous batching: block-pool memory management for the scheduler.
 
-Port of ``llama_nuts_and_bolts_tpu/runtime/paged.py`` (without speculation,
-ROADMAP item 12). ``PagedBatcher`` replaces the dense batcher's per-slot
-cache rows with a shared block pool (``models/llama/paged.py``): a request
-holds ``pos // bs + 1`` blocks at any moment, takes them as it decodes and
-returns them the moment it finishes.
+Port of ``llama_nuts_and_bolts_tpu/runtime/paged.py``. ``PagedBatcher``
+replaces the dense batcher's per-slot cache rows with a shared block pool
+(``models/llama/paged.py``): a request holds ``pos // bs + 1`` blocks at any
+moment, takes them as it decodes and returns them the moment it finishes.
+
+Speculation composes with the pool: each verify step writes K+1 rows a
+slot, so the scheduler backs positions pos..pos+K with blocks before the
+step and clamps a slot's draft count to what the pool could back -- a dry
+pool gives fewer (or no) drafts, never a stall. A step where no slot drafts
+runs the plain paged step (K6 on a card).
 
 Scheduling policy (host side, O(slots) per step):
   * admission needs ``prompt_len // bs + 1`` blocks (prompt + the next write
@@ -33,6 +38,7 @@ from llama_nuts_and_bolts_tpu_torch.models.llama.paged import (
     TRASH_BLOCK,
     PagedKVPool,
     paged_decode_step,
+    paged_decode_step_spec,
     paged_prefill,
     paged_prefill_shared,
 )
@@ -261,3 +267,91 @@ class PagedBatcher(ContinuousBatcher):
         logits, _ = paged_decode_step(self.engine.model.params, self.cfg, toks,
                                       positions, self.pool, tables, self.attn_impl)
         return logits
+
+    def _verify_logits(self, toks, positions) -> torch.Tensor:
+        tables = torch.from_numpy(self.tables.copy()).to(self.device)
+        logits, _ = paged_decode_step_spec(self.engine.model.params, self.cfg, toks,
+                                           positions, self.pool, tables)
+        return logits
+
+    def _back_positions(self, slot: int, upto_pos: int) -> int:
+        """Grow slot's blocks until position ``upto_pos`` is backed (or the
+        pool or the table runs out); returns the highest backed position."""
+        bs = self.block_size
+        blocks = self._slot_blocks[slot]
+        while len(blocks) * bs <= upto_pos and len(blocks) < self.max_blocks:
+            grown = self.allocator.alloc(1)
+            if grown is None:
+                break
+            self.tables[slot, len(blocks)] = grown[0]
+            blocks.extend(grown)
+        return len(blocks) * bs - 1
+
+    def step(self) -> None:
+        if self.speculate_k:
+            self._step_speculative_paged()
+            return
+        super().step()
+
+    def _step_speculative_paged(self) -> None:
+        """One speculative iteration over the pool: every slot's feed token
+        plus up to K n-gram drafts verify in one ``[B, K+1]`` forward. Before
+        it, each speculating slot's positions pos..pos+K are backed with
+        blocks, its draft count clamped to what the pool could back; rejected
+        rows land in backed blocks past the accepted point and are
+        overwritten before they become visible. When no slot drafts, the
+        plain paged step runs instead (one row instead of K+1, and K6 on a
+        card), and the proposers see its tokens. Emission is the dense
+        batcher's chain replay, with the paged growth rule at the chain's
+        end."""
+        K = self.speculate_k
+        with self._lock:
+            # drafting and admission need current host state
+            self._flush_inflight()
+            self._sweep_cancelled()
+            self._admit()
+            if not any(r is not None for r in self.slots):
+                return
+            step_tokens = np.tile(self._feed[:, None], (1, K + 1))
+            draft_lists: List[List[int]] = [[] for _ in range(self.n_slots)]
+            for slot in range(self.n_slots):
+                prop = self._proposers[slot] if self.slots[slot] is not None else None
+                if prop is None:
+                    continue
+                p0 = int(self._pos[slot])
+                # never back positions past what the context lets a request
+                # write (a finishing slot must not starve stalled admissions)
+                target = min(p0 + K, self.seq_len - 2)
+                backed = self._back_positions(slot, target)
+                k_eff = min(K, backed - p0, self.seq_len - p0 - 2)
+                if k_eff <= 0:
+                    continue
+                drafts = prop.propose(k_eff)
+                draft_lists[slot] = drafts
+                step_tokens[slot, 1:1 + len(drafts)] = drafts
+
+            if not any(draft_lists):
+                self._plain_step_locked()
+                # the plain step pipelines: drain it, so the feed holds the
+                # token the proposers must see
+                self._flush_inflight()
+                for slot in range(self.n_slots):
+                    if self.slots[slot] is not None and self._proposers[slot] is not None:
+                        self._proposers[slot].extend([int(self._feed[slot])])
+                return
+
+            preds, sampled0, lp = self._verify(step_tokens, self._pos)
+
+            def end_hook(slot):
+                # the next write position must be backed before the chain's
+                # last token is emitted: a dry pool ends the request
+                backed = self._back_positions(slot, int(self._pos[slot]))
+                return backed < int(self._pos[slot])
+
+            for slot in range(self.n_slots):
+                p0 = int(self._pos[slot])
+                if self.slots[slot] is None:
+                    self._pos[slot] = min(p0 + 1, self._pos_cap)
+                    continue
+                chain = self._accepted_chain(slot, draft_lists[slot], preds, sampled0)
+                self._replay_chain(slot, chain, p0, lp, end_hook=end_hook)

@@ -75,7 +75,9 @@ class InferenceArgs:
     # decode steps per captured graph replay: 0 is auto (1 on a card), and
     # k > 1 streams in k-step chunks (runtime/decode_graph.py)
     decode_chunk: int = 0
-    # n-gram prompt-lookup speculative decoding (ROADMAP.md; 0 disables)
+    # speculative decoding: verify up to k drafts a step (n-gram prompt
+    # lookup, or the engine's draft model); greedy requests only, sampled
+    # ones ignore it (0 disables)
     speculate_k: int = 0
     # "bf16" | "int8" (rows quantized per position and head, bf16 scales)
     kv_cache_dtype: str = "bf16"

@@ -2,9 +2,12 @@
 
 The JAX package's server flags, plus ``--device {cuda,cpu}`` (default
 ``cuda``; no fallback). Flags that reach parts not ported yet raise and name
-their ROADMAP item: ``--tp`` (17), ``--speculate`` and ``--draft-model`` (12),
-``--attn-impl probe`` (20). ``--decode-chunk K`` reaches the engine: the
-sequential path (no ``--continuous``) streams in captured K-step chunks.
+their ROADMAP item: ``--tp`` (17), ``--attn-impl probe`` (20).
+``--decode-chunk K`` reaches the engine: the sequential path (no
+``--continuous``) streams in captured K-step chunks. ``--speculate K``
+speculates on the sequential engine and in both batchers; ``--draft-model
+DIR`` loads a smaller Llama as the sequential engine's proposer, on the same
+device.
 """
 
 import argparse
@@ -28,9 +31,10 @@ def parse_args(argv=None):
     p.add_argument("--quant", choices=["none", "int8", "int4"], default="none",
                    help="weight-only quantization")
     p.add_argument("--draft-model", default=None, metavar="DIR",
-                   help="with --speculate: draft model dir (ROADMAP item 12)")
+                   help="with --speculate: smaller Llama checkpoint dir used "
+                        "as the draft model (default: n-gram prompt lookup)")
     p.add_argument("--speculate", type=int, default=0, metavar="K",
-                   help="speculative decoding (ROADMAP item 12)")
+                   help="n-gram prompt-lookup speculative decoding (greedy only)")
     p.add_argument("--continuous", type=int, default=0, metavar="SLOTS",
                    help="continuous batching: requests share decode steps "
                         "across SLOTS cache slots (0 disables)")
@@ -75,16 +79,18 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    for flag, value, item in (("--tp", args.tp > 1, "17 (multi-device parallelism)"),
-                              ("--speculate", args.speculate > 0, "12 (speculation)"),
-                              ("--draft-model", args.draft_model, "12 (speculation)")):
-        if value:
-            raise NotImplementedError(f"{flag} is ROADMAP item {item}, not ported yet")
+    if args.tp > 1:
+        raise NotImplementedError("--tp is ROADMAP item 17 (multi-device parallelism), "
+                                  "not ported yet")
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     _refuse_unported(args)
+    if args.tiny and args.draft_model:
+        from llama_nuts_and_bolts_tpu_torch.cli.main import TINY_DRAFT_REFUSAL
+
+        raise SystemExit(TINY_DRAFT_REFUSAL)
     device = resolve_device(args.device)
     quant = None if args.quant == "none" else args.quant
     if args.tiny:
@@ -115,13 +121,20 @@ def main(argv=None) -> int:
                                  quant=quant, fused=quant is None and not args.paged_blocks)
         name = "llama-3.1-8b-instruct"
 
+    draft = None
+    if args.draft_model:
+        from llama_nuts_and_bolts_tpu_torch.models.llama.loader import load_llama_model
+
+        draft = load_llama_model(args.draft_model, max_sequence_length=args.seq_len,
+                                 device=device)
     # the engine refuses --attn-impl probe, naming its ROADMAP item
     engine = InferenceEngine(model, InferenceArgs(sequence_length=args.seq_len,
+                                                  speculate_k=args.speculate,
                                                   kv_cache_dtype=args.kv_cache,
                                                   prefill_chunk=args.prefill_chunk,
                                                   attn_impl=args.attn_impl,
                                                   decode_chunk=args.decode_chunk),
-                             device=device)
+                             draft_model=draft, device=device)
     if args.cache_system_prompt and not args.continuous:
         from llama_nuts_and_bolts_tpu_torch.tokenizer import PromptPart, render_prefix_tokens
 

@@ -20,7 +20,8 @@ continuous-batching scheduler (``runtime/continuous.py``, or
 requests share the same decode steps, each in its own slot, joining and
 leaving mid-flight. Otherwise generations serialize on a lock with a
 per-request cache; a request's ``seed`` then reseeds the engine's generator
-for that request only.
+for that request only. With the engine's ``speculate_k`` the batchers
+speculate too, and ``/metrics`` and ``/health`` carry their counters.
 """
 
 from __future__ import annotations
@@ -112,6 +113,7 @@ class LlamaHTTPServer:
                 self.batcher = PagedBatcher(
                     engine, n_slots=continuous_slots, n_blocks=paged_blocks,
                     prefix_cache=prefix_cache,
+                    speculate_k=engine.args.speculate_k,
                     step_quantum=step_quantum)
             else:
                 from llama_nuts_and_bolts_tpu_torch.runtime.continuous import (
@@ -119,7 +121,9 @@ class LlamaHTTPServer:
                 )
 
                 self.batcher = ContinuousBatcher(
-                    engine, n_slots=continuous_slots, step_quantum=step_quantum)
+                    engine, n_slots=continuous_slots,
+                    speculate_k=engine.args.speculate_k,
+                    step_quantum=step_quantum)
             self.batcher.serve_forever_in_thread()
 
     # ------------------------------------------------------------ requests
@@ -408,6 +412,18 @@ class LlamaHTTPServer:
                 "# TYPE llama_batch_decode_steps_total counter",
                 f"llama_batch_decode_steps_total {b.decode_steps}",
             ]
+            if b.speculate_k:
+                # acceptance = accepted / drafted decides whether --speculate
+                # pays for a workload
+                s = b.spec_stats_snapshot()
+                lines += [
+                    "# TYPE llama_spec_drafted_total counter",
+                    f"llama_spec_drafted_total {s['drafted']}",
+                    "# TYPE llama_spec_accepted_total counter",
+                    f"llama_spec_accepted_total {s['accepted']}",
+                    "# TYPE llama_spec_verify_steps_total counter",
+                    f"llama_spec_verify_steps_total {s['spec_steps']}",
+                ]
             if hasattr(b, "allocator"):
                 lines += [
                     "# TYPE llama_kv_blocks_free gauge",
@@ -455,6 +471,15 @@ class LlamaHTTPServer:
                             "active": sum(r is not None for r in b.slots),
                             "pending": b.pending.qsize(),
                         }
+                        if b.speculate_k:
+                            s = b.spec_stats_snapshot()
+                            info["continuous"]["speculation"] = {
+                                "k": b.speculate_k,
+                                "drafted": s["drafted"],
+                                "accepted": s["accepted"],
+                                "acceptance": (round(s["accepted"] / s["drafted"], 4)
+                                               if s["drafted"] else None),
+                            }
                         if hasattr(b, "allocator"):
                             info["continuous"]["paged"] = {
                                 "block_size": b.block_size,

@@ -282,8 +282,6 @@ def test_sampled_requests_are_seeded_and_neighbour_independent():
 
 def test_refusals():
     eng = make_engine()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        ContinuousBatcher(eng, n_slots=2, speculate_k=2)
     cb = ContinuousBatcher(eng, n_slots=2)
     for bad in ([], [1] * SEQ_LEN):
         with pytest.raises(ValueError, match="prompt"):

@@ -161,8 +161,7 @@ def test_attention_choice_and_refusals():
     eng, _ = engines(False)
     assert eng._attn_impl() == "plain"           # CPU, head_dim 16
     assert eng._attn_impl(7, 256) == "plain"
-    for bad, exc in (({"speculate_k": 2}, NotImplementedError),
-                     ({"kv_cache_dtype": "fp8"}, ValueError),
+    for bad, exc in (({"kv_cache_dtype": "fp8"}, ValueError),
                      ({"attn_impl": "probe"}, NotImplementedError),
                      ({"attn_impl": "xla"}, ValueError),
                      ({"attn_impl": "flash"}, ValueError)):   # head_dim 16

@@ -769,3 +769,103 @@ def test_batched_generation_replays_one_graph_at_two_rows(cuda):
     (graph,) = engine._chunk_fns.values()
     assert graph.slot.batch == 2 and graph.replays == 11
     assert flash_decode_attention.launches == L * (11 + 1)
+
+
+def scripted_drafts(monkeypatch, pattern):
+    """The n-gram proposer replaced by a script: step i drafts
+    ``pattern[i % len(pattern)]`` tokens (``[]`` for none)."""
+    from llama_nuts_and_bolts_tpu_torch.runtime import speculative
+
+    calls = []
+
+    def propose(self, k):
+        calls.append(k)
+        return list(pattern[(len(calls) - 1) % len(pattern)])
+
+    monkeypatch.setattr(speculative.NgramProposer, "propose", propose)
+    return calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_verify_graph_equals_eager_verify(cuda, k):
+    """Three replays of the captured verify step at successive positions:
+    its predictions and the cache rows it writes are bit-equal to an eager
+    ``forward`` at S = k+1 (the same operations in the same order)."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama.model import forward
+
+    engine = tiny_engine(cuda, speculate_k=k)
+    cfg, T = engine.model.cfg, engine.seq_len
+    P = len(PROMPT_IDS)
+    with engine._lease(1, T) as slot:
+        engine._prefill(PROMPT_IDS, T, cache=slot.cache)
+        ref = slot.cache.truncated(T)
+        graph = engine._verify_graph(k, slot)
+        for i in range(3):
+            tokens = [(7 + 31 * i + 13 * j) % 512 for j in range(k + 1)]
+            graph.set(tokens, P + 2 * i)
+            graph.replay()
+            got = graph.tokens(graph.fetch())
+            logits, ref = forward(engine.model.params, cfg,
+                                  torch.tensor([tokens], dtype=torch.int32, device=cuda),
+                                  torch.tensor([P + 2 * i], dtype=torch.int32, device=cuda),
+                                  ref, attn_impl="plain")
+            assert got == torch.argmax(logits[0], dim=-1).tolist()
+        torch.cuda.synchronize()
+        assert torch.equal(slot.cache.k, ref.k) and torch.equal(slot.cache.v, ref.v)
+    assert graph.graph is not None and graph.warmup_steps == 1 and graph.replays == 3
+
+
+@pytest.mark.gpu
+def test_speculative_request_counts_launches_exactly(cuda, monkeypatch):
+    """K1 once a layer for the prefill; K2 once a layer for every no-draft
+    step (the one-step graph's replays and its one warm-up step); the verify
+    steps run the plain attention path and no kernel. The graphs' tallies
+    agree with ``spec_stats``."""
+    engine = tiny_engine(cuda, speculate_k=3)
+    engine.model.vocab.stop_token_ids.clear()         # the request runs to its cap
+    L = engine.model.cfg.n_layers
+    calls = scripted_drafts(monkeypatch, [[5, 6, 7], [], [9]])
+    for request in range(2):
+        flash_gqa_attention.launches = flash_decode_attention.launches = 0
+        n = len(list(engine.generate_tokens(PROMPT_IDS, max_new_tokens=17)))
+        torch.cuda.synchronize()
+        stats = engine.spec_stats
+        graphs = dict(engine._chunk_fns)
+        verify = [g for key, g in graphs.items() if key[0] == "verify"]
+        steps = [g for key, g in graphs.items() if key[0] != "verify"]
+        assert n == 17 and len(verify) == len(steps) == 1
+        assert verify[0].replays == stats["spec_steps"]
+        assert steps[0].replays == stats["steps"] - stats["spec_steps"] > 0
+        warm = 0 if request else 1
+        assert verify[0].warmup_steps == steps[0].warmup_steps == warm
+        assert flash_gqa_attention.launches == L
+        assert flash_decode_attention.launches == L * (steps[0].replays + warm)
+        for g in graphs.values():
+            g.replays = g.warmup_steps = 0
+    assert calls
+
+
+@pytest.mark.gpu
+def test_verify_capture_failure_raises_without_an_eager_fallback(cuda, monkeypatch):
+    """A forward that raises while the verify step is captured makes the
+    request raise after the prefill's token: nothing runs the verify
+    eagerly instead."""
+    from llama_nuts_and_bolts_tpu_torch.runtime import decode_graph
+
+    real = decode_graph.forward
+
+    def refuses_capture(params, cfg, tokens, *args, **kwargs):
+        if torch.cuda.is_current_stream_capturing() and tokens.shape[1] > 1:
+            raise RuntimeError("planted: the verify step refuses to be captured")
+        return real(params, cfg, tokens, *args, **kwargs)
+
+    monkeypatch.setattr(decode_graph, "forward", refuses_capture)
+    scripted_drafts(monkeypatch, [[5, 6]])
+    engine = tiny_engine(cuda, speculate_k=2)
+    tokens = []
+    with pytest.raises(RuntimeError, match="planted"):
+        for _, tok in engine.generate_tokens(PROMPT_IDS, max_new_tokens=8):
+            tokens.append(tok)
+    assert len(tokens) == 1
+    assert not torch.cuda.is_current_stream_capturing()

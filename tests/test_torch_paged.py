@@ -578,5 +578,3 @@ def test_default_attention_rule():
     assert default_attn_impl(engine("cpu", "bf16")) == "plain"
     with pytest.raises(ValueError, match="attn_impl"):
         make_paged(attn_impl="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        make_paged(speculate_k=2)
