@@ -21,7 +21,15 @@ the same with int4 weights and an int8 cache (K8 in the verify step); the
 dense and paged speculative batchers on the 2-layer cyclic model (a pool
 that clamps the drafts, greedy beside sampled); the speculative server over
 HTTP with its ``llama_spec_*`` counters and ``continuous.speculation``.
-Every limit is also read against planted faults, which must fail it. Any
+Then the single-device modules on the 32-layer 8B: the measured attention
+probe (``attn_impl="probe"``) on bf16 and int8 caches beside ``auto``, with
+exact launches, the probe's replays included; request B's prefill narrated
+a layer at a time on K1, bit-equal to ``forward`` (a skipped layer must not
+be), and traced (``device_trace``) with a replayed decode step, each trace's
+device time by kernel; request B's text through the native BPE merge and
+the Python merge; a 2-layer 8B-width model saved as Meta's 2-shard
+checkpoint and loaded by ``load_llama_model``, its logits bit-equal to the
+state dict's (the shards reversed must not be). Every limit is also read against planted faults, which must fail it. Any
 failed check exits non-zero.
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line of
@@ -232,6 +240,11 @@ def setup():
                 log(f"ptxas {src}: {line.strip()}")
     log(f"kernel build: {time.perf_counter() - t0:.1f}s "
         f"({', '.join(build.SOURCES)})")
+    from llama_nuts_and_bolts_tpu_torch.tokenizer.native import native_available
+
+    # host code: the prompts below are encoded by the native merge
+    if not native_available():
+        check_failed("the native BPE merge (native/bpe_merge.cpp) did not build")
     return name, smi
 
 
@@ -1036,7 +1049,8 @@ def run_request(engine, tokens, max_new, expect, what, captures=()):
         f"{ {k: n for k, n in launches.items() if n} }; text[:60]={text[:60]!r}")
     return dict(prompt=len(tokens), generated=len(ids), ttft_ms=ttft * 1e3,
                 cache_len=cache_len, prefill_len=prefill_len, decode_tok_s=tok_s,
-                decode_chunk=k, steps=steps, warmup_steps=warm, launches=launches)
+                decode_chunk=k, steps=steps, warmup_steps=warm, launches=launches,
+                ids=ids)
 
 
 def prompts(engine, vocab):
@@ -1048,11 +1062,15 @@ def prompts(engine, vocab):
         PromptPart("system", "You are a helpful assistant."),
         PromptPart("user", "Explain what a key-value cache is, in a few sentences."),
     ])
+    ids = engine.tokenize_string(long_text())
+    return chat, [vocab.bos_id] + ids[:2999], [vocab.bos_id] + ids[:23]
+
+
+def long_text() -> str:
+    """The text whose first tokens are request B's prompt (and C's)."""
     words = ("the quick brown fox jumps over a lazy dog while seven wizards "
              "quietly box with jovial frogs near the old mill; ").split()
-    text = " ".join(words[(i * 7) % len(words)] for i in range(4000))
-    ids = engine.tokenize_string(text)
-    return chat, [vocab.bos_id] + ids[:2999], [vocab.bos_id] + ids[:23]
+    return " ".join(words[(i * 7) % len(words)] for i in range(4000))
 
 
 def main_path(tk, vocab):
@@ -2509,14 +2527,15 @@ def plain_greedy(model, prompt, n: int, **args) -> list:
     return out
 
 
-def decisive_divergence(model, prompt, got, want, what) -> dict:
+def decisive_divergence(model, prompt, got, want, what, **args) -> dict:
     """Speculative tokens ``got`` against plain greedy ones ``want``,
     compared where the argmax is decisive (ROADMAP.md): they must be equal
     up to the first token that differs, and there the plain stream's next
     token must be a near-tie -- its top-two margin (kernels' logits over the
     plain stream's context) within twice the largest difference between the
     kernels' logits and the plain attention path's (which the verify step
-    takes) at that position. Else the check fails."""
+    takes) at that position. Else the check fails. ``args`` go to both
+    engines (an int8 cache)."""
     from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
 
     same = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
@@ -2526,7 +2545,8 @@ def decisive_divergence(model, prompt, got, want, what) -> dict:
     logits = {}
     for impl in ("auto", "plain"):
         engine = InferenceEngine(model, InferenceArgs(sequence_length=SPEC_CONTEXT,
-                                                      attn_impl=impl), device="cuda")
+                                                      attn_impl=impl, **args),
+                                 device="cuda")
         _, cache = engine._prefill(ctx[:-1], SPEC_CONTEXT)
         logits[impl], _ = engine._forward([[ctx[-1]]], len(ctx) - 1, cache)
         del engine, cache
@@ -3028,6 +3048,347 @@ def spec_serving_path(tk, vocab):
     return out
 
 
+# ---------------------------------------------------------------- phase 14-17
+
+# The probe times each candidate on a one-step graph of its own
+# (InferenceEngine.autotune_attn_impl): the capture's warm-up step, then 2
+# untimed replays (the first right after the capture) and 5 timed ones.
+PROBE_STEPS = 1 + 2 + 5
+
+
+def probe_path(model, tk, vocab) -> dict:
+    """``attn_impl="probe"`` on the 32-layer 8B at context 8192, bf16 and
+    int8 caches: requests A and B (buckets 256 and 4096) through a probing
+    engine, each bucket probed at its first decode step, beside an ``auto``
+    engine on the same requests. Launches exact, the probe's replays
+    included; where the probe chose the kernels the tokens equal auto's,
+    where it chose the plain path they are compared where the argmax is
+    decisive."""
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+
+    L = model.cfg.n_layers
+    out = {}
+    for kv, tag in (("bf16", "K2"), ("int8", "K4")):
+        engines = {impl: InferenceEngine(model, InferenceArgs(
+            sequence_length=8192, kv_cache_dtype=kv, attn_impl=impl), device="cuda")
+            for impl in ("auto", "probe")}
+        chat, long_prompt, _ = prompts(engines["auto"], vocab)
+        for key, tokens, max_new in (("A", chat, 64), ("B", long_prompt, 32)):
+            runs = {}
+            for impl, engine in engines.items():
+                bucket = engine.cache_bucket(len(tokens), max_new)
+
+                def expect(steps, prefill_len, engine=engine, bucket=bucket):
+                    # the prefill: K1 on a bf16 cache, the plain path on int8
+                    want = {"K1": L} if kv == "bf16" else {}
+                    chose = engine._attn_impl(1, bucket)
+                    probed = PROBE_STEPS if engine.args.attn_impl == "probe" else 0
+                    want[tag] = L * ((steps if chose == "flash" else 0) + probed)
+                    return want
+
+                runs[impl] = run_request(engine, tokens, max_new, expect,
+                                         f"{kv} cache, {impl}, request {key}", captures=(1,))
+            probe = engines["probe"]
+            bucket = runs["probe"]["cache_len"]
+            chose = probe._probed_decode_impl[bucket]
+            timings = {k: v * 1e3 for k, v in probe._probe_timings.items()}
+            log(f"probe, {kv} cache, bucket {bucket}: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in timings.items())
+                + f" (best of 5 one-step graph replays, host clock to a synchronise)"
+                f" -> {chose!r}")
+            got, want = runs["probe"].pop("ids"), runs["auto"].pop("ids")
+            if chose == "flash":
+                same = dict(equal=got == want)
+                if got != want:
+                    check_failed(f"probe ({kv}, bucket {bucket}) chose the kernels but its "
+                                 f"tokens differ from auto's: {got[:8]} vs {want[:8]}")
+            else:
+                same = decisive_divergence(model, tokens, got, want,
+                                           f"probe ({kv}, bucket {bucket}) on the plain path "
+                                           f"vs auto", kv_cache_dtype=kv)
+            out[f"{kv}_{key}"] = dict(bucket=bucket, timings_ms=timings, chose=chose,
+                                      tokens_vs_auto=same, probe=runs["probe"],
+                                      auto=runs["auto"])
+        del engines
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernel_times(prof, what: str, steps: int = 1) -> dict:
+    """A trace's device time by kernel name: the top 10 and the port's
+    kernels' shares."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"{what}: device busy {total:.3f} ms, {sum(e.count for e in kernels)} kernels")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.self_device_time_total / 1e3 / total:6.1%} {e.count:5d} calls  {e.key[:100]}")
+    shares = {}
+    for tag, name in (("K1", "flash_gqa_kernel"), ("K2", "flash_decode_kernel")):
+        ms = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+        if ms:
+            shares[tag] = dict(ms=ms, share=ms / total)
+            log(f"  {tag} ({name}): {ms:.3f} ms, {ms / total:.1%} of the device time")
+    return dict(device_ms=total, top=[(e.key[:100], e.self_device_time_total / 1e3,
+                                       e.count) for e in top], ours=shares)
+
+
+def trace_names(log_dir: str) -> str:
+    names = []
+    for f in os.listdir(log_dir):
+        with open(os.path.join(log_dir, f)) as fh:
+            names += [str(e.get("name")) for e in json.load(fh)["traceEvents"]]
+    return " ".join(names)
+
+
+def narration_path(model, tk, vocab) -> dict:
+    """Request B's prefill (3,000 tokens, bucket 4096) through
+    ``narrated_forward`` on the engine's prefill path (K1): each layer's ms,
+    and logits bit-equal to ``forward``'s on the same inputs; the planted
+    fault (one layer skipped) must not be. Then ``device_trace`` around an
+    eager prefill of request B and around one replayed decode step: each
+    trace's device time by kernel name."""
+    import tempfile
+
+    from llama_nuts_and_bolts_tpu_torch.models.llama import forward
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.runtime import profiling
+    from llama_nuts_and_bolts_tpu_torch.runtime.engine import prefill_bucket
+
+    cfg, L = model.cfg, model.cfg.n_layers
+    engine = InferenceEngine(model, InferenceArgs(sequence_length=8192), device="cuda")
+    _, prompt, _ = prompts(engine, vocab)
+    bucket = engine.cache_bucket(len(prompt), 32)
+    S = prefill_bucket(len(prompt), bucket)
+    tokens = torch.zeros((1, S), dtype=torch.int32, device="cuda")
+    tokens[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+    impl = engine._attn_impl(S, bucket)
+    if impl != "flash":
+        check_failed(f"the engine's prefill at S={S} takes {impl!r}, not the kernels")
+    out = {}
+    skip = L // 2
+    block = profiling.decoder_block
+
+    def skipping(w, li, x, inp):                   # the planted fault
+        return x if li == skip else block(w, li, x, inp)
+
+    for what, planted in (("narrated", False), ("narrated, layer skipped", True)):
+        lines = []
+        profiling.decoder_block = skipping if planted else block
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            got, _ = profiling.narrated_forward(model.params, cfg, tokens, 0,
+                                                engine.new_cache(1, bucket), lines.append,
+                                                attn_impl=impl, logits_at=len(prompt) - 1)
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            profiling.decoder_block = block
+        if planted:
+            equal = torch.equal(got, out["logits"])
+            log(f"planted fault, narrated prefill with layer {skip + 1} skipped: logits "
+                f"{'bit-equal to' if equal else 'differ from'} forward's (relative L2 "
+                f"{rel_l2(got, out['logits']):.3e}): {'passes' if equal else 'fails'}")
+            if equal:
+                check_failed("the narrated prefill's planted fault passes bit-equality")
+            continue
+        ref, _ = forward(model.params, cfg, tokens, 0, engine.new_cache(1, bucket),
+                         attn_impl=impl, logits_at=len(prompt) - 1)
+        layer_s = [float(re.search(r"took (\d+\.\d+)", ln).group(1)) for ln in lines[1:-1]]
+        equal = torch.equal(got, ref)
+        log(f"narrated prefill of request B (S={S}, bucket {bucket}, {impl}): {len(lines)} "
+            f"lines, {wall * 1e3:.1f} ms; a layer {min(layer_s) * 1e3:.3f}-"
+            f"{max(layer_s) * 1e3:.3f} ms (median {sorted(layer_s)[L // 2] * 1e3:.3f}); "
+            f"embeddings {lines[0].split('took ')[1]}, head {lines[-1].split('took ')[1]}; "
+            f"logits {'bit-equal to' if equal else 'DIFFER from'} forward's; launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+        for ln in lines[:3] + lines[-2:]:
+            log(f"  {ln}")
+        if len(lines) != L + 2 or not equal or launches["K1"] != L:
+            check_failed(f"narrated prefill: {len(lines)} lines, bit-equal {equal}, "
+                         f"K1 {launches['K1']} (want {L + 2}, True, {L})")
+        out.update(logits=ref, layer_ms=[t * 1e3 for t in layer_s], wall_ms=wall * 1e3,
+                   bit_equal=equal, launches=launches)
+    out.pop("logits")
+
+    with engine._lease(1, bucket) as slot, tempfile.TemporaryDirectory() as d:
+        logits, _ = engine._prefill(prompt, bucket, cache=slot.cache)
+        tok = int(torch.argmax(logits[0, -1]))
+        graph = engine._decode_chunk(1, cache_len=bucket, slot=slot)
+        slot.set([tok], [len(prompt)])
+        graph.replay()                              # captured before the trace
+        torch.cuda.synchronize()
+        traced = {}
+        for what, run in (
+                ("prefill", lambda: engine._prefill(prompt, bucket, cache=slot.cache)),
+                ("decode step", lambda: (slot.set([tok], [len(prompt)]), graph.replay()))):
+            sub = os.path.join(d, what.replace(" ", "_"))
+            reset_counts()
+            with profiling.device_trace(sub) as prof:
+                run()
+            launches = read_counts()
+            names = trace_names(sub)
+            want = "flash_gqa_kernel" if what == "prefill" else "flash_decode_kernel"
+            traced[what] = kernel_times(prof, f"trace of request B's {what} "
+                                              f"(device_trace, torch.profiler)")
+            traced[what]["launches"] = {k: n for k, n in launches.items() if n}
+            if want not in names:
+                check_failed(f"the trace of request B's {what} does not name {want}")
+        out["trace"] = traced
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def native_bpe_path(tk) -> dict:
+    """Request B's text encoded by the native merge and by the Python merge:
+    the same ids; each one's host time (the native context's construction
+    apart)."""
+    from llama_nuts_and_bolts_tpu_torch.tokenizer import bpe
+    from llama_nuts_and_bolts_tpu_torch.tokenizer.native import native_available
+
+    if not native_available():
+        check_failed("the native BPE merge did not build")
+        return {}
+    text = long_text()
+    ranks = dict(tk.mergeable_ranks)              # a table of its own: a fresh context
+    t0 = time.perf_counter()
+    bpe._native_for(ranks)
+    ctx_ms = (time.perf_counter() - t0) * 1e3
+    times, ids = {}, {}
+    for how, native in (("native", True), ("python", False)):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ids[how] = bpe.encode_ordinary(text, ranks, use_native=native)
+            best = min(best, time.perf_counter() - t0)
+        times[how] = best * 1e3
+    equal = ids["native"] == ids["python"]
+    log(f"native BPE: request B's text ({len(text)} chars, {len(ids['native'])} ids): native "
+        f"{times['native']:.2f} ms, Python {times['python']:.2f} ms (best of 3, host "
+        f"clock; the native context of {len(ranks)} ranks built in {ctx_ms:.1f} ms); ids "
+        f"{'equal' if equal else 'DIFFER'}")
+    if not equal:
+        check_failed("the native BPE merge's ids differ from the Python merge's")
+    bpe._NATIVE_CACHE.pop(id(ranks))
+    return dict(chars=len(text), ids=len(ids["native"]), native_ms=times["native"],
+                python_ms=times["python"], context_ms=ctx_ms, equal=equal)
+
+
+def shards_path(tk, vocab) -> dict:
+    """A 2-layer model at 8B widths (~3 GB of bf16) saved as Meta's 2-shard
+    checkpoint with ``torch.save`` into a temporary directory, loaded with
+    ``load_llama_model`` onto the card, against the same state dict given to
+    ``build_params_from_checkpoint``: prefill logits (K1) bit-equal. The
+    planted fault (the shards concatenated in reverse order) must not be."""
+    import base64
+    import tempfile
+
+    from llama_nuts_and_bolts_tpu_torch.io import shards
+    from llama_nuts_and_bolts_tpu_torch.models.llama import forward, init_random_params
+    from llama_nuts_and_bolts_tpu_torch.models.llama.loader import (
+        CKPT_LAYER_NAMES, build_params_from_checkpoint, load_llama_model)
+    from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache
+
+    cfg = cfg_8b(2)
+    src = init_random_params(cfg, seed=7, device="cuda")
+    sd = {"tok_embeddings.weight": src.tok_embeddings.cpu(), "norm.weight": src.norm.cpu(),
+          "output.weight": src.output.cpu()}
+    for key, tmpl in CKPT_LAYER_NAMES.items():
+        for i in range(cfg.n_layers):
+            sd[tmpl.format(i=i)] = src.layers[key][i].cpu()
+    del src
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    tokens = torch.randint(0, 128000, (1, 512), generator=torch.Generator().manual_seed(9),
+                           dtype=torch.int32).cuda()
+
+    def logits_of(params):
+        out, _ = forward(params, cfg, tokens, 0, KVCache.create(cfg, 1, 512, device="cuda"),
+                         attn_impl="flash", logits_at=511)
+        return out
+
+    out = {}
+    reset_counts()
+    ref = logits_of(build_params_from_checkpoint(sd, cfg, device="cuda"))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        parts = [dict(), dict()]
+        for name, t in sd.items():
+            axis = shards.shard_concat_axis(name)
+            for i, part in enumerate([t, t] if axis is None else torch.chunk(t, 2, dim=axis)):
+                parts[i][name] = part.contiguous()
+        for i, part in enumerate(parts):
+            torch.save(part, os.path.join(d, f"consolidated.{i:02d}.pth"))
+        del parts
+        with open(os.path.join(d, "params.json"), "w") as f:
+            json.dump(dict(dim=cfg.dim, n_layers=cfg.n_layers, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads, vocab_size=cfg.vocab_size,
+                           multiple_of=cfg.multiple_of,
+                           ffn_dim_multiplier=cfg.ffn_dim_multiplier, norm_eps=cfg.norm_eps,
+                           rope_theta=cfg.rope_theta, use_scaled_rope=cfg.use_scaled_rope), f)
+        with open(os.path.join(d, "tokenizer.model"), "w") as f:
+            f.writelines(f"{base64.b64encode(t).decode()} {r}\n"
+                         for t, r in tk.mergeable_ranks.items())
+        save_s = time.perf_counter() - t0
+        found = shards.find_checkpoint_shards(d)
+        t0 = time.perf_counter()
+        loaded = load_llama_model(d, max_sequence_length=8192, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = logits_of(loaded.params)
+        del loaded
+        equal = torch.equal(got, ref)
+        log(f"sharded checkpoint: {len(found)} shards, {nbytes / 1e9:.2f} GB of bf16, saved "
+            f"in {save_s:.1f} s, loaded onto the card in {load_s:.1f} s; prefill logits "
+            f"(512 tokens, K1) {'bit-equal to' if equal else 'DIFFER from'} the state dict's")
+        if len(found) != 2 or not equal:
+            check_failed(f"sharded load: {len(found)} shards, logits bit-equal {equal}")
+        # the planted fault: the shards in reverse order
+        backwards = shards.load_sharded_checkpoint(found[::-1])
+        bad = logits_of(build_params_from_checkpoint(backwards, cfg, device="cuda"))
+        del backwards
+        wrong = torch.equal(bad, ref)
+        log(f"planted fault, shards concatenated in reverse order: logits "
+            f"{'bit-equal' if wrong else 'differ'} (relative L2 {rel_l2(bad, ref):.3e}): "
+            f"{'passes' if wrong else 'fails'}")
+        if wrong:
+            check_failed("the reversed-shard fault passes the sharded load's check")
+    out.update(shards=len(found), gigabytes=nbytes / 1e9, save_s=save_s, load_s=load_s,
+               bit_equal=equal, launches=read_counts())
+    torch.cuda.empty_cache()
+    return out
+
+
+def single_device_paths(tk, vocab) -> dict:
+    """Phases 14-17 on one 32-layer 8B model (the probe and the narration),
+    then the native merge and the sharded checkpoint; their total time."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel, init_random_params
+
+    t0 = time.perf_counter()
+    params = init_random_params(cfg_8b(32), seed=0, device="cuda", fused=True)
+    model = LoadedModel(params=params, cfg=cfg_8b(32), vocab=vocab,
+                        mergeable_ranks=tk.mergeable_ranks, tensor_meta={})
+    out = {}
+    log("phase 14: the measured attention probe, 32-layer 8B, bf16 and int8 caches")
+    out["probe"] = probe_path(model, tk, vocab)
+    log("phase 15: narrated prefill and device traces, 32-layer 8B, request B")
+    out["narration"] = narration_path(model, tk, vocab)
+    del model, params
+    torch.cuda.empty_cache()
+    log("phase 16: native BPE merge vs the Python merge on request B's text")
+    out["native_bpe"] = native_bpe_path(tk)
+    log("phase 17: Meta's 2-shard checkpoint, 2 layers at 8B widths")
+    out["shards"] = shards_path(tk, vocab)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phases 14-17: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     name, smi = setup()
     log("phase 2: kernels vs plain at 8B widths")
@@ -3066,17 +3427,24 @@ def main() -> int:
     spec_b = spec_batchers(tk, vocab)
     log("phase 13: speculative serving, 32-layer 8B over HTTP, bf16 pool")
     spec_s = spec_serving_path(tk, vocab)
-    # the speculative paths' launches join their kernels' counts
+    single = single_device_paths(tk, vocab)
+    # the speculative paths' launches join their kernels' counts, and so do
+    # the probe's requests (its timed graphs included), the narrated prefill,
+    # the traced prefill and decode step and the sharded load's prefills
     spec_launches = [r["launches"] for r in spec.values() if isinstance(r, dict)
                      and "launches" in r] + [spec_q["launches"], spec_s["launches"]]
+    spec_launches += [r[impl]["launches"] for r in single["probe"].values()
+                      for impl in ("probe", "auto")]
+    spec_launches += [single["narration"]["launches"], single["shards"]["launches"]]
+    spec_launches += [t["launches"] for t in single["narration"]["trace"].values()]
     for row, tag in zip(rows, ("K1", "K2", "K3", "K4", "K8")):
-        row["launches"] += sum(c[tag] for c in spec_launches)
+        row["launches"] += sum(c.get(tag, 0) for c in spec_launches)
     # K6's launches are the serving runs'; K5 and K7 serve no path (0)
     for row in srows + srows8:
         tag = row.pop("tag")
         row["max_abs_err"] = errs[tag]
         row["launches"] = (serving["launches"][tag] + serving8["launches"][tag]
-                           + sum(c[tag] for c in spec_launches))
+                           + sum(c.get(tag, 0) for c in spec_launches))
     rows += srows + srows8
     rows.sort(key=lambda r: r["name"].split("(K")[-1])
     log(f"summary: {json.dumps(results)}")
@@ -3088,6 +3456,7 @@ def main() -> int:
     log(f"summary, speculative engine (int4 + int8 KV): {json.dumps(spec_q)}")
     log(f"summary, speculative batchers: {json.dumps(spec_b)}")
     log(f"summary, speculative serving: {json.dumps(spec_s)}")
+    log(f"summary, probe, narration, native BPE, shards: {json.dumps(single)}")
     if FAILED:
         fail(f"{len(FAILED)} checks failed: " + "; ".join(FAILED))
     log(f"total {time.perf_counter() - T_START:.1f}s on {smi}")

@@ -2,8 +2,10 @@
 
 Port of ``llama_nuts_and_bolts_tpu/cli/main.py`` for the single-request
 path, with bf16, int8 or int4 weights (``--quant``), a bf16 or int8 KV cache
-(``--kv-cache``) and greedy speculative decoding (``--speculate``, with
-``--draft-model``). Runs on ``cuda`` unless ``--device cpu`` is given.
+(``--kv-cache``), greedy speculative decoding (``--speculate``, with
+``--draft-model``), a measured choice of the decode step's attention
+(``--attn-impl probe``) and a narrated layer-at-a-time prefill
+(``--narrate``). Runs on ``cuda`` unless ``--device cpu`` is given.
 
 Run: ``python -m llama_nuts_and_bolts_tpu_torch.cli [flags]``
 """
@@ -91,11 +93,14 @@ def parse_args(argv=None):
                    help="process prompts longer than C tokens in C-token "
                         "chunks (bounds prefill memory at long context; "
                         "0 disables)")
-    p.add_argument("--attn-impl", choices=["auto", "plain", "flash"],
+    p.add_argument("--attn-impl", choices=["auto", "plain", "flash", "probe"],
                    default="auto",
                    help="attention: auto (the CUDA kernels on a card when "
-                        "head_dim is a multiple of 128), plain (PyTorch), or "
-                        "flash (the CUDA kernels K1/K2, K4 for an int8 cache)")
+                        "the model has their shape), plain (PyTorch), flash "
+                        "(the CUDA kernels K1/K2, K4 for an int8 cache), or "
+                        "probe (time the decode step's captured graph on each "
+                        "viable path once per cache bucket and keep the "
+                        "fastest; prefill keeps the auto rules)")
     p.add_argument("--decode-chunk", type=int, default=0, metavar="K",
                    help="streaming (greedy or sampled) decodes K tokens per "
                         "device dispatch (a captured K-step CUDA graph, identical "
@@ -105,6 +110,11 @@ def parse_args(argv=None):
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the model runs (default cuda; no fallback)")
     p.add_argument("--debug", action="store_true", help="write debug.log trace")
+    p.add_argument("--narrate", action="store_true",
+                   help="before generating, run one layer-at-a-time narrated "
+                        "prefill showing each layer's time (the reference's "
+                        "'Transformer block layer x/y took ...' lines; slower "
+                        "than the served prefill)")
     p.add_argument("--tiny", action="store_true",
                    help="use a tiny random-weights model + synthetic tokenizer "
                         "(no model files needed; for smoke-testing the stack)")
@@ -218,11 +228,33 @@ def prompt_tokens(engine: InferenceEngine, prompt_input: PromptInput) -> List[in
     return [engine.model.vocab.bos_id] + engine.tokenize_string(text)
 
 
+def narrate_prefill(engine: InferenceEngine, tokens: List[int], log_fn) -> None:
+    """One layer-at-a-time prefill of ``tokens`` into a fresh cache on the
+    attention path the engine's prefill takes (K1 on a card), each line
+    through ``log_fn`` (the reference: src/model/llamatransformer.go:163)."""
+    import torch
+
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import narrated_forward
+
+    cache = engine.new_cache(1)
+    tok = torch.tensor([tokens], dtype=torch.int32, device=engine.device)
+    narrated_forward(engine.model.params, engine.model.cfg, tok, 0, cache, log_fn=log_fn,
+                     attn_impl=engine._attn_impl(len(tokens), cache.max_seq),
+                     logits_at=len(tokens) - 1)
+
+
 def run_generation(engine: InferenceEngine, prompt_input: PromptInput,
-                   app: AppState) -> GenerationState:
+                   app: AppState, narrate: bool = False) -> GenerationState:
     tokens = prompt_tokens(engine, prompt_input)
     prompt_pieces, prompt_text = engine.token_batch_to_string(tokens)
     app.begin_generation(prompt_pieces, prompt_text, engine.seq_len)
+    if narrate:
+        def narrate_log(msg):
+            engine.log("%s", msg)
+            app.latest_log_text = msg
+            app.update_output()
+
+        narrate_prefill(engine, tokens, narrate_log)
     for part in engine.generate_string(tokens):
         app.consume(part)
     app.finish_generation()
@@ -311,7 +343,7 @@ def main(argv=None) -> int:
     else:
         prompt_input = ask_user_prompt_choice(model)
 
-    state = run_generation(engine, prompt_input, app)
+    state = run_generation(engine, prompt_input, app, narrate=args.narrate)
     reason = {
         GenerationState.FINISHED_BY_REACHING_EOS: "reaching EOS token",
         GenerationState.FINISHED_BY_REACHING_SEQ_LEN: "reaching sequence length",

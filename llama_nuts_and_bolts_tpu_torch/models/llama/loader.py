@@ -8,21 +8,26 @@ each layer's view is copied straight into its slot of the stacked
 the host. ``quant="int8"`` / ``"int4"`` quantizes each layer's view on the
 host (``quant/``) before it goes to the device, output head included, so the
 card only ever holds the quantized bytes; they are the bytes the JAX
-package's loader makes. Meta's multi-shard format is a later item of
-ROADMAP.md.
+package's loader makes. Meta's multi-shard format (``consolidated.00.pth`` ..
+``NN.pth``) is read through ``io/shards.py``: each combined tensor is
+concatenated on the host when its layer is copied, one tensor at a time.
 """
 
 from __future__ import annotations
 
-import glob
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from llama_nuts_and_bolts_tpu_torch.device import resolve_device
 from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs, load_model_args
+from llama_nuts_and_bolts_tpu_torch.io.shards import (
+    ShardedTensor,
+    find_checkpoint_shards,
+    load_sharded_checkpoint,
+)
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import (
     LlamaParams,
     layer_weight_shapes,
@@ -57,6 +62,15 @@ class CheckpointShapeError(Exception):
     pass
 
 
+# a checkpoint tensor: one file's, or one combined from Meta's shards
+CheckpointTensor = Union[torch.Tensor, ShardedTensor]
+
+
+def _read(t: CheckpointTensor) -> torch.Tensor:
+    """A checkpoint tensor's values (shards are concatenated here)."""
+    return t.materialize() if isinstance(t, ShardedTensor) else t
+
+
 def expected_tensor_shapes(cfg: ModelArgs) -> Dict[str, Tuple[int, ...]]:
     """Full name→shape table (291 entries for the 8B config)."""
     shapes: Dict[str, Tuple[int, ...]] = {
@@ -71,7 +85,9 @@ def expected_tensor_shapes(cfg: ModelArgs) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
-def validate_checkpoint(tensors: Dict[str, torch.Tensor], cfg: ModelArgs) -> None:
+def validate_checkpoint(tensors: Dict[str, CheckpointTensor], cfg: ModelArgs) -> None:
+    """Every expected tensor is present, at its shape (a sharded tensor's
+    combined shape)."""
     expected = expected_tensor_shapes(cfg)
     if "output.weight" not in tensors:
         # Llama-3.2 (1B/3B) checkpoints tie the output head to the token
@@ -100,14 +116,16 @@ def _host_quantize(host: torch.Tensor, quant: str):
     return {"q": qt.q, "scale": qt.scale}
 
 
-def build_params_from_checkpoint(tensors: Dict[str, torch.Tensor],
+def build_params_from_checkpoint(tensors: Dict[str, CheckpointTensor],
                                  cfg: ModelArgs, fused: bool = False,
                                  device=None, dtype=torch.bfloat16,
                                  quant: Optional[str] = None) -> LlamaParams:
     """Stack per-layer checkpoint tensors to ``[L, ...]`` on ``device``
     (default ``cuda``). ``fused=True`` assembles the fused decode layout
     (``model.fused_layer_weight_shapes``) from the same views;
-    ``quant="int8"|"int4"`` quantizes the matmul weights and the head."""
+    ``quant="int8"|"int4"`` quantizes the matmul weights and the head.
+    ``tensors`` may be sharded (:func:`load_sharded_checkpoint`): each
+    tensor is then combined when it is read."""
     if quant not in (None, "int8", "int4"):
         raise ValueError(f"unsupported quant mode {quant!r}")
     if fused and quant is not None:
@@ -119,13 +137,15 @@ def build_params_from_checkpoint(tensors: Dict[str, torch.Tensor],
     L = cfg.n_layers
 
     def view(key: str, i: int) -> torch.Tensor:
-        return tensors[CKPT_LAYER_NAMES[key].format(i=i)]
+        return _read(tensors[CKPT_LAYER_NAMES[key].format(i=i)])
+
+    def shape(key: str) -> Tuple[int, ...]:
+        return tuple(tensors[CKPT_LAYER_NAMES[key].format(i=0)].shape)
 
     def stacked(key: str):
         if quant is not None and not key.endswith("norm"):
             return stacked_quantized(key)
-        first = view(key, 0)
-        out = torch.empty((L,) + tuple(first.shape), dtype=dtype, device=dev)
+        out = torch.empty((L,) + shape(key), dtype=dtype, device=dev)
         for i in range(L):
             out[i].copy_(view(key, i))
         return out
@@ -151,8 +171,8 @@ def build_params_from_checkpoint(tensors: Dict[str, torch.Tensor],
     layers["ffn_norm"] = stacked("ffn_norm")
     if fused:
         for out_key, parts in FUSED_GROUPS.items():
-            d_in = view(parts[0], 0).shape[1]
-            d_out = sum(view(p, 0).shape[0] for p in parts)
+            d_in = shape(parts[0])[1]
+            d_out = sum(shape(p)[0] for p in parts)
             out = torch.empty((L, d_in, d_out), dtype=dtype, device=dev)
             for i in range(L):
                 off = 0
@@ -169,7 +189,8 @@ def build_params_from_checkpoint(tensors: Dict[str, torch.Tensor],
                 log.debug("loaded weight group %s", key)
 
     # tied output head (Llama-3.2 1B/3B): reuse the embedding matrix
-    head = tensors.get("output.weight", tensors["tok_embeddings.weight"])
+    embeddings = _read(tensors["tok_embeddings.weight"])
+    head = _read(tensors["output.weight"]) if "output.weight" in tensors else embeddings
     if quant is not None:
         output = quantized({f: t.to(dev) for f, t in _host_quantize(head, quant).items()})
     elif fused:
@@ -178,9 +199,9 @@ def build_params_from_checkpoint(tensors: Dict[str, torch.Tensor],
         output = head.to(dev, dtype).contiguous()
     cos, sin = rope_tables(cfg, dev)
     return LlamaParams(
-        tok_embeddings=tensors["tok_embeddings.weight"].to(dev, dtype),
+        tok_embeddings=embeddings.to(dev, dtype),
         layers=layers,
-        norm=tensors["norm.weight"].to(dev, dtype),
+        norm=_read(tensors["norm.weight"]).to(dev, dtype),
         output=output,
         rope_cos=cos,
         rope_sin=sin,
@@ -206,8 +227,9 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 def load_llama_model(model_dir: str, max_sequence_length: Optional[int] = None,
                      include_tensors: bool = True, fused: bool = False,
                      device=None, quant: Optional[str] = None) -> LoadedModel:
-    """Load a Meta-format model dir: consolidated.00.pth + params.json +
-    tokenizer.model, with the vocab-size cross-check. ``quant`` as for
+    """Load a Meta-format model dir: consolidated.00.pth (or Meta's shards
+    consolidated.00..NN.pth) + params.json + tokenizer.model, with the
+    vocab-size cross-check. ``quant`` as for
     :func:`build_params_from_checkpoint`."""
     log = get_logger()
     dev = resolve_device(device)
@@ -224,13 +246,14 @@ def load_llama_model(model_dir: str, max_sequence_length: Optional[int] = None,
     params = None
     tensor_meta: Dict[str, Tuple[Tuple[int, ...], str]] = {}
     if include_tensors:
-        shards = glob.glob(os.path.join(model_dir, "consolidated.*.pth"))
-        if len(shards) > 1:
-            raise NotImplementedError(
-                f"{len(shards)} checkpoint shards: Meta's multi-shard format "
-                "is a later item of ROADMAP.md")
         log.info("Loading checkpoint %s ...", model_dir)
-        tensors = load_torch_checkpoint(os.path.join(model_dir, "consolidated.00.pth"))
+        shards = find_checkpoint_shards(model_dir)
+        if len(shards) > 1:
+            # Meta's model-parallel multi-file format (70B ships 8 shards)
+            log.info("Found %d checkpoint shards.", len(shards))
+            tensors = load_sharded_checkpoint(shards)
+        else:
+            tensors = load_torch_checkpoint(os.path.join(model_dir, "consolidated.00.pth"))
         tensor_meta = {n: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
                        for n, t in tensors.items()}
         params = build_params_from_checkpoint(tensors, cfg, fused=fused, device=dev,

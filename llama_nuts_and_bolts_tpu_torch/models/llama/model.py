@@ -141,26 +141,33 @@ def quantize_kv_rows(rows: torch.Tensor):
     return q, s.to(torch.bfloat16)
 
 
-def forward(
-    params: LlamaParams,
-    cfg: ModelArgs,
-    tokens: torch.Tensor,          # int [B, S] on the weights' device
-    start_pos,                     # int, or int32 [B] tensor (one position per row)
-    cache: KVCache,
-    attn_impl: str = "plain",
-    logits_at: Optional[int] = None,
-) -> Tuple[torch.Tensor, KVCache]:
-    """One forward pass (prefill when S>1, decode step when S==1).
+@dataclass
+class BlockInputs:
+    """What every decoder block of one forward shares: the rows' RoPE
+    tables, the additive mask (plain path) or the positions (decode
+    kernels), and where the new rows go in the cache."""
 
-    Returns fp32 logits ``[B, S, vocab]`` (``[B, 1, vocab]`` when
-    ``logits_at`` picks one row) and ``cache``, written in place. A ``[B]``
-    ``start_pos`` runs on the plain path at any S and on the decode kernels
-    at S=1, as in the JAX package; its rows' positions plus S must fit the
-    cache (checked for CPU tensors; the batchers keep them in range)."""
+    cfg: ModelArgs
+    cache: KVCache
+    start_pos: Any                      # int, or int32 [B] tensor
+    S: int
+    attn_impl: str
+    cos: torch.Tensor
+    sin: torch.Tensor
+    mask: Optional[torch.Tensor]
+    positions: Optional[torch.Tensor]   # int32 [B]: the decode kernels' rows
+    rows_at: Optional[torch.Tensor]     # [B, S] write positions (per-row start_pos)
+    batch_at: Optional[torch.Tensor]    # [B, 1] batch index (per-row start_pos)
+
+
+def prepare_forward(params: LlamaParams, cfg: ModelArgs, tokens: torch.Tensor,
+                    start_pos, cache: KVCache, attn_impl: str = "plain",
+                    ) -> Tuple[torch.Tensor, BlockInputs]:
+    """Check a forward's arguments, look up the token embeddings and build
+    the :class:`BlockInputs` of its blocks: ``(x [B, S, dim] bf16, inputs)``."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     B, S = tokens.shape
-    H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     T = cache.max_seq
     per_row = isinstance(start_pos, torch.Tensor)
     if per_row:
@@ -182,16 +189,14 @@ def forward(
     if attn_impl == "flash_folded" and S != 1:
         raise ValueError("attn_impl='flash_folded' is the folded-heads DECODE "
                          "kernel (S=1); use 'flash' for prefill")
-    quantized = cache.quantized
-    if quantized and attn_impl == "flash" and S != 1:
+    if cache.quantized and attn_impl == "flash" and S != 1:
         raise ValueError("int8 KV cache + flash is decode-only (S=1); use "
                          "attn_impl='plain' for prefill")
-    fold = quantized or attn_impl == "flash_folded"
-    fused = "wqkv" in params.layers
     flash = attn_impl in ("flash", "flash_folded")
 
     x = params.tok_embeddings[tokens.long()]                    # [B,S,dim] bf16
     dev = x.device
+    rows_at = batch_at = None
     if per_row:
         # [B, S] write/attend positions of every row; RoPE rows gathered per row
         rows_at = start_pos.to(dev).long()[:, None] + torch.arange(S, device=dev)
@@ -205,77 +210,124 @@ def forward(
         mask = None if flash else attention_mask(S, T, start_pos, dev)[None]
         positions = (torch.full((B,), start_pos, dtype=torch.int32, device=dev)
                      if flash and S == 1 else None)
+    return x, BlockInputs(cfg=cfg, cache=cache, start_pos=start_pos, S=S,
+                          attn_impl=attn_impl, cos=cos, sin=sin, mask=mask,
+                          positions=positions, rows_at=rows_at, batch_at=batch_at)
 
-    def write(buf: torch.Tensor, li: int, rows: torch.Tensor) -> None:
-        """``rows [B, S, KV(, D)]`` into ``buf [L, B, KV, T(, D)]`` at the
-        rows' positions, in place: only the S new rows are written."""
-        if per_row:
-            # the advanced indices (batch, position) are split by the KV slice,
-            # so their [B, S] dims lead: the target is [B, S, KV(, D)] as rows
-            buf[li][batch_at, :, rows_at] = rows.to(buf.dtype)
-        else:
-            buf[li, :, :, start_pos:start_pos + S] = rows.transpose(1, 2)
 
-    for li in range(cfg.n_layers):
-        w = {name: t[li] for name, t in params.layers.items()}
-        h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
-        if fused:
-            qkv = linear_t(h, w["wqkv"])
-            q = qkv[..., : H * D].reshape(B, S, H, D)
-            k = qkv[..., H * D:(H + KV) * D].reshape(B, S, KV, D)
-            v = qkv[..., (H + KV) * D:].reshape(B, S, KV, D)
-        else:
-            q = linear(h, w["wq"]).reshape(B, S, H, D)
-            k = linear(h, w["wk"]).reshape(B, S, KV, D)
-            v = linear(h, w["wv"]).reshape(B, S, KV, D)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        if quantized:
-            kq, ks = quantize_kv_rows(k)
-            vq, vs = quantize_kv_rows(v)
-            write(cache.k, li, kq)
-            write(cache.v, li, vq)
-            write(cache.k_scale, li, ks)
-            write(cache.v_scale, li, vs)
-        else:
-            write(cache.k, li, k)
-            write(cache.v, li, v)
+def layer_weights(params: LlamaParams, li: int) -> Dict[str, Any]:
+    """Layer ``li``'s views of the stacked weights."""
+    return {name: t[li] for name, t in params.layers.items()}
 
-        if flash and S == 1:
-            att = flash_decode_attention(q, cache.k, cache.v, positions,
-                                         k_scale=cache.k_scale, v_scale=cache.v_scale,
-                                         layer=li, fold_heads=fold, int8_mxu=quantized)
-        elif flash:
-            att = flash_gqa_attention(q, cache.k[li], cache.v[li], start_pos)
-        elif quantized:
-            # the plain path dequantizes the layer in bf16 before the einsum
-            ck = cache.k[li].to(torch.bfloat16) * cache.k_scale[li][..., None]
-            cv = cache.v[li].to(torch.bfloat16) * cache.v_scale[li][..., None]
-            att = gqa_attention(q, ck, cv, mask)
-        else:
-            att = gqa_attention(q, cache.k[li], cache.v[li], mask)
 
-        if fused:
-            x = x + linear_t(att.reshape(B, S, H * D), w["wo"])
-            h2 = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
-            gu = linear_t(h2, w["w_gate_up"])
-            F_ = cfg.ffn_hidden_dim
-            gate, up = gu[..., :F_], gu[..., F_:]
-            act = F.silu(gate.float()).to(gu.dtype) * up
-            x = x + linear_t(act, w["w_down"])
-        else:
-            x = x + linear(att.reshape(B, S, H * D), w["wo"])
-            h2 = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
-            x = x + swiglu(h2, w["w_gate"], w["w_up"], w["w_down"])
+def _write(buf: torch.Tensor, li: int, rows: torch.Tensor, inp: BlockInputs) -> None:
+    """``rows [B, S, KV(, D)]`` into ``buf [L, B, KV, T(, D)]`` at the rows'
+    positions, in place: only the S new rows are written."""
+    if inp.rows_at is not None:
+        # the advanced indices (batch, position) are split by the KV slice,
+        # so their [B, S] dims lead: the target is [B, S, KV(, D)] as rows
+        buf[li][inp.batch_at, :, inp.rows_at] = rows.to(buf.dtype)
+    else:
+        buf[li, :, :, inp.start_pos:inp.start_pos + inp.S] = rows.transpose(1, 2)
 
+
+def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
+                  inp: BlockInputs) -> torch.Tensor:
+    """Transformer block ``li`` on ``x [B, S, dim]`` with layer weights ``w``
+    (:func:`layer_weights`): attention (the new K/V rows written into the
+    cache in place), then the SwiGLU feed-forward, each with its residual.
+    It reads nothing back to the host, so a captured decode step runs it."""
+    cfg, cache = inp.cfg, inp.cache
+    B, S = x.shape[0], inp.S
+    H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    quantized = cache.quantized
+    fused = "wqkv" in w
+    flash = inp.attn_impl in ("flash", "flash_folded")
+    h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
+    if fused:
+        qkv = linear_t(h, w["wqkv"])
+        q = qkv[..., : H * D].reshape(B, S, H, D)
+        k = qkv[..., H * D:(H + KV) * D].reshape(B, S, KV, D)
+        v = qkv[..., (H + KV) * D:].reshape(B, S, KV, D)
+    else:
+        q = linear(h, w["wq"]).reshape(B, S, H, D)
+        k = linear(h, w["wk"]).reshape(B, S, KV, D)
+        v = linear(h, w["wv"]).reshape(B, S, KV, D)
+    q = apply_rope(q, inp.cos, inp.sin)
+    k = apply_rope(k, inp.cos, inp.sin)
+    if quantized:
+        kq, ks = quantize_kv_rows(k)
+        vq, vs = quantize_kv_rows(v)
+        _write(cache.k, li, kq, inp)
+        _write(cache.v, li, vq, inp)
+        _write(cache.k_scale, li, ks, inp)
+        _write(cache.v_scale, li, vs, inp)
+    else:
+        _write(cache.k, li, k, inp)
+        _write(cache.v, li, v, inp)
+
+    if flash and S == 1:
+        fold = quantized or inp.attn_impl == "flash_folded"
+        att = flash_decode_attention(q, cache.k, cache.v, inp.positions,
+                                     k_scale=cache.k_scale, v_scale=cache.v_scale,
+                                     layer=li, fold_heads=fold, int8_mxu=quantized)
+    elif flash:
+        att = flash_gqa_attention(q, cache.k[li], cache.v[li], inp.start_pos)
+    elif quantized:
+        # the plain path dequantizes the layer in bf16 before the einsum
+        ck = cache.k[li].to(torch.bfloat16) * cache.k_scale[li][..., None]
+        cv = cache.v[li].to(torch.bfloat16) * cache.v_scale[li][..., None]
+        att = gqa_attention(q, ck, cv, inp.mask)
+    else:
+        att = gqa_attention(q, cache.k[li], cache.v[li], inp.mask)
+
+    if fused:
+        x = x + linear_t(att.reshape(B, S, H * D), w["wo"])
+        h2 = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
+        gu = linear_t(h2, w["w_gate_up"])
+        F_ = cfg.ffn_hidden_dim
+        gate, up = gu[..., :F_], gu[..., F_:]
+        act = F.silu(gate.float()).to(gu.dtype) * up
+        return x + linear_t(act, w["w_down"])
+    x = x + linear(att.reshape(B, S, H * D), w["wo"])
+    h2 = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
+    return x + swiglu(h2, w["w_gate"], w["w_up"], w["w_down"])
+
+
+def output_head(params: LlamaParams, cfg: ModelArgs, x: torch.Tensor,
+                logits_at: Optional[int] = None) -> torch.Tensor:
+    """The final norm and the LM head: fp32 logits ``[B, S, vocab]``
+    (``[B, 1, vocab]`` when ``logits_at`` picks one row)."""
     if logits_at is not None:
         x = x[:, logits_at:logits_at + 1]                       # [B,1,dim]
     x = rms_norm(x, params.norm, cfg.norm_eps)
-    if fused:   # the fused layout stores the head as [dim, vocab]
-        logits = linear_t(x, params.output, out_dtype=torch.float32)
-    else:
-        logits = linear(x, params.output, out_dtype=torch.float32)
-    return logits, cache
+    if "wqkv" in params.layers:   # the fused layout stores the head as [dim, vocab]
+        return linear_t(x, params.output, out_dtype=torch.float32)
+    return linear(x, params.output, out_dtype=torch.float32)
+
+
+def forward(
+    params: LlamaParams,
+    cfg: ModelArgs,
+    tokens: torch.Tensor,          # int [B, S] on the weights' device
+    start_pos,                     # int, or int32 [B] tensor (one position per row)
+    cache: KVCache,
+    attn_impl: str = "plain",
+    logits_at: Optional[int] = None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One forward pass (prefill when S>1, decode step when S==1).
+
+    Returns fp32 logits ``[B, S, vocab]`` (``[B, 1, vocab]`` when
+    ``logits_at`` picks one row) and ``cache``, written in place. A ``[B]``
+    ``start_pos`` runs on the plain path at any S and on the decode kernels
+    at S=1, as in the JAX package; its rows' positions plus S must fit the
+    cache (checked for CPU tensors; the batchers keep them in range).
+    ``runtime/profiling.py::narrated_forward`` runs the same three parts,
+    a layer at a time."""
+    x, inp = prepare_forward(params, cfg, tokens, start_pos, cache, attn_impl)
+    for li in range(cfg.n_layers):
+        x = decoder_block(layer_weights(params, li), li, x, inp)
+    return output_head(params, cfg, x, logits_at), cache
 
 
 # --------------------------------------------------------------------------

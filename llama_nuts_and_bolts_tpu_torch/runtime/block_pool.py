@@ -19,58 +19,21 @@ identical semantics; the tests drive them with the same op stream.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import threading
 from collections import OrderedDict
-from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
-_REPO = Path(__file__).resolve().parents[2]
-_SRC = _REPO / "native" / "block_pool.cpp"
-_SO = _REPO / "build" / "native" / "libblock_pool.so"
+from llama_nuts_and_bolts_tpu_torch.utils.native_lib import NativeLibrary
 
-
-class _Native:
-    """The loaded library, built on first use; a failed build is remembered
-    so that ``auto`` asks the compiler once per process."""
-
-    lib: Optional[ctypes.CDLL] = None
-    failed = False
-    lock = threading.Lock()
-
-
-def _build_and_load() -> ctypes.CDLL:
-    if not _SO.is_file() or (_SRC.is_file()
-                             and _SRC.stat().st_mtime > _SO.stat().st_mtime):
-        _SO.parent.mkdir(parents=True, exist_ok=True)
-        tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
-        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                        str(_SRC), "-o", str(tmp)],
-                       check=True, capture_output=True, timeout=120)
-        os.replace(tmp, _SO)
-    lib = ctypes.CDLL(str(_SO))
-    i32, u64, ptr = ctypes.c_int32, ctypes.c_uint64, ctypes.c_void_p
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    for name, restype, argtypes in (
-            ("bp_new", ptr, [i32]), ("bp_destroy", None, [ptr]),
-            ("bp_available", i32, [ptr]), ("bp_alloc", i32, [ptr, i32, i32p]),
-            ("bp_release", i32, [ptr, i32p, i32]), ("bp_lookup", i32, [ptr, u64]),
-            ("bp_register", i32, [ptr, u64, i32]), ("bp_refcount", i32, [ptr, i32]),
-            ("bp_stat", ctypes.c_int64, [ptr, i32])):
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = restype, argtypes
-    return lib
-
-
-def _load_library() -> Optional[ctypes.CDLL]:
-    with _Native.lock:
-        if _Native.lib is None and not _Native.failed:
-            try:
-                _Native.lib = _build_and_load()
-            except (OSError, subprocess.SubprocessError):
-                _Native.failed = True
-        return _Native.lib
+_i32, _u64, _ptr = ctypes.c_int32, ctypes.c_uint64, ctypes.c_void_p
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_LIB = NativeLibrary("block_pool", (
+    ("bp_new", _ptr, [_i32]), ("bp_destroy", None, [_ptr]),
+    ("bp_available", _i32, [_ptr]), ("bp_alloc", _i32, [_ptr, _i32, _i32p]),
+    ("bp_release", _i32, [_ptr, _i32p, _i32]), ("bp_lookup", _i32, [_ptr, _u64]),
+    ("bp_register", _i32, [_ptr, _u64, _i32]), ("bp_refcount", _i32, [_ptr, _i32]),
+    ("bp_stat", ctypes.c_int64, [_ptr, _i32])))
+_SRC, _SO = _LIB.src, _LIB.so
+_load_library = _LIB.load
 
 
 def native_available() -> bool:

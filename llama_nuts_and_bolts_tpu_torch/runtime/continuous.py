@@ -131,8 +131,10 @@ class ContinuousBatcher:
         self.cache = engine.new_cache(n_slots, self.seq_len + speculate_k)
         # the engine's rule for a decode step into this cache: K2 on a card
         # (K4 for an int8 cache whose length is a multiple of 128), which
-        # takes the [n_slots] positions
-        self._decode_impl = engine._attn_impl(1, self.cache.max_seq)
+        # takes the [n_slots] positions. Under "probe" the auto rules, as in
+        # the JAX batcher: the probe measures one row at one position, which
+        # does not carry over to an [n_slots]-row step
+        self._decode_impl = engine._auto_attn_impl(1, self.cache.max_seq)
         self._pos_cap = self.cache.max_seq - 1
 
     def _init_common(self, engine, n_slots: int, speculate_k: int,

@@ -273,13 +273,15 @@ class DecodeGraph(_SlotGraph):
     greedy with stop tracking (``stops``). :meth:`tokens` gives ``[k][B]``."""
 
     def __init__(self, engine, slot: DecodeSlot, k: int, sampled: bool = False,
-                 stops: bool = False) -> None:
+                 stops: bool = False, impl: Optional[str] = None) -> None:
         super().__init__(engine, slot, (k, slot.batch))
         self.generator = engine._generator
         self.k = k
         self.sampled, self.stops = sampled, stops
         self.top_k, self.top_p = engine.args.top_k, engine.args.top_p
-        self.impl = engine._attn_impl(1, slot.cache_len)
+        # the attention path: the engine's for the bucket unless given (the
+        # engine's probe times each candidate's graph)
+        self.impl = impl or engine._attn_impl(1, slot.cache_len)
         self._rng = None
 
     # ------------------------------------------------------------ the body

@@ -10,14 +10,16 @@ runs eagerly; decode and the speculative verify step replay CUDA graphs
 steps and chunk scans, kept per request cache bucket in ``_chunk_fns`` under
 the same LRU rule.
 
-The ``probe`` attention choice is a later item of ROADMAP.md: asking for it
-raises.
+``attn_impl="probe"`` measures the decode step's attention paths once per
+cache bucket (:meth:`InferenceEngine.autotune_attn_impl`) and decodes that
+bucket on the fastest; prefill keeps the ``auto`` rules.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -56,7 +58,7 @@ from llama_nuts_and_bolts_tpu_torch.tokenizer import (
 from llama_nuts_and_bolts_tpu_torch.utils.logging import get_logger
 
 MIN_PREFILL_BUCKET = 16
-ATTN_CHOICES = ("auto", "plain", "flash", "flash_folded")
+ATTN_CHOICES = ("auto", "plain", "flash", "flash_folded", "probe")
 KV_CACHE_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
 
 
@@ -71,9 +73,6 @@ def _check_args(args: InferenceArgs) -> None:
     if args.kv_cache_dtype not in KV_CACHE_DTYPES:
         raise ValueError(f"kv_cache_dtype must be one of {tuple(KV_CACHE_DTYPES)}, "
                          f"got {args.kv_cache_dtype!r}")
-    if args.attn_impl == "probe":
-        raise NotImplementedError("attn_impl='probe' is a later item of "
-                                  "ROADMAP.md (queue 1, probe)")
     if args.attn_impl not in ATTN_CHOICES:
         raise ValueError(f"attn_impl must be one of {ATTN_CHOICES}, got "
                          f"{args.attn_impl!r}")
@@ -111,6 +110,10 @@ class InferenceEngine:
         self._slots: Dict[Tuple[int, int], List[DecodeSlot]] = {}
         self._slots_made = 0
         self._slots_lock = threading.Lock()
+        # attn_impl="probe": the measured decode path per cache bucket, and
+        # the last probe's seconds per candidate
+        self._probed_decode_impl: Dict[int, str] = {}
+        self._probe_timings: Dict[str, float] = {}
         if self.args.attn_impl.startswith("flash") and not self._kernels_viable():
             raise ValueError(
                 f"attn_impl={self.args.attn_impl!r} needs head_dim {HEAD_DIM} and G = "
@@ -162,18 +165,31 @@ class InferenceEngine:
 
     def _attn_impl(self, seq_len: int = 1, cache_len: Optional[int] = None) -> str:
         """The attention path of a forward over ``seq_len`` new rows into a
-        cache of ``cache_len`` slots. ``auto`` on a card, when the model's
-        shape fits the kernels (:meth:`_kernels_viable`): a bf16 cache takes
-        the kernels for every prefill (K1) and decode step (K2) at every
-        bucket; an int8 cache, as in the JAX package, takes them only to
-        decode (K4) and only when ``cache_len`` is a multiple of 128 (the
-        kernel's tiles must divide it), and prefills on the plain path. A forced ``flash`` or
+        cache of ``cache_len`` slots. Under ``probe`` a decode step (S = 1)
+        takes the path measured fastest for its bucket (the first such step
+        of a bucket runs the probe, :meth:`autotune_attn_impl`); anything
+        else takes :meth:`_auto_attn_impl`."""
+        if self.args.attn_impl == "probe" and seq_len == 1:
+            bucket = cache_len or self.seq_len
+            if bucket not in self._probed_decode_impl:
+                self.autotune_attn_impl(cache_len=bucket)
+            return self._probed_decode_impl[bucket]
+        return self._auto_attn_impl(seq_len, cache_len)
+
+    def _auto_attn_impl(self, seq_len: int = 1, cache_len: Optional[int] = None) -> str:
+        """The build-time rules; ``probe`` reads as ``auto``. ``auto`` on a
+        card, when the model's shape fits the kernels
+        (:meth:`_kernels_viable`): a bf16 cache takes the kernels for every
+        prefill (K1) and decode step (K2) at every bucket; an int8 cache, as
+        in the JAX package, takes them only to decode (K4) and only when
+        ``cache_len`` is a multiple of 128 (the kernel's tiles must divide
+        it), and prefills on the plain path. A forced ``flash`` or
         ``flash_folded`` runs the kernels where they can run: an int8 cache
         prefills on the plain path, a bf16 one on K1 (the JAX engine hands
         ``flash_folded`` to its prefill, which refuses it)."""
         forced = self.args.attn_impl
         int8 = self.args.kv_cache_dtype == "int8"
-        if forced != "auto":
+        if forced not in ("auto", "probe"):
             if forced.startswith("flash") and seq_len > 1:
                 return "plain" if int8 else "flash"
             return forced
@@ -183,6 +199,67 @@ class InferenceEngine:
             bucket = cache_len or self.seq_len
             return "flash" if seq_len == 1 and bucket % 128 == 0 else "plain"
         return "flash"
+
+    def _decode_candidates(self, cache_len: int) -> List[str]:
+        """The decode step's paths ``probe`` measures at ``cache_len``:
+        ``plain`` always; ``flash`` (K2, K4 for an int8 cache) on a card
+        where the kernels take the model, and for an int8 cache only at a
+        multiple of 128 slots (the ``auto`` rule's gate)."""
+        out = ["plain"]
+        if (self.device.type == "cuda" and self._kernels_viable()
+                and (self.args.kv_cache_dtype != "int8" or cache_len % 128 == 0)):
+            out.append("flash")
+        return out
+
+    def autotune_attn_impl(self, iters: int = 5, cache_len: Optional[int] = None) -> str:
+        """One-shot decode-path probe at ``cache_len`` (default: the engine
+        context): time one-row decode steps on each candidate
+        (:meth:`_decode_candidates`) at position ``(cache_len - 2) // 2``
+        and keep the fastest, in ``_probed_decode_impl[cache_len]``
+        (returned); ``_probe_timings`` holds each candidate's seconds.
+
+        Each candidate's step is a one-step :class:`DecodeGraph` captured
+        over a scratch one-row slot of the bucket, as the engine would
+        decode it: an eager step spends most of its time in the host's
+        launches, and would time the host. Its first replay (the capture,
+        with its warm-up step) and a second one warm up; each of ``iters``
+        replays is then timed by the host clock up to a synchronisation,
+        and the best is kept. The graphs and the slot are dropped after; the
+        bucket's own graphs are captured on the chosen path later. Unlike
+        the JAX package's probe, a candidate that fails raises: candidates
+        are filtered up front, and a kernel fault must not quietly give way
+        to the plain path. With one candidate (the CPU) nothing is timed:
+        ``{"plain": 0.0}``, as the JAX package's probe does off-TPU."""
+        cache_len = cache_len or self.seq_len
+        candidates = self._decode_candidates(cache_len)
+        if len(candidates) == 1:
+            self._probed_decode_impl[cache_len] = candidates[0]
+            self._probe_timings = {candidates[0]: 0.0}
+            self.log("attn-impl probe: only %r viable at this config", candidates[0])
+            return candidates[0]
+        # mid-bucket: attention at cache_len / 2 stands for a typical step
+        pos = max(1, (cache_len - 2) // 2)
+        slot = DecodeSlot(self, 1, cache_len, index=-1)      # not kept in _slots
+        timings: Dict[str, float] = {}
+        for impl in candidates:
+            graph = DecodeGraph(self, slot, 1, impl=impl)
+            best = float("inf")
+            for i in range(2 + iters):
+                slot.set([0], [pos])
+                t0 = time.perf_counter()
+                graph.replay()
+                if slot.device.type == "cuda":
+                    torch.cuda.synchronize(slot.device)
+                if i >= 2:
+                    best = min(best, time.perf_counter() - t0)
+            timings[impl] = best
+        choice = min(timings, key=timings.get)
+        self._probed_decode_impl[cache_len] = choice
+        self._probe_timings = timings
+        self.log("attn-impl probe at cache_len=%d kv=%s: %s -> chose %r",
+                 cache_len, self.args.kv_cache_dtype,
+                 {k: f"{v * 1e3:.3f}ms" for k, v in timings.items()}, choice)
+        return choice
 
     def _forward(self, tokens: List[List[int]], start_pos: int, cache: KVCache,
                  logits_at: Optional[int] = None):

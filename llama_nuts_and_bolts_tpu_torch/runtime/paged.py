@@ -82,9 +82,10 @@ def default_attn_impl(engine, block_size: int = DEFAULT_BLOCK_SIZE) -> str:
     a bf16 pool on a card whose model fits the kernels, else the gather path
     (``"plain"``). A pool whose ``block_size`` K6 cannot copy (not a
     multiple of 8 up to 64, :func:`paged_kernel_takes`) takes the gather
-    path too."""
+    path too. ``"probe"`` reads as ``"auto"``: the engine's probe measures
+    its own one-row step, as in the JAX package."""
     forced = engine.args.attn_impl
-    if forced != "auto":
+    if forced not in ("auto", "probe"):
         return "plain" if forced == "plain" else "flash"
     card = engine.device.type == "cuda" and engine._kernels_viable()
     return ("flash" if card and engine.args.kv_cache_dtype != "int8"

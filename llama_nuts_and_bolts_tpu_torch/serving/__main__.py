@@ -1,8 +1,9 @@
 """``python -m llama_nuts_and_bolts_tpu_torch.serving [--tiny] [--port N] ...``
 
 The JAX package's server flags, plus ``--device {cuda,cpu}`` (default
-``cuda``; no fallback). Flags that reach parts not ported yet raise and name
-their ROADMAP item: ``--tp`` (17), ``--attn-impl probe`` (20).
+``cuda``; no fallback). ``--tp`` reaches a part not ported yet: it raises and
+names its ROADMAP item (17). ``--attn-impl probe`` measures the sequential
+engine's decode path per cache bucket; the batchers keep the ``auto`` rules.
 ``--decode-chunk K`` reaches the engine: the sequential path (no
 ``--continuous``) streams in captured K-step chunks. ``--speculate K``
 speculates on the sequential engine and in both batchers; ``--draft-model
@@ -54,7 +55,8 @@ def parse_args(argv=None):
     p.add_argument("--attn-impl", choices=["auto", "plain", "flash", "probe"],
                    default="auto",
                    help="attention: the CUDA kernels on a card (auto), forced, "
-                        "or a measured probe (ROADMAP item 20)")
+                        "or a one-shot measured probe of the decode step at "
+                        "each cache bucket (the batchers keep auto)")
     p.add_argument("--decode-chunk", type=int, default=0, metavar="K",
                    help="streaming (greedy or sampled) decodes K tokens per "
                         "captured graph replay; sampled keeps seeded RNG parity "
@@ -127,7 +129,6 @@ def main(argv=None) -> int:
 
         draft = load_llama_model(args.draft_model, max_sequence_length=args.seq_len,
                                  device=device)
-    # the engine refuses --attn-impl probe, naming its ROADMAP item
     engine = InferenceEngine(model, InferenceArgs(sequence_length=args.seq_len,
                                                   speculate_k=args.speculate,
                                                   kv_cache_dtype=args.kv_cache,

@@ -7,13 +7,15 @@ Go-RE2 regex — which had to drop tiktoken's ``\\s+(?!\\S)`` negative lookahead
 (reference: src/model/vocabulary.go:32 comment) — we use the real Llama-3
 pattern via the ``regex`` module, matching Meta's tokenizer exactly.
 
-This copy keeps only the pure-Python merge; a binding of the C++ merge in
-``native/`` is a later item of ROADMAP.md.
+The merge loop runs in the C++ fast path of ``native/`` (``tokenizer/native.py``)
+where it can be built; this file is the always-available Python merge and
+the oracle it is tested against.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import regex
 
@@ -75,11 +77,47 @@ def byte_pair_merge(piece: bytes, ranks: Dict[bytes, int]) -> List[int]:
     ]
 
 
-def encode_ordinary(text: str, ranks: Dict[bytes, int]) -> List[int]:
-    """Encode plain text (no special tokens): regex pre-split, then BPE."""
+# per-vocabulary native merge contexts (one vocab per process in practice),
+# by id(ranks). Each entry holds its ranks: the JAX package keys on the id
+# alone, so a freed table's id could hand its context to a new table.
+_NATIVE_CACHE: Dict[int, Tuple[Dict[bytes, int], object]] = {}
+_NATIVE_LOCK = threading.Lock()
+
+
+def _native_for(ranks: Dict[bytes, int]):
+    """The native merge context of ``ranks``, or None where the library
+    cannot be built."""
+    with _NATIVE_LOCK:
+        entry = _NATIVE_CACHE.get(id(ranks))
+        if entry is None or entry[0] is not ranks:
+            from llama_nuts_and_bolts_tpu_torch.tokenizer.native import (
+                NativeBpe,
+                native_available,
+            )
+
+            entry = (ranks, NativeBpe(ranks) if native_available() else None)
+            _NATIVE_CACHE[id(ranks)] = entry
+        return entry[1]
+
+
+def encode_ordinary(text: str, ranks: Dict[bytes, int],
+                    use_native: bool = True) -> List[int]:
+    """Encode plain text (no special tokens): regex pre-split, then BPE.
+
+    The merge loop runs in the C++ fast path (native/bpe_merge.cpp) when the
+    shared library is available, else in :func:`byte_pair_merge`; both
+    implement the same tiktoken algorithm and are cross-tested. A piece the
+    native merge cannot encode goes to the Python merge, as in the JAX
+    package."""
+    native = _native_for(ranks) if use_native else None
     out: List[int] = []
     for match in _SPLIT_RE.finditer(text):
         piece = match.group().encode("utf-8")
+        if native is not None:
+            ids: Optional[List[int]] = native.encode_piece(piece)
+            if ids is not None:
+                out.extend(ids)
+                continue
         rank = ranks.get(piece)
         if rank is not None:
             out.append(rank)

@@ -25,11 +25,18 @@ class Logger:
 
     def __init__(self, debug_path: Optional[str] = None,
                  console: Optional[IO[str]] = None) -> None:
-        self.console: IO[str] = console if console is not None else sys.stdout
+        self._console = console
         self._debug_file: Optional[IO[str]] = None
         self._last_debug_time: Optional[float] = None
         if debug_path:
             self._debug_file = open(debug_path, "a", encoding="utf-8")
+
+    @property
+    def console(self) -> IO[str]:
+        """The given console, else ``sys.stdout`` as it is now (not as it was
+        when the logger was made: a replaced and closed stream is never
+        written)."""
+        return self._console if self._console is not None else sys.stdout
 
     # -- sinks ------------------------------------------------------------
 

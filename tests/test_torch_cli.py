@@ -44,12 +44,27 @@ def test_tiny_cpu_decode_chunk_keeps_the_transcript(capsys):
     assert parse_args(["--decode-chunk", "8"]).decode_chunk == 8
 
 
+def test_tiny_cpu_probe_keeps_the_transcript(capsys):
+    """--attn-impl probe probes each cache bucket once (on the CPU one
+    candidate, the plain path): the Assistant line of auto."""
+    def assistant(impl):
+        assert main(["--tiny", "--device", "cpu", "--attn-impl", impl,
+                     "--prompt-text", "hello", "--seq-len", "48"]) == 0
+        out = capsys.readouterr().out
+        assert "Finished \x1b[1mby reaching" in out
+        return [line for line in out.splitlines() if "Assistant" in line][-1]
+
+    assert assistant("probe") == assistant("auto")
+    assert parse_args(["--attn-impl", "probe"]).attn_impl == "probe"
+
+
 def test_meta_and_defaults(capsys):
     assert main(["--tiny", "--device", "cpu", "--meta"]) == 0
     assert "N_Heads (attention head count)" in capsys.readouterr().out
     args = parse_args([])
     assert (args.device, args.attn_impl, args.seq_len) == ("cuda", "auto", 200)
     assert (args.quant, args.kv_cache, args.decode_chunk) == ("none", "bf16", 0)
+    assert args.narrate is False
     with pytest.raises(SystemExit):
         parse_args(["--attn-impl", "xla"])
 

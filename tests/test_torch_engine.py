@@ -162,11 +162,13 @@ def test_attention_choice_and_refusals():
     assert eng._attn_impl() == "plain"           # CPU, head_dim 16
     assert eng._attn_impl(7, 256) == "plain"
     for bad, exc in (({"kv_cache_dtype": "fp8"}, ValueError),
-                     ({"attn_impl": "probe"}, NotImplementedError),
                      ({"attn_impl": "xla"}, ValueError),
                      ({"attn_impl": "flash"}, ValueError)):   # head_dim 16
         with pytest.raises(exc):
             InferenceEngine(eng.model, InferenceArgs(**bad), device="cpu")
+    # probe is accepted: on the CPU it has one candidate, the plain path
+    probing = InferenceEngine(eng.model, InferenceArgs(attn_impl="probe"), device="cpu")
+    assert probing._attn_impl() == "plain" and probing._probe_timings == {"plain": 0.0}
     # decode_chunk is accepted (the chunks are decode graphs); 0 is auto, 1
     for chunk, k in ((4, 4), (0, 1), (1, 1)):
         chunked = InferenceEngine(eng.model, InferenceArgs(decode_chunk=chunk),

@@ -869,3 +869,79 @@ def test_verify_capture_failure_raises_without_an_eager_fallback(cuda, monkeypat
             tokens.append(tok)
     assert len(tokens) == 1
     assert not torch.cuda.is_current_stream_capturing()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_probe_choice_is_viable_and_stable_for_a_bucket(cuda, kv):
+    """On a card the probe times the plain path and the kernels (K2, K4 for
+    an int8 cache) once per bucket; its choice is one of them, a second
+    decode step of the bucket does not probe again, and the bucket's decode
+    graph takes the choice. The probe's graphs and slot are not kept."""
+    engine = tiny_engine(cuda, attn_impl="probe", kv_cache_dtype=kv)
+    assert engine._decode_candidates(256) == ["plain", "flash"]
+    choice = engine._attn_impl(1, 256)
+    assert choice in ("plain", "flash")
+    assert set(engine._probe_timings) == {"plain", "flash"}
+    assert all(t > 0 for t in engine._probe_timings.values())
+    assert choice == min(engine._probe_timings, key=engine._probe_timings.get)
+    assert engine._chunk_fns == {} and engine._slots == {}
+    engine.autotune_attn_impl = None              # a second probe would call None
+    assert engine._attn_impl(1, 256) == choice
+    assert engine._attn_impl(64, 256) == engine._auto_attn_impl(64, 256)
+    tokens = [t for _, t in engine.generate_tokens(PROMPT_IDS, max_new_tokens=8)]
+    assert len(tokens) == 8
+    assert {g.impl for g in engine._chunk_fns.values()} == {choice}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_narrated_prefill_is_bit_equal_to_forward(cuda, kv):
+    """The narrated prefill runs forward's own blocks (K1 on a bf16 cache,
+    the plain path on an int8 one, as the engine's prefill): logits and
+    cache bit for bit, one K1 launch a layer on bf16."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama.model import forward
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import narrated_forward
+
+    engine = tiny_engine(cuda, kv_cache_dtype=kv)
+    params, cfg = engine.model.params, engine.model.cfg
+    tokens = torch.tensor([PROMPT_IDS * 5], dtype=torch.int32, device=cuda)
+    impl = engine._attn_impl(tokens.shape[1], 256)
+    assert impl == ("flash" if kv == "bf16" else "plain")
+    caches = [engine.new_cache(1, 256) for _ in range(2)]
+    lines = []
+    flash_gqa_attention.launches = 0
+    got, _ = narrated_forward(params, cfg, tokens, 0, caches[0], lines.append,
+                              attn_impl=impl, logits_at=99)
+    assert flash_gqa_attention.launches == (cfg.n_layers if kv == "bf16" else 0)
+    want, _ = forward(params, cfg, tokens, 0, caches[1], attn_impl=impl, logits_at=99)
+    assert torch.equal(got, want)
+    assert torch.equal(caches[0].k, caches[1].k) and torch.equal(caches[0].v, caches[1].v)
+    assert len(lines) == cfg.n_layers + 2
+
+
+@pytest.mark.gpu
+def test_device_trace_names_k1_and_k2(cuda, tmp_path):
+    """A trace of an eager prefill (K1) and a replayed decode graph (K2)
+    holds both kernels on the device timeline."""
+    import json
+    import os
+
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import device_trace
+
+    engine = tiny_engine(cuda)
+    with engine._lease(1, 256) as slot:
+        engine._prefill(PROMPT_IDS, 256, cache=slot.cache)
+        slot.set([1], [len(PROMPT_IDS)])
+        graph = engine._decode_chunk(1, cache_len=256, slot=slot)
+        graph.replay()                            # captured before the trace
+        with device_trace(str(tmp_path)) as prof:
+            engine._prefill(PROMPT_IDS, 256)
+            slot.set([1], [len(PROMPT_IDS)])
+            graph.replay()
+    (path,) = [os.path.join(tmp_path, f) for f in os.listdir(tmp_path)]
+    with open(path) as f:
+        names = " ".join(str(e.get("name")) for e in json.load(f)["traceEvents"])
+    assert "flash_gqa_kernel" in names and "flash_decode_kernel" in names
+    keys = " ".join(e.key for e in prof.key_averages())
+    assert "flash_gqa_kernel" in keys

@@ -80,3 +80,17 @@ def test_scan_covers_the_serving_slice(module):
     path = PORT / module
     assert path in set(PORT.rglob("*.py"))
     assert [m for _, m in imported_modules(path) if m.split(".")[0] in FORBIDDEN] == []
+
+
+@pytest.mark.parametrize("module", [
+    "runtime/profiling.py", "runtime/engine.py", "runtime/decode_graph.py",
+    "tokenizer/native.py", "tokenizer/bpe.py", "utils/hexcodes.py",
+    "utils/native_lib.py", "io/shards.py", "models/llama/loader.py",
+    "models/llama/model.py", "cli/main.py"])
+def test_scan_covers_the_single_device_modules(module):
+    """The probe's, profiling's, the native merge's and the sharded loader's
+    modules are among the scanned files, and each imports nothing of JAX on
+    its own."""
+    path = PORT / module
+    assert path in set(PORT.rglob("*.py"))
+    assert [m for _, m in imported_modules(path) if m.split(".")[0] in FORBIDDEN] == []

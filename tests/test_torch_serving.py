@@ -194,3 +194,28 @@ def test_cli_refuses_unported_flags(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         cli.main(["--tiny", "--device", "cpu", *flag])
     assert cli.parse_args([]).device == "cuda"
+
+
+def test_server_accepts_attn_impl_probe(monkeypatch):
+    """``--attn-impl probe`` reaches the engine (no refusal); a sequential
+    server on a probing engine answers as an auto one does, and its
+    batchers keep the auto rules."""
+    served = []
+    monkeypatch.setattr(cli, "serve", lambda engine, *a, **kw: served.append((engine, kw)))
+    assert cli.main(["--tiny", "--device", "cpu", "--attn-impl", "probe",
+                     "--continuous", "2"]) == 0
+    engine, kw = served[0]
+    assert engine.args.attn_impl == "probe" and kw["continuous_slots"] == 2
+    texts = []
+    for impl in ("probe", "auto"):
+        srv = LlamaHTTPServer(make_engine(seq_len=160, attn_impl=impl), model_name="tiny-test")
+        srv.prewarm()
+        url = f"http://127.0.0.1:{srv.start_background()}"
+        try:
+            texts.append(post(url + "/v1/chat/completions", chat("status report"))[1][
+                "choices"][0]["message"])
+        finally:
+            srv.shutdown()
+        if impl == "probe":
+            assert set(srv.engine._probed_decode_impl.values()) == {"plain"}
+    assert texts[0] == texts[1]
