@@ -29,8 +29,15 @@ be), and traced (``device_trace``) with a replayed decode step, each trace's
 device time by kernel; request B's text through the native BPE merge and
 the Python merge; a 2-layer 8B-width model saved as Meta's 2-shard
 checkpoint and loaded by ``load_llama_model``, its logits bit-equal to the
-state dict's (the shards reversed must not be). Every limit is also read against planted faults, which must fail it. Any
-failed check exits non-zero.
+state dict's (the shards reversed must not be). Then tensor parallelism
+(phases 18-21): K1, K2, K4 and K8 at one rank's shapes at tp 2 and 4; one
+NCCL rank (``make_mesh(tp=1)``) through generate_string on captured graphs,
+bit-equal to the engine without a mesh; two gloo ranks on the one card
+against the unsharded 32-layer forward; and, on a machine of 2 cards or
+more, NCCL at tp = min(4, cards) on the CLI's process model (one card: a
+line says it did not run). These run in child processes (``--tp-rank``)
+after the parent's models are freed. Every limit is also read against
+planted faults, which must fail it. Any failed check exits non-zero.
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it is
@@ -1365,11 +1372,12 @@ def k4_geometry_note(geo, n_keys: int) -> str:
             f"{active} of {geo.cluster} ranks hold keys of the last tile")
 
 
-def time_k4_at(gen, errs, p: int, T: int):
-    """K4 at one decode step of request A: B=1, position ``p`` in a ``T``
-    cache, as many layers as keep a cycled run outside the L2 (the whole
-    tile in one call), against its plain version with the last active rank
-    dropped as a planted fault, then timed beside its bound."""
+def time_k4_at(gen, errs, p: int, T: int, label: str = "request A's decode"):
+    """K4 at one decode step (request A's unless ``label`` says): B=1,
+    position ``p`` in a ``T`` cache, as many layers as keep a cycled run
+    outside the L2 (the whole tile in one call), against its plain version
+    with the last active rank dropped as a planted fault, then timed beside
+    its bound."""
     from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
         decode_block_k, flash_decode_attention_int8_mxu_plain, k4_geometry)
 
@@ -1379,7 +1387,7 @@ def time_k4_at(gen, errs, p: int, T: int):
     qd = randn((1, 1, H, D), gen)
     pos = torch.tensor([p], dtype=torch.int32, device="cuda")
     bk = decode_block_k(T, KV, D, True)
-    what = f"K4 int8 dots, tile {bk}, B=1 T={T} pos={p} (request A's decode)"
+    what = f"K4 int8 dots, tile {bk}, B=1 T={T} KV={KV} pos={p} ({label})"
     got = torch.stack([k4_call(qd, k, v, ks, vs, pos, li) for li in range(4)])
     ref = torch.stack([flash_decode_attention_int8_mxu_plain(qd, k, v, ks, vs, pos, li, bk)
                        for li in range(4)])
@@ -1395,12 +1403,14 @@ def time_k4_at(gen, errs, p: int, T: int):
     plain, _ = cuda_ms(lambda: flash_decode_attention_int8_mxu_plain(
         qd, k, v, ks, vs, pos, 1, bk), iters=2, warmup=1)
     b_ms, b_by = bound_ms(*k34_work([p], T, int8_ops=True))
+    geo = k4_geometry(1, KV, T, bk)
     log(f"{what}: {ms:.4f} ms (plain {plain:.2f}, bound {b_ms:.4f} by {b_by}; "
-        f"{L} layers cycled); " + k4_geometry_note(k4_geometry(1, KV, T, bk), p + 1))
+        f"{L} layers cycled); " + k4_geometry_note(geo, p + 1))
     del k, v, ks, vs
     torch.cuda.empty_cache()
     return dict(shape=f"B=1 L={L} T={T} pos={p} H={H} KV={KV} D={D} int8, tile {bk}",
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=float((got - ref).abs().max()), cluster=geo.cluster)
 
 
 def quant_main_path(tk, vocab, errs):
@@ -3389,6 +3399,675 @@ def single_device_paths(tk, vocab) -> dict:
     return out
 
 
+# ------------------------------------------------ phases 18-21: tensor parallelism
+#
+# A: K1, K2, K4 and K8 at the per-rank shapes of Llama-3.1-8B at tp 2 and 4
+#    (K8's head also at tp 8, where it takes the dense route), in this process.
+# B: one NCCL rank through the whole tp code path, in a child process.
+# C: two gloo ranks on the one card, eager forward, in child processes.
+# D: NCCL at tp = min(4, cards) on the CLI's process model, when there are 2
+#    cards or more, in child processes.
+# The children start after the parent has freed its models; each writes its
+# numbers to a JSON file and logs its peak memory.
+
+TP_RANK_SHAPES = (2, 4)
+# Phase C: the two-rank forward against the unsharded forward, relative L2
+# per logits row on 32 layers. Both run the kernels; the sharded one sums the
+# ranks' partial products in fp32 and rounds once, the unsharded one rounds
+# each whole product once, and random layers amplify those ulps with depth.
+# Each limit sits between the sound reading and the planted fault's (one
+# rank skips its wo all-reduce) on an H100: bf16 2.2e-2 and 1.22; int4 +
+# int8 KV 2.1e-4 and 9.5e-4, where, as in phase 3, attention moves these
+# random int4 weights' logits little (PERF.md). Every run reads both again.
+TP_REL_L2 = {"bf16": 0.1, "int4": 5e-4}
+TP_CHILD_TIMEOUT_S = 480
+TP_DECODE_STEPS = 8
+
+
+@contextlib.contextmanager
+def rank_heads(tp: int):
+    """The kernel helpers above read the attention widths from ``H`` and
+    ``KV``: inside, they are one tp rank's of Llama-3.1-8B (G stays 4)."""
+    global H, KV
+    saved = H, KV
+    H, KV = 32 // tp, 8 // tp
+    try:
+        yield
+    finally:
+        H, KV = saved
+
+
+def cycle_calls(items, fn):
+    """A call that runs ``fn`` on the next of ``items`` each time."""
+    state = {"i": 0}
+
+    def call():
+        state["i"] = (state["i"] + 1) % len(items)
+        return fn(items[state["i"]])
+    return call
+
+
+def time_k8_at(gen, errs, ws, R: int, what: str) -> dict:
+    """K8 on the weights ``ws`` (copies of one layer's Q4Tensor, enough that a
+    cycled run reads them from outside the L2) at R rows, against its plain
+    version with its last split dropped as a planted fault, timed beside its
+    bound, its plain version and ``torch._weight_int4pack_mm``."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import (
+        k8_split, q4_matmul, q4_matmul_plain)
+
+    G, out_dim, half = ws[0].packed.shape
+    in_dim = 2 * G * half
+    x = randn((R, in_dim), gen)
+    got = q4_matmul(x, ws[0].packed, ws[0].scale)
+    torch.cuda.synchronize()
+    ref = q4_matmul_plain(x, ws[0].packed, ws[0].scale)
+    limits = (K8_ATOL, K8_RTOL, K8_REL_L2)
+    what = f"K8 {what} R={R} out={out_dim} in={in_dim}"
+    worst = kernel_err(got, ref, what, limits=limits)
+    errs["K8"] = max(errs["K8"], worst)
+    split = k8_split(R, in_dim, out_dim, G)
+    kernel_err(k8_last_split_dropped(x, ws[0].packed, ws[0].scale), ref,
+               what + f", the last of {-(-G // split)} splits dropped", planted=True,
+               limits=limits)
+    ms, _ = cuda_ms(cycle_calls(ws, lambda w: q4_matmul(x, w.packed, w.scale)), iters=64)
+    plain, _ = cuda_ms(lambda: q4_matmul_plain(x, ws[0].packed, ws[0].scale),
+                       iters=1, warmup=1)
+    lib_w = [tinygemm_pack(w) for w in ws]
+    library_err(torch._weight_int4pack_mm(x, *lib_w[0]), ref,
+                what + ", torch._weight_int4pack_mm (bf16 output)", limit=TINYGEMM_REL_L2)
+    lib_ms, _ = cuda_ms(cycle_calls(lib_w, lambda w: torch._weight_int4pack_mm(x, *w)),
+                        iters=64)
+    b_ms, b_by = bound_ms(*k8_work(R, in_dim, out_dim, G, half))
+    log(f"{what}: {ms:.4f} ms (split {split}; plain {plain:.2f}, torch._weight_int4pack_mm "
+        f"{lib_ms:.4f}, bound {b_ms:.4f} by {b_by}; {len(ws)} copies cycled)")
+    return dict(shape=f"x [{R},{in_dim}], packed [{G},{out_dim},{half}]", ms=ms,
+                plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=worst)
+
+
+def prompt_b_ids(tk, vocab) -> list:
+    """Request B's prompt (``prompts``), without an engine."""
+    from llama_nuts_and_bolts_tpu_torch.tokenizer import encode_ordinary
+
+    return [vocab.bos_id] + encode_ordinary(long_text(), tk.mergeable_ranks)[:2999]
+
+
+def tp_rank_kernels(errs, results) -> dict:
+    """Phase A: the kernels at one tp rank's shapes of Llama-3.1-8B, tp 2 and
+    4: K1 at requests B's and A's prefills, K2 and K4 at their first decode
+    steps (K4 must still form thread-block clusters at B * KV = 2 and 1),
+    K8 on each of a rank's int4 weights at R = 1, the vocab-sharded head
+    included (64128 and 32064 rows); the head at tp 8 (16032 rows, not whole
+    out tiles of 64) takes the dense route of ``ops/linear.py``, which
+    launches no K8 and computes K8's function to the library's limit. Each against its plain version, planted faults
+    read against the same limits, timed beside the bound and the library."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import (
+        k8_takes, q4_matmul, q4_matmul_plain)
+    from llama_nuts_and_bolts_tpu_torch.ops.linear import linear
+    from llama_nuts_and_bolts_tpu_torch.parallel.sharding import shard_params_for
+    from llama_nuts_and_bolts_tpu_torch.quant import init_random_params_q4
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    A, B = results["A"], results["B"]
+    out = {"K1": [], "K2": [], "K4": [], "K8": []}
+    for tp in TP_RANK_SHAPES:
+        with rank_heads(tp):
+            for S, T, what in ((B["prefill_len"], B["prefill_len"], "request B's prefill"),
+                               (A["prefill_len"], A["cache_len"], "request A's prefill")):
+                numbers, _ = time_k1(gen, errs, S, 0, T, f"tp {tp} rank, {what}")
+                out["K1"].append(dict(tp=tp, max_abs_err=errs["K1"], **numbers))
+                torch.cuda.empty_cache()
+            for p, T, what in ((B["prompt"], B["cache_len"], "request B's first step"),
+                               (A["prompt"], A["cache_len"], "request A's first step")):
+                out["K2"].append(dict(tp=tp, max_abs_err=errs["K2"], **time_k2(
+                    gen, errs, [p], T, f"tp {tp} rank, {what}")))
+                k4 = time_k4_at(gen, errs, p, T, f"tp {tp} rank, {what}")
+                if T >= 2048 and k4["cluster"] < 2:
+                    check_failed(f"K4 at tp {tp}, T={T}: no thread-block cluster formed")
+                out["K4"].append(dict(tp=tp, **k4))
+    q4 = init_random_params_q4(cfg_8b(1), seed=0, device="cuda")
+    for tp in TP_RANK_SHAPES + (8,):
+        rank = shard_params_for(q4, 0, tp)
+        names = ("wq", "wk", "wo", "w_gate", "w_down", "output") if tp != 8 else ("output",)
+        for name in names:
+            w = rank.output if name == "output" else rank.layers[name][0]
+            what = f"tp {tp} rank's {name}"
+            if not k8_takes(1, w.packed):
+                # the dense route: unpack_q4 and a product, no K8 launch
+                x = randn((1, 2 * w.packed.shape[0] * w.packed.shape[2]), gen)
+                before = q4_matmul.launches
+                dense = linear(x, w, out_dtype=torch.float32)
+                if q4_matmul.launches != before:
+                    check_failed(f"{what}: the dense route launched K8")
+                rel = library_err(dense, q4_matmul_plain(x, w.packed, w.scale),
+                                  f"{what} [{tuple(w.packed.shape)}], the dense route "
+                                  "(unpack_q4 + mm) against K8's function",
+                                  limit=TINYGEMM_REL_L2)
+                ms, _ = cuda_ms(lambda: linear(x, w, out_dtype=torch.float32), iters=16)
+                log(f"{what}: the dense route {ms:.4f} ms a call (no K8 launch)")
+                out["K8"].append(dict(tp=tp, weight=name, route="dense (unpack_q4 + mm)",
+                                      shape=f"packed {list(w.packed.shape)}", ms=ms,
+                                      rel_l2_to_k8_function=rel))
+                continue
+            n_copies = max(1, -(-200 * 2**20 // w.packed.numel()))
+            ws = [w] + [type(w)(packed=w.packed.clone(), scale=w.scale.clone())
+                        for _ in range(n_copies - 1)]
+            out["K8"].append(dict(tp=tp, weight=name, route="K8",
+                                  **time_k8_at(gen, errs, ws, 1, what)))
+            del ws
+        del rank
+    del q4
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- the child processes
+
+def run_tp_children(phase: str, world: int, timeout: float = TP_CHILD_TIMEOUT_S) -> list:
+    """Start ``world`` ranks of ``phase`` (``python3 chip_smoke.py --tp-rank
+    PHASE RANK WORLD PORT DIR``), wait for all of them within ``timeout``
+    (a rank still running then is killed, with the others), and return
+    each rank's JSON result; a rank that failed fails the phase."""
+    import tempfile
+
+    from llama_nuts_and_bolts_tpu_torch.cli.main import free_port
+
+    port = free_port()
+    out = tempfile.mkdtemp(prefix=f"tp_{phase}_")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank",
+                               phase, str(r), str(world), str(port), out], cwd=ROOT)
+             for r in range(world)]
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        check_failed(f"phase {phase}: a rank ran past {timeout:.0f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, p in enumerate(procs):
+        path = os.path.join(out, f"rank{r}.json")
+        if p.returncode != 0 or not os.path.exists(path):
+            check_failed(f"phase {phase}: rank {r} exited with {p.returncode}")
+            results.append(None)
+            continue
+        with open(path) as f:
+            results.append(json.load(f))
+        for msg in results[-1].get("failed", []):
+            check_failed(f"phase {phase} rank {r}: {msg}")
+    return results
+
+
+def tp_rank_main(phase: str, rank: int, world: int, port: int, out: str) -> int:
+    """A rank of phase B, C or D: join the group, run, write rank<r>.json."""
+    import torch.distributed as dist
+
+    from llama_nuts_and_bolts_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    # phase C's two ranks share the one card: gloo (NCCL refuses a duplicate
+    # device); B and D drive a card a rank over NCCL
+    device = torch.device("cuda", 0 if phase == "C" else rank)
+    torch.cuda.set_device(device)
+    initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                         backend="gloo" if phase == "C" else "nccl")
+    torch.cuda.reset_peak_memory_stats()
+    tk, vocab = synthetic_tokenizer()
+    mesh = make_mesh(tp=world)
+    result = {"B": tp_phase_b, "C": tp_phase_c, "D": tp_phase_d}[phase](
+        mesh, rank, tk, vocab, device)
+    result["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    log(f"phase {phase} rank {rank}: peak device memory {result['peak_memory_gib']:.2f} GiB")
+    result["failed"] = list(FAILED)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def graph_ms(engine, cache_len: int) -> dict:
+    """The engine's one-step greedy graph of the ``cache_len`` bucket: the
+    device ms of one replay (CUDA events over 16 replays), and the kernels
+    one replay runs under torch.profiler, NCCL's apart (the launches the
+    replays add to the counters are taken back). The slot's position moves
+    on, inside its cache."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import uncounted
+
+    key = next(k for k in engine._chunk_fns if k[:3] == (1, cache_len, "g"))
+    graph = engine._chunk_fns[key]
+    graph.slot.set([0], [cache_len // 2])
+    with uncounted():
+        ms, _ = cuda_ms(graph.replay, iters=16)
+        if engine.mesh is not None:
+            # the ranks start the profiled replay together, so that NCCL's
+            # kernels do not count another rank's lag as their own time
+            dist.barrier(group=engine.mesh.get_group("tp"))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(ms=ms, kernels=sum(e.count for e in kernels),
+                busy_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+                nccl_kernels=sum(e.count for e in nccl),
+                nccl_ms=sum(e.self_device_time_total for e in nccl) / 1e3,
+                top=[(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top])
+
+
+def tp_phase_b(mesh, rank, tk, vocab, device) -> dict:
+    """Phase B: one NCCL rank, the whole tp code path (``make_mesh(tp=1)``):
+    the 32-layer 8B, bf16 and int4 weights with an int8 cache, requests A
+    and B through ``generate_string`` on captured graphs, at decode_chunk
+    auto and 8, on an engine with the mesh and one without: the tokens, the
+    last step's logits and the launches must be equal, bit for bit; request
+    B's prefill logits too, and a planted fault (the logits all-gather
+    shifted by one shard row) must break that. The collectives' cost: the
+    one-step graph's device ms with and without the mesh."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import (
+        KVCache, LoadedModel, forward, init_random_params)
+    from llama_nuts_and_bolts_tpu_torch.models.llama import model as mod
+    from llama_nuts_and_bolts_tpu_torch.parallel import shard_params
+    from llama_nuts_and_bolts_tpu_torch.quant import init_random_params_q4
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+
+    cfg = cfg_8b(32)
+    L = cfg.n_layers
+    out = {}
+    for kind in ("bf16", "int4"):
+        t0 = time.perf_counter()
+        params = (init_random_params(cfg, seed=0, device=device) if kind == "bf16"
+                  else init_random_params_q4(cfg, seed=0, device=device))
+        log(f"phase B, {kind}: 8B random init {time.perf_counter() - t0:.1f}s")
+        models = {m: LoadedModel(params=shard_params(params, mesh) if m == "mesh" else params,
+                                 cfg=cfg, vocab=vocab, mergeable_ranks=tk.mergeable_ranks,
+                                 tensor_meta={}) for m in ("plain", "mesh")}
+        kv = "bf16" if kind == "bf16" else "int8"
+
+        def expect(steps, prefill_len):
+            if kind == "bf16":
+                return {"K1": L, "K2": L * steps}
+            k8_prefill = 7 * L + 1 if prefill_len <= 32 else 1
+            return {"K8": k8_prefill + (7 * L + 1) * steps, "K4": L * steps}
+
+        res = out[kind] = {}
+        for chunk in (0, 8):
+            engines = {m: InferenceEngine(models[m], InferenceArgs(
+                sequence_length=8192, kv_cache_dtype=kv, decode_chunk=chunk), device=device,
+                mesh=mesh if m == "mesh" else None) for m in models}
+            chat, long_prompt, _ = prompts(engines["plain"], vocab)
+            k = max(1, chunk)
+            for key, tokens, n in (("A", chat, 64), ("B", long_prompt, 32)):
+                runs = {m: run_request(e, tokens, n, expect, f"phase B {kind} request {key} "
+                                       f"at decode_chunk {k}, {m} engine", captures=(k,))
+                        for m, e in engines.items()}
+                cache_len = runs["plain"]["cache_len"]
+                logits = {m: e._slots[(1, cache_len)][0].logits for m, e in engines.items()}
+                same = (runs["plain"]["ids"] == runs["mesh"]["ids"]
+                        and torch.equal(logits["plain"], logits["mesh"])
+                        and runs["plain"]["launches"] == runs["mesh"]["launches"])
+                log(f"phase B {kind} request {key} at decode_chunk {k}: tokens, last "
+                    f"logits and launches {'bit-equal' if same else 'DIFFER'} with and "
+                    f"without the mesh")
+                if not same:
+                    check_failed(f"phase B {kind} {key} k={k}: the mesh engine differs")
+                res[f"{key}_k{k}"] = {m: {f: r[f] for f in ("ttft_ms", "decode_tok_s",
+                                                             "launches", "generated")}
+                                      for m, r in runs.items()}
+                if key == "B" and chunk == 0:
+                    g = res["one_step_graph"] = {m: graph_ms(e, cache_len)
+                                                 for m, e in engines.items()}
+                    log(f"phase B {kind}: one-step graph at bucket {cache_len}: "
+                        f"{g['plain']['ms']:.4f} ms without the mesh, {g['mesh']['ms']:.4f} "
+                        f"with it (2 * {L} all-reduces + the logits all-gather: "
+                        f"{g['mesh']['ms'] - g['plain']['ms']:+.4f} ms); kernels a replay "
+                        f"{g['plain']['kernels']} and {g['mesh']['kernels']}, of them NCCL's "
+                        f"{g['mesh']['nccl_kernels']} ({g['mesh']['nccl_ms']:.4f} ms)")
+            del engines
+        # request B's prefill, eager, with and without the mesh, and with the
+        # logits all-gather shifted by one row (the planted fault)
+        padded = torch.zeros((1, 4096), dtype=torch.int32, device=device)
+        padded[0, :len(long_prompt)] = torch.tensor(long_prompt, dtype=torch.int32)
+        impl = "flash" if kind == "bf16" else "plain"
+        sound_gather = mod.gather_last
+        got = {}
+        for name, m, gather in (("plain", "plain", sound_gather), ("mesh", "mesh", sound_gather),
+                                ("shifted", "mesh", lambda x, mesh_: torch.roll(
+                                    sound_gather(x, mesh_), 1, -1))):
+            cache = KVCache.create(cfg, 1, 4096, device=device,
+                                   dtype=torch.int8 if kv == "int8" else torch.bfloat16)
+            mod.gather_last = gather
+            try:
+                got[name], _ = forward(models[m].params, cfg, padded, 0, cache, attn_impl=impl,
+                                       logits_at=len(long_prompt) - 1,
+                                       mesh=mesh if m == "mesh" else None)
+            finally:
+                mod.gather_last = sound_gather
+            del cache
+        res["prefill_bit_equal"] = torch.equal(got["plain"], got["mesh"])
+        res["planted_shift_bit_equal"] = torch.equal(got["plain"], got["shifted"])
+        log(f"phase B {kind}: request B's prefill logits with the mesh "
+            f"{'bit-equal' if res['prefill_bit_equal'] else 'DIFFER'}; planted fault "
+            f"(all-gather shifted one row): "
+            f"{'bit-equal (NOT caught)' if res['planted_shift_bit_equal'] else 'differs'}")
+        if not res["prefill_bit_equal"]:
+            check_failed(f"phase B {kind}: prefill logits differ with the mesh")
+        if res["planted_shift_bit_equal"]:
+            check_failed(f"phase B {kind}: the shifted all-gather was not caught")
+        del models, params, got
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def wo_all_reduce_skipped(rank: int):
+    """Phases C and D's planted fault: rank 1 keeps its own partial product
+    after each ``wo`` all-reduce (the first of a block's two). The
+    collective still runs, so every rank makes the same calls and none
+    waits for a missing one."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import model as mod
+
+    sound = mod.reduce_partial
+    calls = {"n": 0}
+
+    def wo_skipped(partial, mesh_, dtype_):
+        i = calls["n"]
+        calls["n"] += 1
+        mine = partial.clone()
+        summed = sound(partial, mesh_, dtype_)
+        return mine.to(dtype_) if rank == 1 and i % 2 == 0 else summed
+
+    mod.reduce_partial = wo_skipped
+    try:
+        yield
+    finally:
+        mod.reduce_partial = sound
+
+
+def tp_phase_c(mesh, rank, tk, vocab, device) -> dict:
+    """Phase C: two gloo ranks on the one card, eager ``forward`` only (no
+    graphs: gloo's collectives cannot be captured): the 32-layer 8B sharded
+    over tp 2, request B's prefill (K1 at 4 KV heads a rank) and 8 decode
+    steps (K2), and the int4 + int8-KV model (prefill on the plain path,
+    decode on K8 and K4), against the unsharded forward that rank 0 runs
+    first, per logits row within TP_REL_L2; then again with a planted fault,
+    rank 1 keeping its own partial after each wo all-reduce, which must
+    fail the limit."""
+    import torch.distributed as dist
+
+    from llama_nuts_and_bolts_tpu_torch.models.llama import (
+        KVCache, forward, init_random_params)
+    from llama_nuts_and_bolts_tpu_torch.parallel import shard_params, tp_size
+    from llama_nuts_and_bolts_tpu_torch.quant import init_random_params_q4
+
+    cfg = cfg_8b(32)
+    tp = tp_size(mesh)
+    ids = prompt_b_ids(tk, vocab)
+    out = {}
+    for kind in ("bf16", "int4"):
+        whole = (init_random_params(cfg, seed=0, device=device) if kind == "bf16"
+                 else init_random_params_q4(cfg, seed=0, device=device))
+        shard = shard_params(whole, mesh)
+        dtype = torch.bfloat16 if kind == "bf16" else torch.int8
+        prefill_impl = "flash" if kind == "bf16" else "plain"
+        padded = torch.zeros((1, 4096), dtype=torch.int32, device=device)
+        padded[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+
+        def run(params, mesh_, feed):
+            """Request B's prefill, then a decode step per token of ``feed``
+            (greedy tokens of the reference when ``feed`` is None)."""
+            cache = KVCache.create(cfg, 1, 4096, device=device, dtype=dtype,
+                                   tp=tp_size(mesh_))
+            logits, _ = forward(params, cfg, padded, 0, cache, attn_impl=prefill_impl,
+                                logits_at=len(ids) - 1, mesh=mesh_)
+            rows, toks = [logits[0, 0]], []
+            for i in range(TP_DECODE_STEPS):
+                tok = int(torch.argmax(rows[-1])) if feed is None else feed[i]
+                toks.append(tok)
+                step = torch.tensor([[tok]], dtype=torch.int32, device=device)
+                logits, _ = forward(params, cfg, step, len(ids) + i, cache,
+                                    attn_impl="flash", mesh=mesh_)
+                rows.append(logits[0, 0])
+            return torch.stack(rows), toks
+
+        if rank == 0:
+            ref, feed = run(whole, None, None)
+        del whole
+        torch.cuda.empty_cache()
+        feed_t = torch.tensor(feed if rank == 0 else [0] * TP_DECODE_STEPS, device=device)
+        dist.broadcast(feed_t, src=0)
+        feed = feed_t.tolist()
+        got, _ = run(shard, mesh, feed)
+        with wo_all_reduce_skipped(rank):
+            planted, _ = run(shard, mesh, feed)
+        res = out[kind] = {}
+        if rank == 0:
+            errs = [rel_l2(g, r) for g, r in zip(got, ref)]
+            bad = [rel_l2(g, r) for g, r in zip(planted, ref)]
+            limit = TP_REL_L2[kind]
+            res.update(rel_l2=errs, planted_rel_l2=bad, limit=limit)
+            log(f"phase C {kind}, tp {tp} on one card over gloo, 32 layers: relative L2 "
+                f"per row (prefill, then {TP_DECODE_STEPS} decode steps) "
+                f"{[f'{e:.2e}' for e in errs]}; planted fault (rank 1 skips its wo "
+                f"all-reduce) {[f'{e:.2e}' for e in bad]} (limit {limit})")
+            if not (max(errs) <= limit and bool(torch.isfinite(got).all())):
+                check_failed(f"phase C {kind}: the sharded forward is outside {limit}")
+            if min(bad) <= limit:
+                check_failed(f"phase C {kind}: the planted fault passes {limit}")
+        del shard, got, planted
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase_d(mesh, rank, tk, vocab, device) -> dict:
+    """Phase D: NCCL at tp = the world, one card a rank, on the CLI's process
+    model: rank 0 broadcasts each request's token ids over a gloo control
+    group (``cli.main._broadcast``) and every rank runs the same engine calls
+    in lockstep. The 32-layer 8B constructed-cyclic model (``cyclic_params``:
+    wo and w_down zeroed, head rows walking 0..7), bf16; requests A and B
+    with their last token set to 0, so greedy decoding walks the cycle from
+    1. Rank 0 first runs the same requests on the whole model on its card:
+    every rank's tokens must equal them and the cycle. Records TTFT, decode
+    tok/s, launches per rank, the one-step graph's device ms."""
+    import torch.distributed as dist
+
+    from llama_nuts_and_bolts_tpu_torch.cli.main import _broadcast
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel, init_random_params
+    from llama_nuts_and_bolts_tpu_torch.parallel import shard_params, tp_size
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+
+    cfg = cfg_8b(32)
+    L, tp = cfg.n_layers, tp_size(mesh)
+    control = dist.new_group(backend="gloo")
+    whole = cyclic_params(init_random_params(cfg, seed=0, device=device), SPEC_CYCLE)
+
+    def loaded(params):
+        return LoadedModel(params=params, cfg=cfg, vocab=vocab,
+                           mergeable_ranks=tk.mergeable_ranks, tensor_meta={})
+
+    def expect(steps, prefill_len):
+        return {"K1": L, "K2": L * steps}
+
+    out = {"tp": tp, "single": {}, "mesh": {}}
+    requests = None
+    if rank == 0:
+        single = InferenceEngine(loaded(whole), InferenceArgs(sequence_length=8192),
+                                 device=device)
+        chat, long_prompt, _ = prompts(single, vocab)
+        requests = {"A": (chat[:-1] + [0], 64), "B": (long_prompt[:-1] + [0], 32)}
+        for key, (tokens, n) in requests.items():
+            r = run_request(single, tokens, n, expect, f"phase D request {key}, "
+                            "the whole model on one card", captures=(1,))
+            out["single"][key] = {f: r[f] for f in ("ids", "ttft_ms", "decode_tok_s",
+                                                    "launches")}
+        out["single"]["one_step_graph"] = graph_ms(single, 4096)
+        del single
+    requests = _broadcast(requests, control)
+    engine = InferenceEngine(loaded(shard_params(whole, mesh)),
+                             InferenceArgs(sequence_length=8192), device=device, mesh=mesh)
+    del whole
+    torch.cuda.empty_cache()
+    for key, (tokens, n) in requests.items():
+        r = run_request(engine, tokens, n, expect, f"phase D request {key}, tp {tp} rank "
+                        f"{rank}", captures=(1,))
+        out["mesh"][key] = {f: r[f] for f in ("ids", "ttft_ms", "decode_tok_s", "launches")}
+        cycle = [(i + 1) % SPEC_CYCLE for i in range(len(r["ids"]))]
+        if r["ids"] != cycle:
+            check_failed(f"phase D request {key} rank {rank}: tokens leave the cycle")
+    g = out["mesh"]["one_step_graph"] = graph_ms(engine, 4096)
+    log(f"phase D rank {rank}: one-step graph at bucket 4096 {g['ms']:.4f} ms at tp {tp}, "
+        f"{g['kernels']} kernels a replay, of them NCCL's {g['nccl_kernels']} "
+        f"({g['nccl_ms']:.4f} ms)")
+    del engine
+    torch.cuda.empty_cache()
+    out["graph_logits"] = tp_graph_logits(mesh, rank, control, cfg, prompt_b_ids(tk, vocab),
+                                          4096, tk, vocab, device)
+    _broadcast(None, control)          # the CLI's quit sentinel
+    return out
+
+
+def tp_graph_logits(mesh, rank, control, cfg, ids, cache_len, tk, vocab, device) -> dict:
+    """Phase D's check of the sharded arithmetic through the captured graphs
+    (the cyclic model's tokens ignore attention, wo and w_down): random bf16
+    weights (seed 0), the prefill of ``ids`` (eager) and TP_DECODE_STEPS
+    decode steps, each a replay of the mesh engine's one-step graph with its
+    all-reduces and logits all-gather inside, fed the tokens of the
+    unsharded eager forward that rank 0 runs first. Every logits row must
+    lie within phase C's TP_REL_L2 of that forward's, and every rank's rows
+    must be bit-equal to rank 0's. Then again with phase C's planted fault
+    captured into a fresh graph (rank 1 keeps its own partial after each wo
+    all-reduce), which must fail the limit."""
+    import torch.distributed as dist
+
+    from llama_nuts_and_bolts_tpu_torch.cli.main import _broadcast
+    from llama_nuts_and_bolts_tpu_torch.models.llama import (
+        KVCache, LoadedModel, forward, init_random_params)
+    from llama_nuts_and_bolts_tpu_torch.parallel import shard_params, tp_size
+    from llama_nuts_and_bolts_tpu_torch.parallel.mesh import tp_group
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import DecodeGraph, DecodeSlot
+
+    tp = tp_size(mesh)
+    whole = init_random_params(cfg, seed=0, device=device)
+    engine = InferenceEngine(LoadedModel(params=shard_params(whole, mesh), cfg=cfg,
+                                         vocab=vocab, mergeable_ranks=tk.mergeable_ranks,
+                                         tensor_meta={}),
+                             InferenceArgs(sequence_length=2 * cache_len), device=device,
+                             mesh=mesh)
+    prefill_impl = engine._attn_impl(len(ids), cache_len)
+    step_impl = engine._attn_impl(1, cache_len)
+    padded = torch.zeros((1, cache_len), dtype=torch.int32, device=device)
+    padded[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    feed = ref = None
+    if rank == 0:
+        cache = KVCache.create(cfg, 1, cache_len, device=device)
+        logits, _ = forward(whole, cfg, padded, 0, cache, attn_impl=prefill_impl,
+                            logits_at=len(ids) - 1)
+        rows, feed = [logits[0, 0]], []
+        for i in range(TP_DECODE_STEPS):
+            feed.append(int(torch.argmax(rows[-1])))
+            step = torch.tensor([[feed[-1]]], dtype=torch.int32, device=device)
+            logits, _ = forward(whole, cfg, step, len(ids) + i, cache, attn_impl=step_impl)
+            rows.append(logits[0, 0])
+        ref = torch.stack(rows)
+        del cache
+    del whole
+    torch.cuda.empty_cache()
+    feed = _broadcast(feed, control)
+
+    def graph_run(index: int) -> torch.Tensor:
+        """The prefill into a fresh slot, then a replay of its one-step
+        graph per token of ``feed``: the logits rows."""
+        slot = DecodeSlot(engine, 1, cache_len, index)
+        graph = DecodeGraph(engine, slot, 1)
+        logits, _ = forward(engine.model.params, cfg, padded, 0, slot.cache,
+                            attn_impl=prefill_impl, logits_at=len(ids) - 1, mesh=mesh)
+        rows = [logits[0, 0]]
+        for i, tok in enumerate(feed):
+            slot.set([tok], [len(ids) + i])
+            graph.replay()
+            rows.append(slot.logits[0].clone())
+        return torch.stack(rows)
+
+    got = graph_run(0)
+    with wo_all_reduce_skipped(rank):
+        planted = graph_run(1)
+    first = got.clone()
+    dist.broadcast(first, src=0, group=tp_group(mesh))
+    res = {"tp": tp, "rows_equal_rank0": torch.equal(first, got),
+           "attn_impl": [prefill_impl, step_impl]}
+    if not res["rows_equal_rank0"]:
+        check_failed(f"phase D rank {rank}: the graph's logits differ from rank 0's")
+    if rank == 0:
+        errs = [rel_l2(g, r) for g, r in zip(got, ref)]
+        bad = [rel_l2(g, r) for g, r in zip(planted, ref)]
+        limit = TP_REL_L2["bf16"]
+        res.update(rel_l2=errs, planted_rel_l2=bad, limit=limit)
+        log(f"phase D, tp {tp}, random bf16 weights through the captured one-step graph: "
+            f"relative L2 per row (prefill, then {TP_DECODE_STEPS} replays) against the "
+            f"single-card forward {[f'{e:.2e}' for e in errs]}; planted fault (rank 1 "
+            f"skips its wo all-reduce) {[f'{e:.2e}' for e in bad]} (limit {limit})")
+        if not (max(errs) <= limit and bool(torch.isfinite(got).all())):
+            check_failed(f"phase D: the graph's sharded logits are outside {limit}")
+        if min(bad) <= limit:
+            check_failed(f"phase D: the planted fault passes {limit}")
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_phases(errs, results, tk, vocab) -> dict:
+    """Phases 18-21 (A-D), after the parent has freed its models."""
+    log("phase 18 (tp A): K1, K2, K4 and K8 at one tp rank's shapes of the 8B")
+    out = {"A": tp_rank_kernels(errs, results)}
+    torch.cuda.empty_cache()
+    log("phase 19 (tp B): one NCCL rank, make_mesh(tp=1), the whole tp code path")
+    out["B"] = (run_tp_children("B", 1) or [None])[0]
+    log("phase 20 (tp C): two gloo ranks on the one card, eager forward")
+    out["C"] = run_tp_children("C", 2)[0]
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"phase 21 (tp D): NCCL at tp > 1 needs 2 or more cards; this machine has "
+            f"{cards}, so phase D did not run")
+        out["D"] = {"ran": False, "cards": cards}
+    else:
+        out["D"] = tp_phase_d_parent(min(4, cards))
+    return out
+
+
+def tp_phase_d_parent(tp: int) -> dict:
+    """Phase D's ranks, and their tokens held against rank 0's single-card
+    run and each other's."""
+    log(f"phase 21 (tp D): NCCL at tp {tp}, the CLI's process model, 32-layer "
+        "cyclic 8B")
+    ranks = run_tp_children("D", tp)
+    if any(r is None for r in ranks):
+        return {"ran": True, "tp": tp, "ranks": ranks}
+    single = ranks[0]["single"]
+    for r, res in enumerate(ranks):
+        for key in ("A", "B"):
+            if res["mesh"][key]["ids"] != single[key]["ids"]:
+                check_failed(f"phase D rank {r} request {key}: tokens differ from the "
+                             "single-card run's")
+    summary = {"ran": True, "tp": tp, "graph_logits": ranks[0]["graph_logits"],
+               "single": {k: {f: v for f, v in d.items() if f != "ids"}
+                                                 if isinstance(d, dict) else d
+                                                 for k, d in single.items()},
+               "ranks": [{k: {f: v for f, v in d.items() if f != "ids"}
+                          if isinstance(d, dict) else d for k, d in res["mesh"].items()}
+                         | {"peak_memory_gib": res["peak_memory_gib"]} for res in ranks]}
+    log(f"phase D: every rank's tokens equal rank 0's and the single-card run's: "
+        f"{json.dumps(summary)}")
+    return summary
+
+
 def main() -> int:
     name, smi = setup()
     log("phase 2: kernels vs plain at 8B widths")
@@ -3428,6 +4107,8 @@ def main() -> int:
     log("phase 13: speculative serving, 32-layer 8B over HTTP, bf16 pool")
     spec_s = spec_serving_path(tk, vocab)
     single = single_device_paths(tk, vocab)
+    torch.cuda.empty_cache()
+    tp = tp_phases(errs, results, tk, vocab)
     # the speculative paths' launches join their kernels' counts, and so do
     # the probe's requests (its timed graphs included), the narrated prefill,
     # the traced prefill and decode step and the sharded load's prefills
@@ -3446,6 +4127,16 @@ def main() -> int:
         row["launches"] = (serving["launches"][tag] + serving8["launches"][tag]
                            + sum(c.get(tag, 0) for c in spec_launches))
     rows += srows + srows8
+    # the per-rank shapes of phase A join their kernels' rows, and phase B's
+    # mesh engine's launches (the main path under a mesh) their counts
+    mesh_launches = [run["mesh"]["launches"] for kind in (tp["B"] or {}).values()
+                     if isinstance(kind, dict) for run in kind.values()
+                     if isinstance(run, dict) and "launches" in run.get("mesh", ())]
+    for row in rows:
+        tag = "K" + row["name"].split("(K")[-1].rstrip(")")
+        if tag in tp["A"]:
+            row["tp_rank_shapes"] = tp["A"][tag]
+        row["launches"] += sum(c.get(tag, 0) for c in mesh_launches)
     rows.sort(key=lambda r: r["name"].split("(K")[-1])
     log(f"summary: {json.dumps(results)}")
     log(f"summary, quantized path: {json.dumps(qresults)}")
@@ -3457,6 +4148,8 @@ def main() -> int:
     log(f"summary, speculative batchers: {json.dumps(spec_b)}")
     log(f"summary, speculative serving: {json.dumps(spec_s)}")
     log(f"summary, probe, narration, native BPE, shards: {json.dumps(single)}")
+    log(f"summary, tensor parallelism (phases B-D): "
+        f"{json.dumps({k: v for k, v in tp.items() if k != 'A'})}")
     if FAILED:
         fail(f"{len(FAILED)} checks failed: " + "; ".join(FAILED))
     log(f"total {time.perf_counter() - T_START:.1f}s on {smi}")
@@ -3465,7 +4158,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "dense_bf16_mm_ms", "gather_path_ms", "ms_full_context",
             "bound_ms_full_context", "ms_b1_pos1850", "bound_ms_b1_pos1850",
-            "gather_path_ms_b1_pos1850", "more_shapes")
+            "gather_path_ms_b1_pos1850", "more_shapes", "tp_rank_shapes")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -3473,4 +4166,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        # a rank of phase B, C or D (run_tp_children)
+        phase, rank, world, port, out_dir = sys.argv[2:7]
+        sys.exit(tp_rank_main(phase, int(rank), int(world), int(port), out_dir))
     sys.exit(main())

@@ -12,6 +12,7 @@ for the CPU.
   tokenizer/  tiktoken ranks file, BPE, chat template
   ops/        plain PyTorch ops (norm, linear, attention, swiglu, sampling)
   kernels/    hand-written CUDA kernels (csrc/) with their plain versions
+  parallel/   tensor parallelism over torch.distributed (mesh, splits)
   utils/      logging, test comparators
 """
 

@@ -4,8 +4,19 @@ Port of ``llama_nuts_and_bolts_tpu/cli/main.py`` for the single-request
 path, with bf16, int8 or int4 weights (``--quant``), a bf16 or int8 KV cache
 (``--kv-cache``), greedy speculative decoding (``--speculate``, with
 ``--draft-model``), a measured choice of the decode step's attention
-(``--attn-impl probe``) and a narrated layer-at-a-time prefill
-(``--narrate``). Runs on ``cuda`` unless ``--device cpu`` is given.
+(``--attn-impl probe``), a narrated layer-at-a-time prefill
+(``--narrate``) and tensor parallelism (``--tp N``). Runs on ``cuda`` unless
+``--device cpu`` is given.
+
+``--tp N`` is one command, as in the JAX package, but PyTorch runs one
+process per device: this process is rank 0 and starts N - 1 followers
+(``torch.multiprocessing``, spawned), which meet it at a free localhost port.
+Rank r drives ``cuda:r`` over NCCL (on the CPU, with ``--device cpu``, the
+group is gloo). Rank 0 owns the console: it reads the prompt, broadcasts
+each request's token ids to the followers over a gloo group of its own
+(a person may take minutes to type), then a quit sentinel. Every rank runs
+the same engine calls in lockstep on its shards; the followers' output is
+discarded. ``--tp N`` with fewer than N cards raises.
 
 Run: ``python -m llama_nuts_and_bolts_tpu_torch.cli [flags]``
 """
@@ -14,8 +25,10 @@ from __future__ import annotations
 
 import argparse
 import os
+import socket
 import sys
 from dataclasses import dataclass
+from datetime import timedelta
 from typing import List, Optional
 
 from llama_nuts_and_bolts_tpu_torch.cli.console import AppState
@@ -107,6 +120,10 @@ def parse_args(argv=None):
                         "transcript; sampled runs keep their seeded RNG "
                         "sequence); 0 = auto: per-token on a host-attached "
                         "card, each step one captured graph")
+    p.add_argument("--tp", type=int, default=0, metavar="N",
+                   help="tensor parallelism: shard the model over N devices "
+                        "(Megatron column/row splits, one all-reduce per "
+                        "sub-block; one process per device; 0 = single device)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the model runs (default cuda; no fallback)")
     p.add_argument("--debug", action="store_true", help="write debug.log trace")
@@ -240,12 +257,11 @@ def narrate_prefill(engine: InferenceEngine, tokens: List[int], log_fn) -> None:
     tok = torch.tensor([tokens], dtype=torch.int32, device=engine.device)
     narrated_forward(engine.model.params, engine.model.cfg, tok, 0, cache, log_fn=log_fn,
                      attn_impl=engine._attn_impl(len(tokens), cache.max_seq),
-                     logits_at=len(tokens) - 1)
+                     logits_at=len(tokens) - 1, mesh=engine.mesh)
 
 
-def run_generation(engine: InferenceEngine, prompt_input: PromptInput,
+def run_generation(engine: InferenceEngine, tokens: List[int],
                    app: AppState, narrate: bool = False) -> GenerationState:
-    tokens = prompt_tokens(engine, prompt_input)
     prompt_pieces, prompt_text = engine.token_batch_to_string(tokens)
     app.begin_generation(prompt_pieces, prompt_text, engine.seq_len)
     if narrate:
@@ -262,14 +278,115 @@ def run_generation(engine: InferenceEngine, prompt_input: PromptInput,
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     if args.tiny and args.draft_model:
         raise SystemExit(TINY_DRAFT_REFUSAL)
-    device = resolve_device(args.device)
-    print("Welcome to Llama 3.1 Nuts and Bolts (PyTorch/CUDA port)!")
-    print("=================================\n\n")
+    if args.tp > 1:
+        return run_tensor_parallel(argv, args)
+    return run(args, resolve_device(args.device))
 
-    set_logger(Logger(debug_path="debug.log" if args.debug else None))
+
+# ------------------------------------------------------- tensor parallelism
+
+FOLLOWER_JOIN_S = 120.0      # how long rank 0 waits for a follower to exit
+
+
+def check_cards(tp: int, device: str) -> None:
+    """``--tp N`` on cards needs N of them: one rank a card, no sharing."""
+    if device != "cuda":
+        return
+    resolve_device("cuda")
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < tp:
+        raise RuntimeError(f"--tp {tp} needs {tp} CUDA devices (one a rank); this "
+                           f"machine has {n}")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_tensor_parallel(argv: List[str], args) -> int:
+    """Rank 0 of ``--tp N``: start the followers, run, and wait for them;
+    nonzero if any rank failed."""
+    import torch.multiprocessing as mp
+
+    check_cards(args.tp, args.device)
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    followers = [ctx.Process(target=_follower, args=(argv, r, args.tp, port), daemon=True)
+                 for r in range(1, args.tp)]
+    for f in followers:
+        f.start()
+    ok = False
+    try:
+        rc = _run_rank(args, 0, port)
+        ok = True
+    finally:
+        for f in followers:
+            f.join(FOLLOWER_JOIN_S if ok else 5.0)
+            if f.is_alive():
+                f.terminate()
+                f.join()
+    failed = [r for r, f in enumerate(followers, 1) if f.exitcode != 0]
+    if failed:
+        print(f"error: tensor-parallel ranks {failed} exited with "
+              f"{[followers[r - 1].exitcode for r in failed]}", file=sys.stderr)
+        return 1
+    return rc
+
+
+def _follower(argv: List[str], rank: int, tp: int, port: int) -> None:
+    sys.stdout = open(os.devnull, "w")      # rank 0 owns the console
+    sys.exit(_run_rank(parse_args(argv), rank, port))
+
+
+def _run_rank(args, rank: int, port: int) -> int:
+    """Join the group as ``rank`` of ``args.tp``, build the mesh and run."""
+    import torch
+    import torch.distributed as dist
+
+    from llama_nuts_and_bolts_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    cuda = args.device == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+    else:
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.tp))
+    initialize_multihost(f"127.0.0.1:{port}", args.tp, rank,
+                         backend="nccl" if cuda else "gloo")
+    try:
+        control = dist.new_group(backend="gloo", timeout=timedelta(days=1))
+        device = resolve_device(torch.device("cuda", rank) if cuda else "cpu")
+        return run(args, device, make_mesh(tp=args.tp), rank, control)
+    finally:
+        dist.destroy_process_group()
+
+
+def _broadcast(obj, control):
+    """Rank 0's ``obj`` on every rank of the control group."""
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=control)
+    return box[0]
+
+
+def run(args, device, mesh=None, rank: int = 0, control=None) -> int:
+    """The CLI on ``device``; under ``mesh``, this rank's part of it."""
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say("Welcome to Llama 3.1 Nuts and Bolts (PyTorch/CUDA port)!")
+    say("=================================\n\n")
+
+    set_logger(Logger(debug_path="debug.log" if args.debug and rank == 0 else None))
+    if mesh is not None:
+        say(f"Tensor parallelism: tp={args.tp} over {args.tp} devices.")
 
     quant = None if args.quant == "none" else args.quant
     if args.tiny:
@@ -282,27 +399,38 @@ def main(argv=None) -> int:
 
             qfn = quantize_params_q4 if quant == "int4" else quantize_params
             model.params = qfn(model.params)
-            print(f"Tiny demo model loaded ({quant}-quantized).\n")
+            say(f"Tiny demo model loaded ({quant}-quantized).\n")
         else:
+            say("Tiny random-weights demo model loaded.\n")
+        if mesh is not None:
+            from llama_nuts_and_bolts_tpu_torch.parallel import shard_params
+
+            model.params = shard_params(model.params, mesh)
+        elif quant is None:
             from llama_nuts_and_bolts_tpu_torch.models.llama import fuse_decode_params
 
-            # the fused decode layout is the default for plain bf16 weights
+            # the fused decode layout is the default for single-device bf16
             model.params = fuse_decode_params(model.params)
-            print("Tiny random-weights demo model loaded.\n")
     else:
         from llama_nuts_and_bolts_tpu_torch.models.llama.loader import load_llama_model
 
         model_dir = discover_model_dir(args.model_dir)
-        print(f'Found model files in "{model_dir}"...')
-        # only unquantized weights take the fused decode layout
+        say(f'Found model files in "{model_dir}"...')
+        sharding_fn = None
+        if mesh is not None:
+            from llama_nuts_and_bolts_tpu_torch.parallel import param_sharding_fn
+
+            sharding_fn = param_sharding_fn(mesh)
+        # only single-device unquantized weights take the fused decode layout
         model = load_llama_model(model_dir, max_sequence_length=args.seq_len,
-                                 fused=quant is None, device=device, quant=quant)
-        print(f'Model "{model_dir}" was loaded.\n')
+                                 fused=quant is None and mesh is None, device=device,
+                                 quant=quant, sharding_fn=sharding_fn)
+        say(f'Model "{model_dir}" was loaded.\n')
 
     if args.meta:
         from llama_nuts_and_bolts_tpu_torch.cli.meta import format_meta
 
-        print(format_meta(model))
+        say(format_meta(model))
         return 0
 
     app = AppState()
@@ -319,7 +447,7 @@ def main(argv=None) -> int:
 
         draft = load_llama_model(args.draft_model, max_sequence_length=args.seq_len,
                                  device=device)
-        print(f'Draft model "{args.draft_model}" was loaded.\n')
+        say(f'Draft model "{args.draft_model}" was loaded.\n')
 
     engine = InferenceEngine(
         model,
@@ -332,7 +460,14 @@ def main(argv=None) -> int:
         log_fn=live_log,
         draft_model=draft,
         device=device,
+        mesh=mesh,
     )
+
+    if rank > 0:
+        # follow rank 0's requests until its quit sentinel (None)
+        while (tokens := _broadcast(None, control)) is not None:
+            run_generation(engine, tokens, app, narrate=args.narrate)
+        return 0
 
     if args.prompt is not None:
         prompt_input = PREDEFINED_PROMPTS[args.prompt - 1]
@@ -343,7 +478,12 @@ def main(argv=None) -> int:
     else:
         prompt_input = ask_user_prompt_choice(model)
 
-    state = run_generation(engine, prompt_input, app, narrate=args.narrate)
+    tokens = prompt_tokens(engine, prompt_input)
+    if mesh is not None:
+        _broadcast(tokens, control)
+    state = run_generation(engine, tokens, app, narrate=args.narrate)
+    if mesh is not None:
+        _broadcast(None, control)
     reason = {
         GenerationState.FINISHED_BY_REACHING_EOS: "reaching EOS token",
         GenerationState.FINISHED_BY_REACHING_SEQ_LEN: "reaching sequence length",

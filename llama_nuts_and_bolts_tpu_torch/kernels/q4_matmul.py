@@ -66,13 +66,17 @@ def k8_split(R: int, in_dim: int, out_dim: int, G: int) -> int:
 def k8_takes(rows: int, packed: torch.Tensor) -> bool:
     """Whether a product of ``rows`` rows with this weight runs the kernel on
     a card (``ops/linear.py``): the JAX package's rule (at most 32 rows, one
-    layer's 3-D ``packed``, ``K/2`` and ``out`` multiples of 128), and a
-    group this build holds (``K/2`` at most ``K8_MAX_HALF``)."""
+    layer's 3-D ``packed``, ``K/2`` a multiple of 128), a group this build
+    holds (``K/2`` at most ``K8_MAX_HALF``), and ``out`` in whole out tiles
+    of ``K8_OUT_TILE`` rows. JAX asks ``out`` for multiples of 128 of the
+    global weight; the port routes a rank's shard, whose ``out`` the kernel
+    takes in its own tiles (the vocab-sharded 8B head: 32064 rows a rank at
+    tp 4 run the kernel, 16032 at tp 8 the dense route)."""
     if packed.dim() != 3:
         return False
     _, out_dim, half = packed.shape
     return (rows <= K8_MAX_ROWS and half % K8_HALF_TILE == 0 and half <= K8_MAX_HALF
-            and out_dim % 128 == 0)
+            and out_dim % K8_OUT_TILE == 0)
 
 
 def k8_row_bucket(R: int) -> int:

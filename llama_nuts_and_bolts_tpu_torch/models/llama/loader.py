@@ -11,13 +11,18 @@ card only ever holds the quantized bytes; they are the bytes the JAX
 package's loader makes. Meta's multi-shard format (``consolidated.00.pth`` ..
 ``NN.pth``) is read through ``io/shards.py``: each combined tensor is
 concatenated on the host when its layer is copied, one tensor at a time.
+
+``sharding_fn`` (``parallel.param_sharding_fn``) loads one tensor-parallel
+rank: each layer's view (quantized first, when asked) is cut to the rank's
+slice on the host before it is copied, so a card never holds more than its
+shard; the bytes are ``parallel.shard_params`` of the whole load.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -64,6 +69,8 @@ class CheckpointShapeError(Exception):
 
 # a checkpoint tensor: one file's, or one combined from Meta's shards
 CheckpointTensor = Union[torch.Tensor, ShardedTensor]
+# weight key -> the function cutting a rank's slice of one layer, or None
+ShardingFn = Callable[[str], Optional[Callable[[Any], Any]]]
 
 
 def _read(t: CheckpointTensor) -> torch.Tensor:
@@ -119,35 +126,43 @@ def _host_quantize(host: torch.Tensor, quant: str):
 def build_params_from_checkpoint(tensors: Dict[str, CheckpointTensor],
                                  cfg: ModelArgs, fused: bool = False,
                                  device=None, dtype=torch.bfloat16,
-                                 quant: Optional[str] = None) -> LlamaParams:
+                                 quant: Optional[str] = None,
+                                 sharding_fn: Optional[ShardingFn] = None) -> LlamaParams:
     """Stack per-layer checkpoint tensors to ``[L, ...]`` on ``device``
     (default ``cuda``). ``fused=True`` assembles the fused decode layout
     (``model.fused_layer_weight_shapes``) from the same views;
     ``quant="int8"|"int4"`` quantizes the matmul weights and the head.
     ``tensors`` may be sharded (:func:`load_sharded_checkpoint`): each
-    tensor is then combined when it is read."""
+    tensor is then combined when it is read. ``sharding_fn`` loads one
+    tensor-parallel rank's slices (module docstring)."""
     if quant not in (None, "int8", "int4"):
         raise ValueError(f"unsupported quant mode {quant!r}")
-    if fused and quant is not None:
-        raise ValueError("the fused decode layout is for plain bf16 weights "
-                         "(quantized layouts keep their own packing)")
+    if fused and (quant is not None or sharding_fn is not None):
+        raise ValueError("the fused decode layout is for plain single-device bf16 "
+                         "weights (quantized layouts keep their own packing; "
+                         "tensor parallelism keeps the split weights)")
     validate_checkpoint(tensors, cfg)
     dev = resolve_device(device)
     log = get_logger()
     L = cfg.n_layers
 
+    def cut(key: str, leaf):
+        """This rank's slice of ``leaf`` (all of it without a sharding_fn)."""
+        fn = sharding_fn(key) if sharding_fn is not None else None
+        return leaf if fn is None else fn(leaf)
+
     def view(key: str, i: int) -> torch.Tensor:
         return _read(tensors[CKPT_LAYER_NAMES[key].format(i=i)])
-
-    def shape(key: str) -> Tuple[int, ...]:
-        return tuple(tensors[CKPT_LAYER_NAMES[key].format(i=0)].shape)
 
     def stacked(key: str):
         if quant is not None and not key.endswith("norm"):
             return stacked_quantized(key)
-        out = torch.empty((L,) + shape(key), dtype=dtype, device=dev)
+        out = None
         for i in range(L):
-            out[i].copy_(view(key, i))
+            part = cut(key, view(key, i))
+            if out is None:
+                out = torch.empty((L,) + tuple(part.shape), dtype=dtype, device=dev)
+            out[i].copy_(part)
         return out
 
     def quantized(fields):
@@ -155,10 +170,15 @@ def build_params_from_checkpoint(tensors: Dict[str, CheckpointTensor],
 
         return (Q4Tensor if "packed" in fields else QTensor)(**fields)
 
+    def host_quantized(key: str, host: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``host`` quantized whole, then cut: the fields of this rank's slice."""
+        leaf = cut(key, quantized(_host_quantize(host, quant)))
+        return {f: getattr(leaf, f) for f in ("packed", "q", "scale") if hasattr(leaf, f)}
+
     def stacked_quantized(key: str):
         out = None
         for i in range(L):
-            fields = _host_quantize(view(key, i), quant)
+            fields = host_quantized(key, view(key, i))
             if out is None:
                 out = {f: torch.empty((L,) + tuple(t.shape), dtype=t.dtype, device=dev)
                        for f, t in fields.items()}
@@ -170,6 +190,9 @@ def build_params_from_checkpoint(tensors: Dict[str, CheckpointTensor],
     layers["attn_norm"] = stacked("attn_norm")
     layers["ffn_norm"] = stacked("ffn_norm")
     if fused:
+        def shape(key: str) -> Tuple[int, ...]:
+            return tuple(tensors[CKPT_LAYER_NAMES[key].format(i=0)].shape)
+
         for out_key, parts in FUSED_GROUPS.items():
             d_in = shape(parts[0])[1]
             d_out = sum(shape(p)[0] for p in parts)
@@ -192,16 +215,17 @@ def build_params_from_checkpoint(tensors: Dict[str, CheckpointTensor],
     embeddings = _read(tensors["tok_embeddings.weight"])
     head = _read(tensors["output.weight"]) if "output.weight" in tensors else embeddings
     if quant is not None:
-        output = quantized({f: t.to(dev) for f, t in _host_quantize(head, quant).items()})
+        output = quantized({f: t.to(dev).contiguous()
+                            for f, t in host_quantized("output", head).items()})
     elif fused:
         output = head.t().to(dev, dtype).contiguous()     # head stored [dim, vocab]
     else:
-        output = head.to(dev, dtype).contiguous()
+        output = cut("output", head).to(dev, dtype).contiguous()
     cos, sin = rope_tables(cfg, dev)
     return LlamaParams(
-        tok_embeddings=embeddings.to(dev, dtype),
+        tok_embeddings=cut("tok_embeddings", embeddings).to(dev, dtype),
         layers=layers,
-        norm=_read(tensors["norm.weight"]).to(dev, dtype),
+        norm=cut("norm", _read(tensors["norm.weight"])).to(dev, dtype),
         output=output,
         rope_cos=cos,
         rope_sin=sin,
@@ -226,10 +250,11 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 def load_llama_model(model_dir: str, max_sequence_length: Optional[int] = None,
                      include_tensors: bool = True, fused: bool = False,
-                     device=None, quant: Optional[str] = None) -> LoadedModel:
+                     device=None, quant: Optional[str] = None,
+                     sharding_fn: Optional[ShardingFn] = None) -> LoadedModel:
     """Load a Meta-format model dir: consolidated.00.pth (or Meta's shards
     consolidated.00..NN.pth) + params.json + tokenizer.model, with the
-    vocab-size cross-check. ``quant`` as for
+    vocab-size cross-check. ``quant`` and ``sharding_fn`` as for
     :func:`build_params_from_checkpoint`."""
     log = get_logger()
     dev = resolve_device(device)
@@ -257,7 +282,7 @@ def load_llama_model(model_dir: str, max_sequence_length: Optional[int] = None,
         tensor_meta = {n: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
                        for n, t in tensors.items()}
         params = build_params_from_checkpoint(tensors, cfg, fused=fused, device=dev,
-                                              quant=quant)
+                                              quant=quant, sharding_fn=sharding_fn)
         log.info("Loaded %d tensors.", len(tensors))
     return LoadedModel(params=params, cfg=cfg, vocab=vocab,
                        mergeable_ranks=tk_model.mergeable_ranks,

@@ -24,6 +24,19 @@ with the additive mask, on the dequantized layer for an int8 cache.
 int8-dot mode on an int8 cache; ``"flash_folded"`` (S==1 only) runs K4 on
 either cache (``kernels/``). An int8 cache takes ``"flash"`` for decode
 only: its prefill runs the plain path.
+
+Under a tensor-parallel ``mesh`` (``parallel/``) the params and the cache are
+this rank's shards (``parallel/sharding.py``): the heads, KV heads and FFN
+width are the local ones, the kernels run on the local heads
+(``parallel/kernel_shard.py``), and each block runs one all-reduce after
+``wo`` and one after ``w_down``. A rank's partial products are summed in
+fp32 and cast to bf16 once (at tp = 1 the one term is the product itself, so
+it is rounded as without a mesh). The vocab-sharded head's fp32 logits are
+all-gathered, so every rank holds the whole ``[B, S|1, vocab]`` row and
+samples the same token. A leaf that ``_fit_spec`` replicated (an int4
+weight of fewer groups than ranks) takes the whole input instead: its input
+is all-gathered first and its product needs no sum. The fused layout is
+single-device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,8 +65,14 @@ from llama_nuts_and_bolts_tpu_torch.ops import (
     linear,
     linear_t,
     rms_norm,
-    swiglu,
+    swiglu_act,
 )
+from llama_nuts_and_bolts_tpu_torch.parallel.kernel_shard import (
+    tp_flash_decode_attention,
+    tp_flash_gqa_attention,
+)
+from llama_nuts_and_bolts_tpu_torch.parallel.mesh import gather_last, reduce_partial, tp_size
+from llama_nuts_and_bolts_tpu_torch.parallel.sharding import check_split_layout, check_tp_shape
 
 ATTN_IMPLS = ("plain", "flash", "flash_folded")
 
@@ -89,10 +108,12 @@ class KVCache:
 
     @classmethod
     def create(cls, cfg: ModelArgs, batch: int, max_seq: int,
-               device=None, dtype=torch.bfloat16) -> "KVCache":
+               device=None, dtype=torch.bfloat16, tp: int = 1) -> "KVCache":
+        """A zeroed cache; ``tp`` > 1 makes one rank's shard, ``kv_heads /
+        tp`` of them."""
         if dtype not in (torch.bfloat16, torch.int8):
             raise ValueError(f"the KV cache is bf16 or int8, got {dtype}")
-        shape = (cfg.n_layers, batch, cfg.kv_heads, max_seq, cfg.head_dim)
+        shape = (cfg.n_layers, batch, cfg.kv_heads // tp, max_seq, cfg.head_dim)
         dev = resolve_device(device)
         cache = cls(k=torch.zeros(shape, dtype=dtype, device=dev),
                     v=torch.zeros(shape, dtype=dtype, device=dev))
@@ -158,15 +179,33 @@ class BlockInputs:
     positions: Optional[torch.Tensor]   # int32 [B]: the decode kernels' rows
     rows_at: Optional[torch.Tensor]     # [B, S] write positions (per-row start_pos)
     batch_at: Optional[torch.Tensor]    # [B, 1] batch index (per-row start_pos)
+    mesh: Any = None                    # tensor-parallel DeviceMesh (parallel/)
+
+
+def _check_shards(params: LlamaParams, cfg: ModelArgs, cache: KVCache, mesh) -> None:
+    """Under a mesh the params and the cache must be this rank's shards."""
+    check_split_layout(params)
+    tp = tp_size(mesh)
+    check_tp_shape(cfg, tp)
+    rows = params.layers["wq"].shape[-2]
+    if rows != cfg.n_heads // tp * cfg.head_dim:
+        raise ValueError(f"wq has {rows} rows, a tp={tp} shard has "
+                         f"{cfg.n_heads // tp * cfg.head_dim}: shard the params "
+                         "(parallel.shard_params) before a mesh forward")
+    if cache.k.shape[2] != cfg.kv_heads // tp:
+        raise ValueError(f"the cache holds {cache.k.shape[2]} KV heads, a tp={tp} "
+                         f"shard {cfg.kv_heads // tp}")
 
 
 def prepare_forward(params: LlamaParams, cfg: ModelArgs, tokens: torch.Tensor,
                     start_pos, cache: KVCache, attn_impl: str = "plain",
-                    ) -> Tuple[torch.Tensor, BlockInputs]:
+                    mesh=None) -> Tuple[torch.Tensor, BlockInputs]:
     """Check a forward's arguments, look up the token embeddings and build
     the :class:`BlockInputs` of its blocks: ``(x [B, S, dim] bf16, inputs)``."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+    if mesh is not None:
+        _check_shards(params, cfg, cache, mesh)
     B, S = tokens.shape
     T = cache.max_seq
     per_row = isinstance(start_pos, torch.Tensor)
@@ -212,7 +251,8 @@ def prepare_forward(params: LlamaParams, cfg: ModelArgs, tokens: torch.Tensor,
                      if flash and S == 1 else None)
     return x, BlockInputs(cfg=cfg, cache=cache, start_pos=start_pos, S=S,
                           attn_impl=attn_impl, cos=cos, sin=sin, mask=mask,
-                          positions=positions, rows_at=rows_at, batch_at=batch_at)
+                          positions=positions, rows_at=rows_at, batch_at=batch_at,
+                          mesh=mesh)
 
 
 def layer_weights(params: LlamaParams, li: int) -> Dict[str, Any]:
@@ -231,15 +271,31 @@ def _write(buf: torch.Tensor, li: int, rows: torch.Tensor, inp: BlockInputs) -> 
         buf[li, :, :, inp.start_pos:inp.start_pos + inp.S] = rows.transpose(1, 2)
 
 
+def _row_linear(x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """``linear(x, w)`` for a row-split weight (``wo``, ``w_down``): under a
+    mesh, this rank's partial product summed over tp (see the module
+    docstring)."""
+    if mesh is None:
+        return linear(x, w)
+    if x.shape[-1] < w.shape[-1]:
+        # a weight _fit_spec replicated takes the whole activation
+        return linear(gather_last(x, mesh), w)
+    partial = linear(x, w, out_dtype=torch.float32 if tp_size(mesh) > 1 else x.dtype)
+    return reduce_partial(partial, mesh, x.dtype)
+
+
 def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
                   inp: BlockInputs) -> torch.Tensor:
     """Transformer block ``li`` on ``x [B, S, dim]`` with layer weights ``w``
     (:func:`layer_weights`): attention (the new K/V rows written into the
     cache in place), then the SwiGLU feed-forward, each with its residual.
-    It reads nothing back to the host, so a captured decode step runs it."""
-    cfg, cache = inp.cfg, inp.cache
+    Under ``inp.mesh`` the heads and FFN width are this rank's and each
+    half ends in an all-reduce. It reads nothing back to the host, so a
+    captured decode step runs it."""
+    cfg, cache, mesh = inp.cfg, inp.cache, inp.mesh
     B, S = x.shape[0], inp.S
-    H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    tp = tp_size(mesh)
+    H, KV, D = cfg.n_heads // tp, cfg.kv_heads // tp, cfg.head_dim
     quantized = cache.quantized
     fused = "wqkv" in w
     flash = inp.attn_impl in ("flash", "flash_folded")
@@ -268,9 +324,14 @@ def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
 
     if flash and S == 1:
         fold = quantized or inp.attn_impl == "flash_folded"
-        att = flash_decode_attention(q, cache.k, cache.v, inp.positions,
-                                     k_scale=cache.k_scale, v_scale=cache.v_scale,
-                                     layer=li, fold_heads=fold, int8_mxu=quantized)
+        kw = dict(k_scale=cache.k_scale, v_scale=cache.v_scale, layer=li,
+                  fold_heads=fold, int8_mxu=quantized)
+        if mesh is not None:
+            att = tp_flash_decode_attention(mesh, q, cache.k, cache.v, inp.positions, **kw)
+        else:
+            att = flash_decode_attention(q, cache.k, cache.v, inp.positions, **kw)
+    elif flash and mesh is not None:
+        att = tp_flash_gqa_attention(mesh, q, cache.k[li], cache.v[li], inp.start_pos)
     elif flash:
         att = flash_gqa_attention(q, cache.k[li], cache.v[li], inp.start_pos)
     elif quantized:
@@ -289,21 +350,27 @@ def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
         gate, up = gu[..., :F_], gu[..., F_:]
         act = F.silu(gate.float()).to(gu.dtype) * up
         return x + linear_t(act, w["w_down"])
-    x = x + linear(att.reshape(B, S, H * D), w["wo"])
+    x = x + _row_linear(att.reshape(B, S, H * D), w["wo"], mesh)
     h2 = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
-    return x + swiglu(h2, w["w_gate"], w["w_up"], w["w_down"])
+    act = swiglu_act(h2, w["w_gate"], w["w_up"])
+    return x + _row_linear(act, w["w_down"], mesh)
 
 
 def output_head(params: LlamaParams, cfg: ModelArgs, x: torch.Tensor,
-                logits_at: Optional[int] = None) -> torch.Tensor:
+                logits_at: Optional[int] = None, mesh=None) -> torch.Tensor:
     """The final norm and the LM head: fp32 logits ``[B, S, vocab]``
-    (``[B, 1, vocab]`` when ``logits_at`` picks one row)."""
+    (``[B, 1, vocab]`` when ``logits_at`` picks one row). Under a mesh the
+    head is vocab-sharded and every rank gets the all-gathered logits."""
     if logits_at is not None:
         x = x[:, logits_at:logits_at + 1]                       # [B,1,dim]
     x = rms_norm(x, params.norm, cfg.norm_eps)
     if "wqkv" in params.layers:   # the fused layout stores the head as [dim, vocab]
         return linear_t(x, params.output, out_dtype=torch.float32)
-    return linear(x, params.output, out_dtype=torch.float32)
+    logits = linear(x, params.output, out_dtype=torch.float32)
+    if mesh is not None and (tp_size(mesh) == 1 or logits.shape[-1] < cfg.vocab_size):
+        # (a head _fit_spec replicated at tp > 1 already holds every row)
+        logits = gather_last(logits, mesh)
+    return logits
 
 
 def forward(
@@ -314,6 +381,7 @@ def forward(
     cache: KVCache,
     attn_impl: str = "plain",
     logits_at: Optional[int] = None,
+    mesh=None,                     # tensor-parallel DeviceMesh: params/cache are shards
 ) -> Tuple[torch.Tensor, KVCache]:
     """One forward pass (prefill when S>1, decode step when S==1).
 
@@ -323,11 +391,11 @@ def forward(
     at S=1, as in the JAX package; its rows' positions plus S must fit the
     cache (checked for CPU tensors; the batchers keep them in range).
     ``runtime/profiling.py::narrated_forward`` runs the same three parts,
-    a layer at a time."""
-    x, inp = prepare_forward(params, cfg, tokens, start_pos, cache, attn_impl)
+    a layer at a time. Under ``mesh`` see the module docstring."""
+    x, inp = prepare_forward(params, cfg, tokens, start_pos, cache, attn_impl, mesh)
     for li in range(cfg.n_layers):
         x = decoder_block(layer_weights(params, li), li, x, inp)
-    return output_head(params, cfg, x, logits_at), cache
+    return output_head(params, cfg, x, logits_at, mesh), cache
 
 
 # --------------------------------------------------------------------------

@@ -5,5 +5,5 @@ from llama_nuts_and_bolts_tpu_torch.ops.attention import (
     attention_mask_per_row,
     gqa_attention,
 )
-from llama_nuts_and_bolts_tpu_torch.ops.swiglu import swiglu
+from llama_nuts_and_bolts_tpu_torch.ops.swiglu import swiglu, swiglu_act
 from llama_nuts_and_bolts_tpu_torch.ops.sampling import greedy, sample_token

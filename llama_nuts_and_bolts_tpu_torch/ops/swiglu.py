@@ -14,8 +14,15 @@ import torch.nn.functional as F
 from llama_nuts_and_bolts_tpu_torch.ops.linear import linear
 
 
-def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+def swiglu_act(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate(x)) * up(x)``, rounded once to ``x.dtype``: the input of
+    the down projection (a tensor-parallel block sums that product over its
+    ranks, ``models/llama/model.py``)."""
     gate = F.silu(linear(x, w_gate, out_dtype=torch.float32))
     up = linear(x, w_up, out_dtype=torch.float32)
-    return linear((gate * up).to(x.dtype), w_down)
+    return (gate * up).to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    return linear(swiglu_act(x, w_gate, w_up), w_down)

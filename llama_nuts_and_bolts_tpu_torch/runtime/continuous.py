@@ -139,6 +139,10 @@ class ContinuousBatcher:
 
     def _init_common(self, engine, n_slots: int, speculate_k: int,
                      step_quantum: Optional[int]) -> None:
+        if engine.mesh is not None:
+            raise NotImplementedError("tensor parallelism in the batchers is ROADMAP "
+                                      "item 17b: rank 0 must broadcast each step's "
+                                      "admissions")
         self.engine = engine
         self.cfg = engine.model.cfg
         self.vocab = engine.model.vocab

@@ -25,7 +25,10 @@ layers); a captured one replays them all with one call.
     :func:`uncounted` takes them back, and each replay adds them
     (:func:`add_launches`). A capture or replay
     that fails raises: nothing falls back to the eager step. On the CPU the
-    same body runs eagerly on the same buffers.
+    same body runs eagerly on the same buffers. Under the engine's mesh the
+    body's collectives (two all-reduces a layer, the logits all-gather) are
+    captured with it: the warm-up's eager collectives make the NCCL
+    communicator first, which a capture cannot.
   * :meth:`DecodeGraph.fetch` copies ``out`` to pinned host memory behind
     an event (two buffers in turn), so a second chunk can be queued before
     the first's tokens are read: the engine's pipelining.
@@ -176,7 +179,7 @@ class _SlotGraph:
         # the model, not the engine: an engine holds its graphs, and a cycle
         # would leave a dropped engine's graphs to the cyclic collector,
         # which may run during another graph's capture
-        self.model, self.slot = engine.model, slot
+        self.model, self.slot, self.mesh = engine.model, slot, engine.mesh
         cuda = slot.device.type == "cuda"
         self.out = torch.zeros(out_shape, dtype=torch.int32, device=slot.device)
         self._host = [torch.zeros(out_shape, dtype=torch.int32, pin_memory=cuda)
@@ -222,6 +225,9 @@ class _SlotGraph:
         gc.disable()
         try:
             with uncounted() as delta:
+                # thread_local: a call another thread makes during the capture
+                # (the NCCL watchdog's event queries under a mesh) does not
+                # invalidate it
                 with torch.cuda.graph(graph, pool=s.pool, stream=stream,
                                       capture_error_mode="thread_local"):
                     self._body()
@@ -289,7 +295,7 @@ class DecodeGraph(_SlotGraph):
     def _step(self) -> Tuple[torch.Tensor, torch.Tensor]:
         s = self.slot
         logits, _ = forward(self.model.params, self.model.cfg, s.feed, s.pos, s.cache,
-                            attn_impl=self.impl)
+                            attn_impl=self.impl, mesh=self.mesh)
         row = logits[:, -1]
         if self.sampled:
             nxt = draw_token(row, self.generator, s.temperature, self.top_k, self.top_p)
@@ -372,7 +378,7 @@ class VerifyGraph(_SlotGraph):
     def _body(self) -> None:
         s = self.slot
         logits, _ = forward(self.model.params, self.model.cfg, self.feed, s.pos, s.cache,
-                            attn_impl="plain")
+                            attn_impl="plain", mesh=self.mesh)
         self.out.copy_(greedy(logits[0]))
 
     def _warm_up(self) -> None:

@@ -13,6 +13,16 @@ the same LRU rule.
 ``attn_impl="probe"`` measures the decode step's attention paths once per
 cache bucket (:meth:`InferenceEngine.autotune_attn_impl`) and decodes that
 bucket on the fastest; prefill keeps the ``auto`` rules.
+
+``mesh`` (``parallel.make_mesh``) runs tensor parallelism: the model holds
+this rank's shards, every cache the engine makes holds its KV heads, and
+every forward (prefill, prefix-cache suffix, decode and verify graphs, the
+probe's graphs) runs on the mesh. Every rank runs the same engine calls in
+lockstep: the logits are all-gathered, so every rank picks the same tokens
+(sampled ones from identically seeded generators), buckets and graphs; under
+``probe`` rank 0's choice is every rank's. On a card the group must be NCCL
+(gloo's collectives cannot be captured into the decode graphs). The draft
+model is not sharded, as in the JAX package: each rank runs all of it.
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import K2_GROUP
 from llama_nuts_and_bolts_tpu_torch.models.llama.loader import LoadedModel
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache, forward
 from llama_nuts_and_bolts_tpu_torch.ops.sampling import greedy, sample_token
+from llama_nuts_and_bolts_tpu_torch.parallel.mesh import broadcast_choice, tp_backend, tp_size
+from llama_nuts_and_bolts_tpu_torch.parallel.sharding import check_tp_shape
 from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import (
     DecodeGraph,
     DecodeSlot,
@@ -81,11 +93,16 @@ def _check_args(args: InferenceArgs) -> None:
 class InferenceEngine:
     def __init__(self, model: LoadedModel, args: Optional[InferenceArgs] = None,
                  log_fn=None, draft_model: Optional[LoadedModel] = None,
-                 device=None) -> None:
+                 device=None, mesh=None) -> None:
         self.model = model
         self.args = args or InferenceArgs()
         _check_args(self.args)
         self.device = resolve_device(device)
+        # tensor parallelism: the model holds this rank's shards
+        self.mesh = mesh
+        self.tp = tp_size(mesh)
+        if mesh is not None:
+            self._check_mesh()
         for what, m in (("model", model), ("draft model", draft_model)):
             if m is not None and m.params.device != self.device:
                 raise ValueError(f"{what} weights are on {m.params.device}, the "
@@ -142,7 +159,7 @@ class InferenceEngine:
         bucketing — see cache_bucket)."""
         return KVCache.create(self.model.cfg, batch, max_seq or self.seq_len,
                               device=self.device,
-                              dtype=KV_CACHE_DTYPES[self.args.kv_cache_dtype])
+                              dtype=KV_CACHE_DTYPES[self.args.kv_cache_dtype], tp=self.tp)
 
     def cache_bucket(self, prompt_len: int, max_new_tokens: Optional[int]) -> int:
         """Cache-buffer length for a request: the smallest power of two from
@@ -155,12 +172,25 @@ class InferenceEngine:
             b *= 2
         return min(b, self.seq_len)
 
+    def _check_mesh(self) -> None:
+        """Refuse a mesh the engine cannot run: a shard must keep whole GQA
+        groups, and a card's collectives must be capturable (NCCL)."""
+        check_tp_shape(self.model.cfg, self.tp)
+        backend = tp_backend(self.mesh)
+        if self.device.type == "cuda" and backend != "nccl":
+            raise ValueError(f"a {backend} group on {self.device}: its collectives "
+                             "cannot be captured into the decode graphs; use NCCL")
+        if self.device.type == "cpu" and backend == "nccl":
+            raise ValueError("an NCCL group with an engine on the CPU: use gloo")
+
     def _kernels_viable(self) -> bool:
         """Whether the attention kernels (K1, K2, K4, K6) take this model:
         they are built for head_dim 128 and G = H/KV = 4 only, and raise on
-        any other shape, so ``auto`` sends other models to the plain path."""
+        any other shape, so ``auto`` sends other models to the plain path.
+        Under a mesh (whose tp divides the KV heads: :meth:`_check_mesh`)
+        the local group ``(H/tp) / (KV/tp)`` is the kernels'."""
         cfg = self.model.cfg
-        G = cfg.n_heads / cfg.kv_heads
+        G = (cfg.n_heads // self.tp) / (cfg.kv_heads // self.tp)
         return cfg.head_dim == HEAD_DIM and G == K1_GROUP and G == K2_GROUP
 
     def _attn_impl(self, seq_len: int = 1, cache_len: Optional[int] = None) -> str:
@@ -216,7 +246,9 @@ class InferenceEngine:
         context): time one-row decode steps on each candidate
         (:meth:`_decode_candidates`) at position ``(cache_len - 2) // 2``
         and keep the fastest, in ``_probed_decode_impl[cache_len]``
-        (returned); ``_probe_timings`` holds each candidate's seconds.
+        (returned); ``_probe_timings`` holds each candidate's seconds. Under
+        a mesh every rank times its own candidates and takes rank 0's
+        choice, so that all ranks capture the same graphs.
 
         Each candidate's step is a one-step :class:`DecodeGraph` captured
         over a scratch one-row slot of the bucket, as the engine would
@@ -254,6 +286,9 @@ class InferenceEngine:
                     best = min(best, time.perf_counter() - t0)
             timings[impl] = best
         choice = min(timings, key=timings.get)
+        if self.mesh is not None:
+            choice = candidates[broadcast_choice(candidates.index(choice), self.mesh,
+                                                 self.device)]
         self._probed_decode_impl[cache_len] = choice
         self._probe_timings = timings
         self.log("attn-impl probe at cache_len=%d kv=%s: %s -> chose %r",
@@ -266,7 +301,7 @@ class InferenceEngine:
         tok = torch.tensor(tokens, dtype=torch.int32, device=self.device)
         return forward(self.model.params, self.model.cfg, tok, start_pos, cache,
                        attn_impl=self._attn_impl(tok.shape[1], cache.max_seq),
-                       logits_at=logits_at)
+                       logits_at=logits_at, mesh=self.mesh)
 
     def _select_token(self, logits_row: torch.Tensor) -> int:
         return int(sample_token(logits_row, self._generator, self.args.temperature,

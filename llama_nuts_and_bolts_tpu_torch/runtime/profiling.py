@@ -96,11 +96,13 @@ def narrated_forward(
     log_fn: Optional[Callable[[str], None]] = None,
     attn_impl: str = "plain",
     logits_at: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """``forward`` with per-layer wall-clock and shape narration: one line
     for the embeddings, one a layer, one for the output norm and head
     (``cfg.n_layers + 2`` lines). On a card each time ends on a
-    synchronisation, so it is the layer's device time plus its launches."""
+    synchronisation, so it is the layer's device time plus its launches.
+    Under ``mesh`` it runs this rank's shards, as ``forward`` does."""
     log = log_fn or (lambda msg: get_logger().info("%s", msg))
     on_card = tokens.device.type == "cuda"
 
@@ -109,7 +111,7 @@ def narrated_forward(
             torch.cuda.synchronize(tokens.device)
 
     t0 = time.perf_counter()
-    x, inp = prepare_forward(params, cfg, tokens, start_pos, cache, attn_impl)
+    x, inp = prepare_forward(params, cfg, tokens, start_pos, cache, attn_impl, mesh)
     sync()
     log(f"embeddings: shape{tuple(x.shape)} dtype={str(x.dtype).replace('torch.', '')} "
         f"took {time.perf_counter() - t0:.4f} sec(s)")
@@ -120,7 +122,7 @@ def narrated_forward(
         log(f"Transformer block layer {li + 1} / {cfg.n_layers} was run, "
             f"took {time.perf_counter() - t0:.4f} sec(s)")
     t0 = time.perf_counter()
-    logits = output_head(params, cfg, x, logits_at)
+    logits = output_head(params, cfg, x, logits_at, mesh)
     sync()
     log(f"output norm+projection: logits{tuple(logits.shape)} "
         f"took {time.perf_counter() - t0:.4f} sec(s)")

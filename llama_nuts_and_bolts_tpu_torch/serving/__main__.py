@@ -2,8 +2,9 @@
 
 The JAX package's server flags, plus ``--device {cuda,cpu}`` (default
 ``cuda``; no fallback). ``--tp`` reaches a part not ported yet: it raises and
-names its ROADMAP item (17). ``--attn-impl probe`` measures the sequential
-engine's decode path per cache bucket; the batchers keep the ``auto`` rules.
+names its ROADMAP item (17b; the CLI runs ``--tp``). ``--attn-impl probe``
+measures the sequential engine's decode path per cache bucket; the batchers
+keep the ``auto`` rules.
 ``--decode-chunk K`` reaches the engine: the sequential path (no
 ``--continuous``) streams in captured K-step chunks. ``--speculate K``
 speculates on the sequential engine and in both batchers; ``--draft-model
@@ -46,7 +47,8 @@ def parse_args(argv=None):
                    help="with --paged-blocks: disable automatic prefix "
                         "caching (hash-shared prompt blocks)")
     p.add_argument("--tp", type=int, default=0, metavar="N",
-                   help="tensor parallelism over N devices (ROADMAP item 17)")
+                   help="tensor parallelism over N devices (ROADMAP item 17b; "
+                        "the CLI has --tp)")
     p.add_argument("--kv-cache", choices=["bf16", "int8"], default="bf16",
                    help="KV cache dtype: int8 halves the cache's bytes")
     p.add_argument("--prefill-chunk", type=int, default=0, metavar="C",
@@ -82,8 +84,9 @@ def parse_args(argv=None):
 
 def _refuse_unported(args) -> None:
     if args.tp > 1:
-        raise NotImplementedError("--tp is ROADMAP item 17 (multi-device parallelism), "
-                                  "not ported yet")
+        raise NotImplementedError("the server's --tp is ROADMAP item 17b (tensor "
+                                  "parallelism in the batchers and the server), not "
+                                  "ported yet; the CLI runs --tp")
 
 
 def main(argv=None) -> int:

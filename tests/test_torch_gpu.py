@@ -39,6 +39,7 @@ from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
 from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import (
     k8_scratch,
     k8_split,
+    k8_takes,
     q4_matmul,
     q4_matmul_plain,
 )
@@ -613,9 +614,10 @@ def test_k6_refuses_block_sizes_it_cannot_copy(cuda):
 # ------------------------------------------------------------ decode graphs
 
 
-def tiny_engine(device, **args):
+def tiny_engine(device, fused=True, mesh=None, **args):
     """A 2-layer model at the kernels' shape (head_dim 128, G = 4), random
-    bf16 weights in the fused layout, byte-level vocab of 512."""
+    bf16 weights in the fused layout (``fused=False``: the split one, which
+    a ``mesh`` takes, as this rank's shards), byte-level vocab of 512."""
     from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
     from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel
     from llama_nuts_and_bolts_tpu_torch.models.llama.model import init_random_params
@@ -631,9 +633,15 @@ def tiny_engine(device, **args):
         stop_token_ids=[special["<|eom_id|>"], special["<|eot_id|>"]]))
     cfg = ModelArgs(dim=512, n_layers=2, n_heads=4, n_kv_heads=1, vocab_size=512,
                     multiple_of=32, norm_eps=1e-5, max_sequence_length=512)
-    model = LoadedModel(params=init_random_params(cfg, seed=0, device=device, fused=True),
+    params = init_random_params(cfg, seed=0, device=device, fused=fused)
+    if mesh is not None:
+        from llama_nuts_and_bolts_tpu_torch.parallel import shard_params
+
+        params = shard_params(params, mesh)
+    model = LoadedModel(params=params,
                         cfg=cfg, vocab=vocab, mergeable_ranks=ranks, tensor_meta={})
-    return InferenceEngine(model, InferenceArgs(sequence_length=512, **args), device=device)
+    return InferenceEngine(model, InferenceArgs(sequence_length=512, **args), device=device,
+                           mesh=mesh)
 
 
 PROMPT_IDS = list(range(40, 60))
@@ -945,3 +953,103 @@ def test_device_trace_names_k1_and_k2(cuda, tmp_path):
     assert "flash_gqa_kernel" in names and "flash_decode_kernel" in names
     keys = " ".join(e.key for e in prof.key_averages())
     assert "flash_gqa_kernel" in keys
+
+
+# --------------------------------------------------- tensor parallelism
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tp", [2, 4])
+def test_kernels_at_tp_rank_shapes(cuda, tp):
+    """K1, K2, K4 and K8 at one tp rank's shapes of Llama-3.1-8B (H/tp, KV/tp
+    heads, G = 4; the rank's int4 wq, wo, w_down and vocab-sharded head)
+    against their plain versions; K4 still forms a thread-block cluster at
+    B * KV = 8 / tp."""
+    h, kv = H // tp, KV // tp
+    gen = torch.Generator(device=cuda).manual_seed(tp)
+    q = rand((1, 512, h, D), gen, cuda)
+    k, v = rand((1, kv, 2048, D), gen, cuda), rand((1, kv, 2048, D), gen, cuda)
+    assert_matches(flash_gqa_attention(q, k, v, 700),
+                   flash_gqa_attention_plain(q, k, v, 700))
+    qd = rand((1, 1, h, D), gen, cuda)
+    pos = torch.tensor([3000], dtype=torch.int32, device=cuda)
+    kc, vc = rand((2, 1, kv, 4096, D), gen, cuda), rand((2, 1, kv, 4096, D), gen, cuda)
+    assert_matches(flash_decode_attention(qd, kc, vc, pos, layer=1),
+                   flash_decode_attention_plain(qd, kc, vc, pos, 1))
+    k8_, ks = int8_cache((2, 1, kv, 4096, D), gen, cuda)
+    v8, vs = int8_cache((2, 1, kv, 4096, D), gen, cuda)
+    bk = decode_block_k(4096, kv, D, True)
+    assert k4_cluster(1, kv, 4096, bk) >= 2
+    got = flash_decode_attention(qd, k8_, v8, pos, k_scale=ks, v_scale=vs, layer=1,
+                                 fold_heads=True, int8_mxu=True)
+    assert_matches(got, flash_decode_attention_int8_mxu_plain(qd, k8_, v8, ks, vs, pos, 1, bk))
+    for out_dim, in_dim in ((4096 // tp, 4096), (4096, 4096 // tp), (4096, 14336 // tp),
+                            (128256 // tp, 4096)):
+        x, packed, scale = k8_case(gen, cuda, 1, out_dim, in_dim)
+        assert k8_takes(1, packed)
+        assert_matches(q4_matmul(x, packed, scale), q4_matmul_plain(x, packed, scale),
+                       K8_ATOL, K8_RTOL, K8_REL_L2)
+
+
+@pytest.fixture
+def one_rank_group(cuda):
+    """A one-rank process group in this process (``backend`` as the test
+    asks), torn down after."""
+    import torch.distributed as dist
+
+    from llama_nuts_and_bolts_tpu_torch.cli.main import free_port
+    from llama_nuts_and_bolts_tpu_torch.parallel import initialize_multihost
+
+    def start(backend):
+        initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend=backend)
+
+    yield start
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_one_nccl_rank_mesh_engine_is_bit_equal(cuda, one_rank_group, k):
+    """``make_mesh(tp=1)`` over NCCL: the engine with the mesh captures the
+    all-reduces and the logits all-gather into its decode graphs, and its
+    tokens, last logits and launches equal those of the engine without it,
+    bit for bit (a one-rank sum is its only term)."""
+    from llama_nuts_and_bolts_tpu_torch.parallel import make_mesh
+    from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import launch_counts
+
+    one_rank_group("nccl")
+    mesh = make_mesh(tp=1)
+    out = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        engine = tiny_engine(cuda, fused=False, mesh=m, decode_chunk=k)
+        before = launch_counts()
+        ids = [t for _, t in engine.generate_tokens(PROMPT_IDS, max_new_tokens=24)]
+        torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(launch_counts(), before))
+        slot = engine._slots[(1, 256)][0]
+        out[name] = (ids, slot.logits.clone(), launches)
+        assert any(g.graph is not None for g in engine._chunk_fns.values())
+    assert out["plain"][0] == out["mesh"][0]
+    assert torch.equal(out["plain"][1], out["mesh"][1])
+    assert out["plain"][2] == out["mesh"][2]
+
+
+@pytest.mark.gpu
+def test_engine_refuses_gloo_on_the_card(cuda, one_rank_group):
+    """Gloo's collectives cannot be captured: an engine on the card refuses
+    a gloo mesh instead of running it."""
+    from llama_nuts_and_bolts_tpu_torch.parallel import make_mesh
+
+    one_rank_group("gloo")
+    with pytest.raises(ValueError, match="gloo group on cuda.*cannot be captured"):
+        tiny_engine(cuda, fused=False, mesh=make_mesh(tp=1))
+
+
+@pytest.mark.gpu
+def test_cli_tp_refuses_more_ranks_than_cards(cuda):
+    from llama_nuts_and_bolts_tpu_torch.cli.main import check_cards
+
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match=f"--tp {n + 1} needs {n + 1} CUDA devices"):
+        check_cards(n + 1, "cuda")
+

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: neither its package nor chip_smoke.py
-imports JAX, Flax or anything of the JAX package (an AST scan, so dynamic
+"""The PyTorch port stands alone: neither its package (``parallel/``
+included) nor chip_smoke.py nor the tensor-parallel test ranks import JAX, Flax or anything of the JAX package (an AST scan, so dynamic
 imports inside functions count too), and its entry points default to the
 card with no silent CPU fallback."""
 
@@ -31,8 +31,12 @@ def imported_modules(path):
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # tests/tp_workers.py runs the tensor-parallel ranks: they import the port only
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "tests" / "tp_workers.py"]
     assert len(files) > 30
+    assert {"__init__.py", "mesh.py", "sharding.py", "kernel_shard.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
            for f in files for line, mod in imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]

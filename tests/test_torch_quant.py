@@ -191,10 +191,13 @@ def test_k8_split_at_main_path_shapes(name, R):
     (33, (16, 4096, 128), False),                                # a longer prefill
     (1, (2, 16, 4096, 128), False),                              # stacked layers
     (1, (4, 256, 512), True), (1, (2, 256, 640), False),         # K/2 past the build
-    (1, (16, 256, 64), False), (1, (16, 4160, 128), False)])     # not multiples of 128
+    (1, (16, 256, 64), False),                                   # K/2 not a multiple of 128
+    (1, (16, 4160, 128), True),                                  # out: 65 tiles of 64
+    (1, (16, 4128, 128), False)])                                # out not a multiple of 64
 def test_k8_takes_the_jax_routing_rule(rows, shape, takes):
     """ops/linear.py sends a Q4Tensor product to K8 on a card by the JAX
-    package's rule and the group sizes the kernel is built for."""
+    package's rule on rows and K/2, the group sizes the kernel is built
+    for, and out in whole tiles of K8_OUT_TILE rows (a tp rank's shard)."""
     assert k8.k8_takes(rows, torch.empty(shape, dtype=torch.uint8)) is takes
 
 
