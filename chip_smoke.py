@@ -35,8 +35,15 @@ NCCL rank (``make_mesh(tp=1)``) through generate_string on captured graphs,
 bit-equal to the engine without a mesh; two gloo ranks on the one card
 against the unsharded 32-layer forward; and, on a machine of 2 cards or
 more, NCCL at tp = min(4, cards) on the CLI's process model (one card: a
-line says it did not run). These run in child processes (``--tp-rank``)
-after the parent's models are freed. Every limit is also read against
+line says it did not run). Then tensor parallelism for serving (phases
+22-25): K6 through ``tp_paged_flash_decode`` at tp 2 and 4 rank shapes; one
+NCCL rank through the HTTP server (paged bf16 pool speculating, int8 pool,
+dense batcher on int4 weights and an int8 cache), texts, /metrics and
+launches equal to the server's without a mesh; two gloo ranks on the one
+card through the eager paged functions against the unsharded ones; and, on
+2 cards or more, the server at --tp min(4, cards) against one card's
+texts. These run in child processes (``--tp-rank``) after the parent's
+models are freed. Every limit is also read against
 planted faults, which must fail it. Any failed check exits non-zero.
 
 Run from the repository root: ``python3 chip_smoke.py``. The last line of
@@ -48,11 +55,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -3421,6 +3430,7 @@ TP_RANK_SHAPES = (2, 4)
 # random int4 weights' logits little (PERF.md). Every run reads both again.
 TP_REL_L2 = {"bf16": 0.1, "int4": 5e-4}
 TP_CHILD_TIMEOUT_S = 480
+TP_TEARDOWN_S = 60               # a rank's destroy_process_group, at most
 TP_DECODE_STEPS = 8
 
 
@@ -3591,10 +3601,13 @@ def run_tp_children(phase: str, world: int, timeout: float = TP_CHILD_TIMEOUT_S)
     results = []
     for r, p in enumerate(procs):
         path = os.path.join(out, f"rank{r}.json")
-        if p.returncode != 0 or not os.path.exists(path):
+        if p.returncode != 0:
             check_failed(f"phase {phase}: rank {r} exited with {p.returncode}")
+        if not os.path.exists(path):
             results.append(None)
             continue
+        # a rank that wrote its result and then failed (its teardown)
+        # still reports its numbers; the failed check above stands
         with open(path) as f:
             results.append(json.load(f))
         for msg in results[-1].get("failed", []):
@@ -3603,28 +3616,36 @@ def run_tp_children(phase: str, world: int, timeout: float = TP_CHILD_TIMEOUT_S)
 
 
 def tp_rank_main(phase: str, rank: int, world: int, port: int, out: str) -> int:
-    """A rank of phase B, C or D: join the group, run, write rank<r>.json."""
+    """A rank of phase B, C, D, F, G or H: join the group, run, write
+    rank<r>.json."""
     import torch.distributed as dist
 
     from llama_nuts_and_bolts_tpu_torch.parallel import initialize_multihost, make_mesh
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import leave_group
 
-    # phase C's two ranks share the one card: gloo (NCCL refuses a duplicate
-    # device); B and D drive a card a rank over NCCL
-    device = torch.device("cuda", 0 if phase == "C" else rank)
+    # phases C and G put two ranks on the one card: gloo (NCCL refuses a
+    # duplicate device); the others drive a card a rank over NCCL
+    shared = phase in ("C", "G")
+    device = torch.device("cuda", 0 if shared else rank)
     torch.cuda.set_device(device)
     initialize_multihost(f"127.0.0.1:{port}", world, rank,
-                         backend="gloo" if phase == "C" else "nccl")
+                         backend="gloo" if shared else "nccl")
     torch.cuda.reset_peak_memory_stats()
     tk, vocab = synthetic_tokenizer()
     mesh = make_mesh(tp=world)
-    result = {"B": tp_phase_b, "C": tp_phase_c, "D": tp_phase_d}[phase](
-        mesh, rank, tk, vocab, device)
+    result = {"B": tp_phase_b, "C": tp_phase_c, "D": tp_phase_d, "F": tp_phase_f,
+              "G": tp_phase_g, "H": tp_phase_h}[phase](mesh, rank, tk, vocab, device)
     result["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     log(f"phase {phase} rank {rank}: peak device memory {result['peak_memory_gib']:.2f} GiB")
     result["failed"] = list(FAILED)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
-    dist.destroy_process_group()
+    # every rank's work is done: a teardown that hangs dumps every thread's
+    # stack and ends the rank (code 1) instead of holding the phase
+    faulthandler.dump_traceback_later(TP_TEARDOWN_S, exit=True)
+    dist.barrier()
+    leave_group()
+    faulthandler.cancel_dump_traceback_later()
     return 0
 
 
@@ -4023,6 +4044,550 @@ def tp_graph_logits(mesh, rank, control, cfg, ids, cache_len, tk, vocab, device)
     return res
 
 
+# -- phases E-H (22-25): tensor parallelism for serving
+#
+# E: K6 through tp_paged_flash_decode at one rank's shapes, in this process.
+# F: one NCCL rank (make_mesh(tp=1)) through the server over HTTP, against the
+#    same server without a mesh, in a child process.
+# G: two gloo ranks on the one card, the eager paged model functions against
+#    the unsharded ones, in child processes.
+# H: the server at --tp min(4, cards) over NCCL, when there are 2 cards or
+#    more, in child processes; one card: a line says it did not run.
+
+TP_PAGED_CASES = (("B=4 at [3, 700, 2047, 1000]", [3, 700, 2047, 1000]),
+                  ("B=4 at 114", [114] * 4), ("every row at 2047", [2047] * 4),
+                  ("B=1 at 1850", [1850]))
+# Phase F: 8B width at SERVE_LAYERS_F layers (the server's host work a step
+# shrinks with depth, so three configurations twice fit the phase's time)
+SERVE_LAYERS_F = 4
+# Phase G: request B's prompt, then request C (its first 2048 tokens and
+# 500 of its own: a prefix-cache hit of 64 blocks), TP_DECODE_STEPS decode
+# steps of both rows on K6, one verify step of SPEC_K + 1 rows a slot. The
+# limits per logits row, between the sound reading and the planted fault's
+# (rank 1 skips its wo all-reduce), as phase C's (PERF.md).
+TP_PAGED_REL_L2 = {"bf16": 0.1, "int4": 5e-4}
+H_PROFILE_AT, H_PROFILE_STEPS = 16, 8     # phase H's profiled batched steps
+
+
+def tp_rank_paged(errs) -> list:
+    """Phase E: K6 and its int8 mode through ``tp_paged_flash_decode`` at
+    one rank's shapes of Llama-3.1-8B (tp 2: H 16, KV 4; tp 4: H 8, KV 2),
+    on a 32-layer pool of 32-position blocks, scattered tables of 64
+    entries, at PERF.md's shapes (TP_PAGED_CASES), each against its plain
+    version under the kernel limits, with the planted last-split fault,
+    timed (layers cycled) beside its bound and the gather path."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
+        paged_chunk, paged_flash_decode_int8_plain, paged_flash_decode_plain, paged_split)
+    from llama_nuts_and_bolts_tpu_torch.models.llama.paged import _gathered_attention
+    from llama_nuts_and_bolts_tpu_torch.parallel.kernel_shard import tp_paged_flash_decode
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows, M, L = [], 64, 32
+    for tp in TP_RANK_SHAPES:
+        with rank_heads(tp):
+            for int8 in (False, True):
+                n_blocks = 4 * M + 1
+                shape = (L, n_blocks, KV, BS, D)
+                if int8:
+                    (k, ks), (v, vs) = (int8_cache(shape, gen) for _ in range(2))
+                    scales = dict(pool_ks=ks, pool_vs=vs)
+                else:
+                    k, v, ks, vs, scales = randn(shape, gen), randn(shape, gen), None, None, {}
+                for label, positions in TP_PAGED_CASES:
+                    B = len(positions)
+                    tables = scattered_tables(B, M, n_blocks, seed=B + tp)
+                    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+                    q = randn((B, 1, H, D), gen)
+
+                    def plain(p, li=0):
+                        if int8:
+                            return paged_flash_decode_int8_plain(q, k, v, ks, vs, tables, p, li)
+                        return paged_flash_decode_plain(q, k, v, tables, p, li,
+                                                        paged_chunk(M, BS))
+
+                    what = (f"K6 {'int8' if int8 else 'bf16'} through tp_paged_flash_decode, "
+                            f"tp {tp} rank (H {H}, KV {KV}), {label}")
+                    got = tp_paged_flash_decode(None, q, k, v, tables, pos, layer=0, **scales)
+                    torch.cuda.synchronize()
+                    ref = plain(pos)
+                    tag = "K6i8" if int8 else "K6"
+                    errs[tag] = max(errs[tag], kernel_err(got, ref, what))
+                    rule = paged_split(B, KV, M, BS)
+                    if max(positions) // BS + 1 > rule:      # two splits or more
+                        kernel_err(tp_paged_flash_decode(
+                            None, q, k, v, tables, last_split_dropped(pos, M, rule),
+                            layer=0, **scales), ref,
+                            f"{what}, the last active split of {rule} entries dropped",
+                            planted=True)
+                    state = {"li": 0}
+
+                    def cycled(fn):
+                        def call():
+                            state["li"] = (state["li"] + 1) % L
+                            return fn(state["li"])
+                        return call
+
+                    ms, _ = cuda_ms(cycled(lambda li: tp_paged_flash_decode(
+                        None, q, k, v, tables, pos, layer=li, **scales)), iters=64)
+                    gather, _ = cuda_ms(cycled(lambda li: _gathered_attention(
+                        q, k[li], v[li], tables, pos,
+                        *((ks[li], vs[li]) if int8 else ()))), iters=16)
+                    plain_ms, _ = cuda_ms(lambda: plain(pos), iters=1, warmup=1)
+                    b_ms, b_by = bound_ms(*paged_work(positions, int8))
+                    log(f"{what}: {ms:.4f} ms (split {rule}; plain {plain_ms:.2f}, gather "
+                        f"path {gather:.4f}, bound {b_ms:.4f} by {b_by})")
+                    rows.append(dict(tp=tp, kernel=tag, case=label, ms=ms, plain_ms=plain_ms,
+                                     gather_path_ms=gather, bound_ms=b_ms, bound_by=b_by,
+                                     max_abs_err=errs[tag]))
+                del k, v, ks, vs
+                torch.cuda.empty_cache()
+    return rows
+
+
+def gated_traffic(srv, url, reqs) -> dict:
+    """``reqs`` through ``srv`` with the batcher held at its next step until
+    every request is submitted, one after another, so the batched steps
+    depend on nothing but the requests: the texts, the steps and the
+    launches are then the same on any server that computes alike. Returns
+    the results and the host ms of each batched step."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    b = srv.batcher
+    gate, submitted, step_ms = threading.Event(), [0], []
+    submit, step = b.submit, b.step
+
+    def counted_submit(*a, **kw):
+        req = submit(*a, **kw)
+        submitted[0] += 1
+        return req
+
+    def gated_step():
+        gate.wait()
+        t0 = time.perf_counter()
+        step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    b.submit, b.step = counted_submit, gated_step
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(max_workers=len(reqs)) as pool:
+            futures = []
+            for i, (_, path, body, stream) in enumerate(reqs):
+                futures.append(pool.submit(sse_request, url + path, body, stream))
+                deadline = time.perf_counter() + 60
+                while submitted[0] <= i and time.perf_counter() < deadline:
+                    time.sleep(0.001)
+            gate.set()
+            results = [f.result() for f in futures]
+    finally:
+        gate.set()
+        b.submit, b.step = submit, step
+    return dict(results=results, wall_s=time.perf_counter() - t0, step_ms=step_ms)
+
+
+F_CONFIGS = (("bf16 pool, n-gram speculation k = 4", dict(kv="bf16", paged=True, spec=SPEC_K)),
+             ("int8 pool (K6's int8 mode)", dict(kv="int8", paged=True, spec=0)),
+             ("dense batcher, int4 weights, int8 cache", dict(kv="int8", paged=False, spec=0,
+                                                             quant="int4")))
+
+
+def tp_phase_f(mesh, rank, tk, vocab, device) -> dict:
+    """Phase F: one NCCL rank (``make_mesh(tp=1)``) through the server over
+    HTTP, 8B width at SERVE_LAYERS_F layers, serving_requests' traffic
+    submitted in order (``gated_traffic``) on each of F_CONFIGS: the
+    bf16-pool paged batcher speculating (K6), the int8 pool (K6's int8
+    mode), the dense batcher on int4 weights and an int8 cache (K8, K4);
+    each on a server without a mesh and one with it. Texts, /metrics counts
+    and launches must be equal; the step record's cost reads in the host
+    ms of a batched step with and without the mesh."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel, init_random_params
+    from llama_nuts_and_bolts_tpu_torch.parallel import shard_params
+    from llama_nuts_and_bolts_tpu_torch.quant import init_random_params_q4
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.serving.server import LlamaHTTPServer
+
+    cfg = cfg_8b(SERVE_LAYERS_F)
+    out = {}
+    for name, c in F_CONFIGS:
+        params = (init_random_params_q4(cfg, seed=0, device=device) if c.get("quant")
+                  else init_random_params(cfg, seed=0, device=device))
+        runs = {}
+        for m in (None, mesh):
+            p = params if m is None else shard_params(params, m)
+            engine = InferenceEngine(
+                LoadedModel(params=p, cfg=cfg, vocab=vocab, mergeable_ranks=tk.mergeable_ranks,
+                            tensor_meta={}),
+                InferenceArgs(sequence_length=SERVE_CONTEXT, kv_cache_dtype=c["kv"],
+                              speculate_k=c["spec"],
+                              attn_impl="flash" if c["paged"] and c["kv"] == "int8" else "auto"),
+                device=device, mesh=m)
+            srv = LlamaHTTPServer(engine, continuous_slots=SERVE_SLOTS,
+                                  paged_blocks=SERVE_BLOCKS if c["paged"] else 0)
+            srv.prewarm()
+            url = f"http://127.0.0.1:{srv.start_background()}"
+            reset_counts()
+            traffic = gated_traffic(srv, url, serving_requests(int8=c["kv"] == "int8"))
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in read_counts().items() if n}
+            metrics = {line.split()[0]: line.split()[1]
+                       for line in srv.render_metrics().splitlines()
+                       if line.startswith("llama_") and "inflight" not in line
+                       and "seconds" not in line}
+            srv.shutdown()
+            tokens = float(metrics["llama_tokens_generated_total"])
+            steps = traffic["step_ms"]
+            runs["mesh" if m is not None else "plain"] = r = dict(
+                texts=[res[1] for res in traffic["results"]],
+                statuses=[res[0] for res in traffic["results"]], metrics=metrics,
+                launches=counts, aggregate_tok_s=tokens / traffic["wall_s"],
+                host_ms_per_step=sum(steps) / max(1, len(steps)), steps=len(steps))
+            log(f"phase F, {name}, {'mesh' if m is not None else 'no mesh'}: "
+                f"{r['aggregate_tok_s']:.2f} tok/s, {len(steps)} batched steps of "
+                f"{r['host_ms_per_step']:.3f} host ms, launches {counts}")
+            del srv, engine, p
+            torch.cuda.empty_cache()
+        same = {f: runs["plain"][f] == runs["mesh"][f]
+                for f in ("texts", "statuses", "metrics", "launches")}
+        log(f"phase F, {name}: texts, /metrics counts and launches with the mesh "
+            f"{'equal' if all(same.values()) else 'DIFFER: ' + str(same)} to those without; "
+            f"a batched step {runs['mesh']['host_ms_per_step'] - runs['plain']['host_ms_per_step']:+.3f} "
+            "host ms with the step record")
+        if not all(same.values()):
+            check_failed(f"phase F {name}: the mesh server differs ({same})")
+        if any(s != 200 for s in runs["mesh"]["statuses"]):
+            check_failed(f"phase F {name}: statuses {runs['mesh']['statuses']}")
+        out[name] = {m: {f: v for f, v in r.items() if f not in ("texts", "statuses")}
+                     for m, r in runs.items()}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def paged_g_run(params, cfg, mesh, pool, ids_b, ids_c, feed, device):
+    """Phase G's sequence on ``params`` and ``pool`` (shards under ``mesh``):
+    request B's prefill into blocks 1.., request C's prefill of its suffix
+    after a 2048-token hit on B's blocks, TP_DECODE_STEPS decode steps of
+    both on K6 ("flash"), one verify step of SPEC_K + 1 rows a slot; the
+    tokens fed are ``feed`` (the reference's greedy ones when None). The
+    logits rows and the tokens."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama.paged import (
+        paged_decode_step, paged_decode_step_spec, paged_prefill, paged_prefill_shared)
+
+    M, shared = 128, 2048
+    nb_b = -(-(len(ids_b) + TP_DECODE_STEPS + SPEC_K + 1) // BS)
+    table_b = torch.zeros(M, dtype=torch.int32, device=device)
+    table_b[:nb_b] = torch.arange(1, nb_b + 1, dtype=torch.int32)
+    table_c = table_b.clone()
+    nb_c = -(-(len(ids_c) + TP_DECODE_STEPS + SPEC_K + 1) // BS)
+    table_c[shared // BS:nb_c] = torch.arange(nb_b + 1, nb_b + 1 + nb_c - shared // BS,
+                                              dtype=torch.int32)
+
+    def padded(ids):
+        t = torch.zeros((1, -(-len(ids) // BS) * BS), dtype=torch.int32, device=device)
+        t[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+        return t
+
+    rows, toks = [], []
+    logits, _ = paged_prefill(params, cfg, padded(ids_b), len(ids_b) - 1, pool, table_b,
+                              mesh=mesh)
+    rows.append(logits[0])
+    suffix = ids_c[shared:]
+    logits, _ = paged_prefill_shared(params, cfg, padded(suffix), shared, len(suffix) - 1,
+                                     pool, table_c, mesh=mesh)
+    rows.append(logits[0])
+    tables = torch.stack([table_b, table_c])
+    pos = torch.tensor([len(ids_b), len(ids_c)], dtype=torch.int32, device=device)
+    last = torch.stack([rows[0], rows[1]])
+    for i in range(TP_DECODE_STEPS + 1):
+        step = (torch.argmax(last, -1).to(torch.int32) if feed is None else
+                torch.tensor(feed[i], dtype=torch.int32, device=device))
+        toks.append(step.tolist())
+        if i == TP_DECODE_STEPS:
+            break
+        last, _ = paged_decode_step(params, cfg, step[:, None], pos + i, pool, tables,
+                                    "flash", mesh=mesh)
+        rows += list(last)
+    drafts = torch.tensor([[(t + j) % 1000 for j in range(1, SPEC_K + 1)]
+                           for t in toks[-1]], dtype=torch.int32, device=device)
+    verify = torch.cat([torch.tensor(toks[-1], dtype=torch.int32, device=device)[:, None],
+                        drafts], dim=1)
+    logits, _ = paged_decode_step_spec(params, cfg, verify, pos + TP_DECODE_STEPS, pool,
+                                       tables, mesh=mesh)
+    rows += list(logits.reshape(-1, logits.shape[-1]))
+    return torch.stack(rows), toks
+
+
+def tp_phase_g(mesh, rank, tk, vocab, device) -> dict:
+    """Phase G: two gloo ranks on the one card, the eager paged model
+    functions on a rank's shards of the 32-layer 8B and of the pool
+    (``paged_g_run``: prefill, shared prefill, decode on K6 at 4 KV heads a
+    rank, the verify step), bf16 weights and pool, then int4 weights and an
+    int8 pool (K8, K6's int8 mode), against the unsharded functions that
+    rank 0 runs first, per logits row within TP_PAGED_REL_L2; then again
+    with rank 1 skipping its wo all-reduce, which must fail the limit. No
+    engine: the engine rightly refuses gloo on a card."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import init_random_params
+    from llama_nuts_and_bolts_tpu_torch.models.llama.paged import PagedKVPool
+    from llama_nuts_and_bolts_tpu_torch.parallel import shard_params, tp_size
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import broadcast, new_control_group
+    from llama_nuts_and_bolts_tpu_torch.quant import init_random_params_q4
+
+    cfg = cfg_8b(32)
+    tp = tp_size(mesh)
+    control = new_control_group()
+    ids_b = prompt_b_ids(tk, vocab)
+    ids_c = ids_b[:2048] + [(t * 7 + 3) % 100000 for t in ids_b[2048:2548]]
+    out = {}
+    for kind in ("bf16", "int4"):
+        whole = (init_random_params(cfg, seed=0, device=device) if kind == "bf16"
+                 else init_random_params_q4(cfg, seed=0, device=device))
+        shard = shard_params(whole, mesh)
+        dtype = torch.bfloat16 if kind == "bf16" else torch.int8
+
+        def pool(tp_):
+            return PagedKVPool.create(cfg, 1 + 2 * 128, BS, dtype, device=device, tp=tp_)
+
+        feed = ref = None
+        if rank == 0:
+            ref, feed = paged_g_run(whole, cfg, None, pool(1), ids_b, ids_c, None, device)
+        del whole
+        torch.cuda.empty_cache()
+        feed = broadcast(feed, control)
+        got, _ = paged_g_run(shard, cfg, mesh, pool(tp), ids_b, ids_c, feed, device)
+        with wo_all_reduce_skipped(rank):
+            planted, _ = paged_g_run(shard, cfg, mesh, pool(tp), ids_b, ids_c, feed, device)
+        res = out[kind] = {}
+        if rank == 0:
+            errs = [rel_l2(g, r) for g, r in zip(got, ref)]
+            bad = [rel_l2(g, r) for g, r in zip(planted, ref)]
+            limit = TP_PAGED_REL_L2[kind]
+            res.update(rel_l2_max=max(errs), rel_l2_min=min(errs), planted_min=min(bad),
+                       planted_max=max(bad), rows=len(errs), limit=limit)
+            log(f"phase G {kind}, tp {tp} on one card over gloo, 32 layers, paged: relative "
+                f"L2 per row (B's prefill, C's shared prefill, {TP_DECODE_STEPS} decode steps "
+                f"of 2 rows on K6, a verify step of 2 x {SPEC_K + 1} rows) {min(errs):.2e} to "
+                f"{max(errs):.2e}; planted fault (rank 1 skips its wo all-reduce) "
+                f"{min(bad):.2e} to {max(bad):.2e} (limit {limit})")
+            if not (max(errs) <= limit and bool(torch.isfinite(got).all())):
+                check_failed(f"phase G {kind}: the sharded paged functions are outside {limit}")
+            if min(bad) <= limit:
+                check_failed(f"phase G {kind}: the planted fault passes {limit}")
+        del shard, got, planted
+        torch.cuda.empty_cache()
+    return out
+
+
+def h_requests():
+    """Phase H's traffic: four streamed completions of 64 tokens (beside
+    them ``cancelled_stream`` sends the first again and leaves)."""
+    reqs = [(f"completion {i}", "/v1/completions",
+             {"prompt": f"Request {i} of the cyclic walk", "max_tokens": 64, "stream": True},
+             True) for i in range(4)]
+    return reqs
+
+
+def cancelled_stream(url, body, chunks: int = 4) -> int:
+    """A streamed request whose client goes away after ``chunks`` chunks."""
+    import http.client
+    from urllib.parse import urlparse
+
+    u = urlparse(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    conn.request("POST", "/v1/completions", json.dumps(dict(body, stream=True)))
+    resp = conn.getresponse()
+    seen = 0
+    while seen < chunks:
+        line = resp.fp.readline()
+        seen += line.startswith(b"data: ")
+    conn.sock.close()
+    conn.close()
+    return seen
+
+
+class StepProbe:
+    """Host wall of each batched step of a batcher on this rank, and its
+    device time under torch.profiler over steps H_PROFILE_AT onward (the
+    same steps on every rank: they run in lockstep). The profiler runs only
+    where the steps run on the main thread, the followers': rank 0 steps
+    in the server's batcher thread, where the profiler refuses to start
+    ("External init callback must run in same thread as registerClient")."""
+
+    def __init__(self, batcher, cuda: bool):
+        self.ms, self.prof, self.kernels = [], None, None
+        self.cuda = cuda
+        self.inner = batcher._step_once
+        batcher._step_once = self.step
+
+    def step(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        i = len(self.ms)
+        if (self.cuda and i == H_PROFILE_AT
+                and threading.current_thread() is threading.main_thread()):
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        t0 = time.perf_counter()
+        self.inner()
+        if self.cuda:
+            torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        if self.prof is not None and i == H_PROFILE_AT + H_PROFILE_STEPS - 1:
+            self.prof.__exit__(None, None, None)
+            self.kernels = [e for e in self.prof.key_averages() if e.self_device_time_total > 0]
+            self.prof = None
+
+    def summary(self) -> dict:
+        out = dict(steps=len(self.ms), host_ms_per_step=sum(self.ms) / max(1, len(self.ms)))
+        if self.kernels:
+            n = H_PROFILE_STEPS
+            wall = sum(self.ms[H_PROFILE_AT:H_PROFILE_AT + n]) / n
+            busy = sum(e.self_device_time_total for e in self.kernels) / 1e3 / n
+            nccl = [e for e in self.kernels if "nccl" in e.key.lower()]
+            out.update(profiled_wall_ms=wall, device_busy_ms=busy, idle=1 - busy / wall,
+                       kernels_per_step=sum(e.count for e in self.kernels) // n,
+                       nccl_kernels_per_step=sum(e.count for e in nccl) / n,
+                       nccl_ms_per_step=sum(e.self_device_time_total for e in nccl) / 1e3 / n)
+        return out
+
+
+def h_servers(mesh, rank, params, cfg, tk, vocab, device) -> dict:
+    """Phase H's servers on ``params`` (a rank's shards under ``mesh``):
+    the paged and the dense batcher, each with h_requests' traffic at once
+    and a request cancelled mid-stream, then the sequential server with a
+    streamed request whose client leaves and a blocking one after it. Rank
+    0 serves and returns each request's text and the aggregate tok/s;
+    every rank returns its batched steps' StepProbe summary."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.serving.server import LlamaHTTPServer
+
+    cuda = device.type == "cuda"
+    model = LoadedModel(params=params, cfg=cfg, vocab=vocab, mergeable_ranks=tk.mergeable_ranks,
+                        tensor_meta={})
+    out = {}
+    for kind, kw in (("paged", dict(continuous_slots=SERVE_SLOTS, paged_blocks=SERVE_BLOCKS)),
+                     ("dense", dict(continuous_slots=SERVE_SLOTS)), ("sequential", {})):
+        engine = InferenceEngine(model, InferenceArgs(sequence_length=SERVE_CONTEXT),
+                                 device=device, mesh=mesh)
+        srv = LlamaHTTPServer(engine, **kw)
+        probe = StepProbe(srv.batcher, cuda) if srv.batcher is not None else None
+        if rank != 0:
+            srv.follow()
+            out[kind] = {"steps": probe.summary() if probe else None}
+            continue
+        srv.prewarm()
+        url = f"http://127.0.0.1:{srv.start_background()}"
+        reset_counts()
+        t0 = time.perf_counter()
+        if srv.batcher is not None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            reqs = h_requests()
+            with ThreadPoolExecutor(max_workers=len(reqs) + 1) as pool:
+                futures = [pool.submit(sse_request, url + path, body, stream)
+                           for _, path, body, stream in reqs]
+                cut = pool.submit(cancelled_stream, url, reqs[0][2])
+                results = [f.result() for f in futures]
+                cut.result()
+        else:
+            cancelled_stream(url, h_requests()[0][2])
+            results = [sse_request(url + "/v1/completions",
+                                   {"prompt": "After the disconnect", "max_tokens": 32},
+                                   False)]
+        wall = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.synchronize()
+        launches = {k: n for k, n in read_counts().items() if n}
+        tokens = srv.metrics["tokens_generated_total"]
+        srv.shutdown()
+        out[kind] = dict(texts=[r[1] for r in results], statuses=[r[0] for r in results],
+                         aggregate_tok_s=tokens / wall, wall_s=wall, launches=launches,
+                         steps=probe.summary() if probe else None)
+        del srv, engine
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase_h(mesh, rank, tk, vocab, device, cfg=None) -> dict:
+    """Phase H: the server at tp = the world over NCCL, one card a rank, the
+    32-layer 8B constructed-cyclic model (bf16): rank 0 first runs the same
+    servers on the whole model on its card (``h_servers`` without a mesh);
+    then every rank serves its shards in lockstep. Every request's text must
+    equal the single card's. ``cfg`` (a tiny one) runs the phase over gloo
+    on the CPU, a check before a multi-card call."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import init_random_params
+    from llama_nuts_and_bolts_tpu_torch.parallel import shard_params, tp_size
+
+    cfg = cfg or cfg_8b(32)
+    if device.type == "cuda":
+        # the first profiler session of a process starts slowly: not in the
+        # profiled steps, where the other ranks would wait for it in NCCL
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.ones(1, device=device).add_(1)
+            torch.cuda.synchronize()
+    whole = cyclic_params(init_random_params(cfg, seed=0, device=device), SPEC_CYCLE)
+    out = {"tp": tp_size(mesh)}
+    if rank == 0:
+        out["single"] = h_servers(None, 0, whole, cfg, tk, vocab, device)
+    shard = shard_params(whole, mesh)
+    del whole
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["mesh"] = h_servers(mesh, rank, shard, cfg, tk, vocab, device)
+    if rank == 0:
+        for kind, res in out["mesh"].items():
+            same = res["texts"] == out["single"][kind]["texts"]
+            ok = same and all(s == 200 for s in res["statuses"])
+            log(f"phase H, {kind}, tp {out['tp']}: every request's text "
+                f"{'equals' if same else 'DIFFERS from'} the single card's; "
+                f"{res['aggregate_tok_s']:.2f} aggregate tok/s (single card "
+                f"{out['single'][kind]['aggregate_tok_s']:.2f}); steps {res['steps']}")
+            if not ok:
+                check_failed(f"phase H {kind}: the tp server's texts differ from one card's")
+    return out
+
+
+def tp_phase_h_parent(tp: int) -> dict:
+    """Phase H's ranks; each rank's batched-step summary beside rank 0's
+    traffic."""
+    log(f"phase 25 (tp H): the server at --tp {tp} over NCCL, 32-layer cyclic 8B")
+    ranks = run_tp_children("H", tp)
+    if any(r is None for r in ranks):
+        return {"ran": True, "tp": tp, "ranks": ranks}
+    summary = {"ran": True, "tp": tp,
+               "single": {k: {f: v for f, v in d.items() if f != "texts"}
+                          for k, d in ranks[0]["single"].items()},
+               "mesh": {k: {f: v for f, v in d.items() if f != "texts"}
+                        for k, d in ranks[0]["mesh"].items()},
+               "ranks": [{k: d["steps"] for k, d in r["mesh"].items()}
+                         | {"peak_memory_gib": r["peak_memory_gib"]} for r in ranks]}
+    log(f"phase H: {json.dumps(summary)}")
+    return summary
+
+
+def tp_serving_phases(errs) -> dict:
+    """Phases 22-25 (E-H), after phases 18-21."""
+    log("phase 22 (tp E): K6 through tp_paged_flash_decode at one rank's shapes")
+    out = {"E": tp_rank_paged(errs)}
+    torch.cuda.empty_cache()
+    log("phase 23 (tp F): one NCCL rank through the server over HTTP, with and without "
+        "the mesh")
+    out["F"] = (run_tp_children("F", 1) or [None])[0]
+    log("phase 24 (tp G): two gloo ranks on the one card, the eager paged functions")
+    out["G"] = run_tp_children("G", 2)[0]
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"phase 25 (tp H): the server at --tp > 1 needs 2 or more cards; this machine "
+            f"has {cards}, so phase H did not run")
+        out["H"] = {"ran": False, "cards": cards}
+    else:
+        out["H"] = tp_phase_h_parent(min(4, cards))
+    return out
+
+
 def tp_phases(errs, results, tk, vocab) -> dict:
     """Phases 18-21 (A-D), after the parent has freed its models."""
     log("phase 18 (tp A): K1, K2, K4 and K8 at one tp rank's shapes of the 8B")
@@ -4109,6 +4674,7 @@ def main() -> int:
     single = single_device_paths(tk, vocab)
     torch.cuda.empty_cache()
     tp = tp_phases(errs, results, tk, vocab)
+    tps = tp_serving_phases(errs)
     # the speculative paths' launches join their kernels' counts, and so do
     # the probe's requests (its timed graphs included), the narrated prefill,
     # the traced prefill and decode step and the sharded load's prefills
@@ -4127,15 +4693,21 @@ def main() -> int:
         row["launches"] = (serving["launches"][tag] + serving8["launches"][tag]
                            + sum(c.get(tag, 0) for c in spec_launches))
     rows += srows + srows8
-    # the per-rank shapes of phase A join their kernels' rows, and phase B's
-    # mesh engine's launches (the main path under a mesh) their counts
+    # the per-rank shapes of phases A and E join their kernels' rows, and the
+    # launches of phase B's mesh engine and phase F's mesh servers (the main
+    # paths under a mesh) their counts
     mesh_launches = [run["mesh"]["launches"] for kind in (tp["B"] or {}).values()
                      if isinstance(kind, dict) for run in kind.values()
                      if isinstance(run, dict) and "launches" in run.get("mesh", ())]
+    mesh_launches += [runs["mesh"]["launches"] for runs in (tps["F"] or {}).values()
+                      if isinstance(runs, dict) and "mesh" in runs]
     for row in rows:
         tag = "K" + row["name"].split("(K")[-1].rstrip(")")
+        tag = "K6i8" if tag == "K6" and "int8" in row["name"] else tag
         if tag in tp["A"]:
             row["tp_rank_shapes"] = tp["A"][tag]
+        if tag in ("K6", "K6i8"):
+            row["tp_rank_shapes"] = [r for r in tps["E"] if r["kernel"] == tag]
         row["launches"] += sum(c.get(tag, 0) for c in mesh_launches)
     rows.sort(key=lambda r: r["name"].split("(K")[-1])
     log(f"summary: {json.dumps(results)}")
@@ -4150,6 +4722,8 @@ def main() -> int:
     log(f"summary, probe, narration, native BPE, shards: {json.dumps(single)}")
     log(f"summary, tensor parallelism (phases B-D): "
         f"{json.dumps({k: v for k, v in tp.items() if k != 'A'})}")
+    log(f"summary, tensor parallelism for serving (phases F-H): "
+        f"{json.dumps({k: v for k, v in tps.items() if k != 'E'})}")
     if FAILED:
         fail(f"{len(FAILED)} checks failed: " + "; ".join(FAILED))
     log(f"total {time.perf_counter() - T_START:.1f}s on {smi}")
@@ -4167,7 +4741,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:
-        # a rank of phase B, C or D (run_tp_children)
+        # a rank of phase B, C, D, F, G or H (run_tp_children)
         phase, rank, world, port, out_dir = sys.argv[2:7]
         sys.exit(tp_rank_main(phase, int(rank), int(world), int(port), out_dir))
     sys.exit(main())

@@ -8,15 +8,13 @@ path, with bf16, int8 or int4 weights (``--quant``), a bf16 or int8 KV cache
 (``--narrate``) and tensor parallelism (``--tp N``). Runs on ``cuda`` unless
 ``--device cpu`` is given.
 
-``--tp N`` is one command, as in the JAX package, but PyTorch runs one
-process per device: this process is rank 0 and starts N - 1 followers
-(``torch.multiprocessing``, spawned), which meet it at a free localhost port.
-Rank r drives ``cuda:r`` over NCCL (on the CPU, with ``--device cpu``, the
-group is gloo). Rank 0 owns the console: it reads the prompt, broadcasts
-each request's token ids to the followers over a gloo group of its own
-(a person may take minutes to type), then a quit sentinel. Every rank runs
-the same engine calls in lockstep on its shards; the followers' output is
-discarded. ``--tp N`` with fewer than N cards raises.
+``--tp N`` is one command, as in the JAX package, on the process model of
+``parallel/launch.py`` (shared with the server): this process is rank 0
+and starts N - 1 followers. Rank 0 owns the console: it reads the prompt,
+broadcasts each request's token ids to the followers over the control
+group (a person may take minutes to type), then a quit sentinel. Every
+rank runs the same engine calls in lockstep on its shards; the followers'
+output is discarded. ``--tp N`` with fewer than N cards raises.
 
 Run: ``python -m llama_nuts_and_bolts_tpu_torch.cli [flags]``
 """
@@ -25,15 +23,20 @@ from __future__ import annotations
 
 import argparse
 import os
-import socket
 import sys
 from dataclasses import dataclass
-from datetime import timedelta
 from typing import List, Optional
 
 from llama_nuts_and_bolts_tpu_torch.cli.console import AppState
 from llama_nuts_and_bolts_tpu_torch.device import resolve_device
 from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs, find_model_dir
+from llama_nuts_and_bolts_tpu_torch.parallel.launch import (  # noqa: F401 (re-exported)
+    broadcast,
+    check_cards,
+    free_port,
+    launch,
+    rank_group,
+)
 from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
 from llama_nuts_and_bolts_tpu_torch.runtime.types import GenerationState
 from llama_nuts_and_bolts_tpu_torch.tokenizer import PromptPart
@@ -289,93 +292,18 @@ def main(argv=None) -> int:
 
 # ------------------------------------------------------- tensor parallelism
 
-FOLLOWER_JOIN_S = 120.0      # how long rank 0 waits for a follower to exit
-
-
-def check_cards(tp: int, device: str) -> None:
-    """``--tp N`` on cards needs N of them: one rank a card, no sharing."""
-    if device != "cuda":
-        return
-    resolve_device("cuda")
-    import torch
-
-    n = torch.cuda.device_count()
-    if n < tp:
-        raise RuntimeError(f"--tp {tp} needs {tp} CUDA devices (one a rank); this "
-                           f"machine has {n}")
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
 
 def run_tensor_parallel(argv: List[str], args) -> int:
-    """Rank 0 of ``--tp N``: start the followers, run, and wait for them;
-    nonzero if any rank failed."""
-    import torch.multiprocessing as mp
-
-    check_cards(args.tp, args.device)
-    port = free_port()
-    ctx = mp.get_context("spawn")
-    followers = [ctx.Process(target=_follower, args=(argv, r, args.tp, port), daemon=True)
-                 for r in range(1, args.tp)]
-    for f in followers:
-        f.start()
-    ok = False
-    try:
-        rc = _run_rank(args, 0, port)
-        ok = True
-    finally:
-        for f in followers:
-            f.join(FOLLOWER_JOIN_S if ok else 5.0)
-            if f.is_alive():
-                f.terminate()
-                f.join()
-    failed = [r for r, f in enumerate(followers, 1) if f.exitcode != 0]
-    if failed:
-        print(f"error: tensor-parallel ranks {failed} exited with "
-              f"{[followers[r - 1].exitcode for r in failed]}", file=sys.stderr)
-        return 1
-    return rc
+    """Rank 0 of ``--tp N`` (``parallel/launch.py``): start the followers,
+    run, and wait for them; nonzero if any rank failed."""
+    return launch(_run_rank, argv, args.tp, args.device)
 
 
-def _follower(argv: List[str], rank: int, tp: int, port: int) -> None:
-    sys.stdout = open(os.devnull, "w")      # rank 0 owns the console
-    sys.exit(_run_rank(parse_args(argv), rank, port))
-
-
-def _run_rank(args, rank: int, port: int) -> int:
-    """Join the group as ``rank`` of ``args.tp``, build the mesh and run."""
-    import torch
-    import torch.distributed as dist
-
-    from llama_nuts_and_bolts_tpu_torch.parallel import initialize_multihost, make_mesh
-
-    cuda = args.device == "cuda"
-    if cuda:
-        torch.cuda.set_device(rank)
-    else:
-        # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.tp))
-    initialize_multihost(f"127.0.0.1:{port}", args.tp, rank,
-                         backend="nccl" if cuda else "gloo")
-    try:
-        control = dist.new_group(backend="gloo", timeout=timedelta(days=1))
-        device = resolve_device(torch.device("cuda", rank) if cuda else "cpu")
-        return run(args, device, make_mesh(tp=args.tp), rank, control)
-    finally:
-        dist.destroy_process_group()
-
-
-def _broadcast(obj, control):
-    """Rank 0's ``obj`` on every rank of the control group."""
-    import torch.distributed as dist
-
-    box = [obj]
-    dist.broadcast_object_list(box, src=0, group=control)
-    return box[0]
+def _run_rank(argv: List[str], rank: int, port: int) -> int:
+    """One rank of ``--tp N``: join the group, build the mesh and run."""
+    args = parse_args(argv)
+    with rank_group(rank, args.tp, port, args.device) as (device, mesh, control):
+        return run(args, device, mesh, rank, control)
 
 
 def run(args, device, mesh=None, rank: int = 0, control=None) -> int:
@@ -465,7 +393,7 @@ def run(args, device, mesh=None, rank: int = 0, control=None) -> int:
 
     if rank > 0:
         # follow rank 0's requests until its quit sentinel (None)
-        while (tokens := _broadcast(None, control)) is not None:
+        while (tokens := broadcast(None, control)) is not None:
             run_generation(engine, tokens, app, narrate=args.narrate)
         return 0
 
@@ -480,10 +408,10 @@ def run(args, device, mesh=None, rank: int = 0, control=None) -> int:
 
     tokens = prompt_tokens(engine, prompt_input)
     if mesh is not None:
-        _broadcast(tokens, control)
+        broadcast(tokens, control)
     state = run_generation(engine, tokens, app, narrate=args.narrate)
     if mesh is not None:
-        _broadcast(None, control)
+        broadcast(None, control)
     reason = {
         GenerationState.FINISHED_BY_REACHING_EOS: "reaching EOS token",
         GenerationState.FINISHED_BY_REACHING_SEQ_LEN: "reaching sequence length",

@@ -25,6 +25,13 @@ slots x context.
   * The speculative verify step (``paged_decode_step_spec``) runs S = k+1
     rows a slot at per-row positions, always on the gather path, as in the
     JAX package (K6 is S=1-shaped).
+  * Under a tensor-parallel ``mesh`` (``parallel/``) the params and the pool
+    are this rank's shards (``shard_params``, ``shard_pool``): the heads and
+    KV heads are the local ones, read off the shards' shapes; decode
+    attention runs K6 through ``tp_paged_flash_decode``; ``wo`` and
+    ``w_down`` end in ``model.py``'s all-reduce (``_row_linear``) and the
+    head in its vocab all-gather (``output_head``), so every rank holds the
+    whole logits row. The block tables and positions are every rank's.
 
 Split-layout weights only (``w["wq"]``...), as in the JAX package.
 """
@@ -39,9 +46,16 @@ import torch
 from llama_nuts_and_bolts_tpu_torch.device import resolve_device
 from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
 from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import paged_flash_decode
-from llama_nuts_and_bolts_tpu_torch.models.llama.model import LlamaParams, quantize_kv_rows
+from llama_nuts_and_bolts_tpu_torch.models.llama.model import (
+    LlamaParams,
+    _check_shards,
+    _row_linear,
+    output_head,
+    quantize_kv_rows,
+)
 from llama_nuts_and_bolts_tpu_torch.models.llama.rope import apply_rope
-from llama_nuts_and_bolts_tpu_torch.ops import gqa_attention, linear, rms_norm, swiglu
+from llama_nuts_and_bolts_tpu_torch.ops import gqa_attention, linear, rms_norm, swiglu_act
+from llama_nuts_and_bolts_tpu_torch.parallel.kernel_shard import tp_paged_flash_decode
 
 TRASH_BLOCK = 0
 DEFAULT_BLOCK_SIZE = 32
@@ -62,13 +76,15 @@ class PagedKVPool:
     @classmethod
     def create(cls, cfg: ModelArgs, n_blocks: int,
                block_size: int = DEFAULT_BLOCK_SIZE, dtype=torch.bfloat16,
-               device=None) -> "PagedKVPool":
+               device=None, tp: int = 1) -> "PagedKVPool":
+        """A zeroed pool; ``tp`` > 1 makes one rank's shard, ``kv_heads / tp``
+        of them (the pool ``shard_pool`` cuts from a whole zeroed one)."""
         if n_blocks < 2:
             raise ValueError("need at least one real block beyond the trash block")
         if dtype not in (torch.bfloat16, torch.int8):
             raise ValueError(f"the pool is bf16 or int8, got {dtype}")
         dev = resolve_device(device)
-        shape = (cfg.n_layers, n_blocks, cfg.kv_heads, block_size, cfg.head_dim)
+        shape = (cfg.n_layers, n_blocks, cfg.kv_heads // tp, block_size, cfg.head_dim)
         pool = cls(k=torch.zeros(shape, dtype=dtype, device=dev),
                    v=torch.zeros(shape, dtype=dtype, device=dev))
         if dtype == torch.int8:
@@ -161,26 +177,28 @@ def _check_impl(attn_impl: str) -> None:
 
 
 def _project(x, w, cfg: ModelArgs, cos, sin):
-    """RMSNorm, q/k/v projections and RoPE: ``q [B,S,H,D]``, ``k/v [B,S,KV,D]``."""
+    """RMSNorm, q/k/v projections and RoPE: ``q [B,S,H,D]``, ``k/v [B,S,KV,D]``,
+    H and KV the weights' (a rank's under a mesh)."""
     B, S = x.shape[:2]
-    H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    D = cfg.head_dim
     h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
-    q = linear(h, w["wq"]).reshape(B, S, H, D)
-    k = linear(h, w["wk"]).reshape(B, S, KV, D)
-    v = linear(h, w["wv"]).reshape(B, S, KV, D)
+    q = linear(h, w["wq"]).reshape(B, S, -1, D)
+    k = linear(h, w["wk"]).reshape(B, S, -1, D)
+    v = linear(h, w["wv"]).reshape(B, S, -1, D)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _finish_block(x, att, w, cfg: ModelArgs):
+def _finish_block(x, att, w, cfg: ModelArgs, mesh):
+    """``wo`` and the SwiGLU feed-forward with their residuals; under a mesh
+    each row-split product ends in the all-reduce."""
     B, S = x.shape[:2]
-    x = x + linear(att.reshape(B, S, cfg.n_heads * cfg.head_dim), w["wo"])
+    x = x + _row_linear(att.reshape(B, S, -1), w["wo"], mesh)
     h2 = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
-    return x + swiglu(h2, w["w_gate"], w["w_up"], w["w_down"])
+    return x + _row_linear(swiglu_act(h2, w["w_gate"], w["w_up"]), w["w_down"], mesh)
 
 
-def _logits_row(params: LlamaParams, cfg: ModelArgs, x, logits_at: int):
-    x = rms_norm(x[:, logits_at:logits_at + 1], params.norm, cfg.norm_eps)
-    return linear(x[:, 0], params.output, out_dtype=torch.float32)   # [1, vocab]
+def _logits_row(params: LlamaParams, cfg: ModelArgs, x, logits_at: int, mesh):
+    return output_head(params, cfg, x, logits_at, mesh)[:, 0]        # [1, vocab]
 
 
 def _causal_mask(S: int, device) -> torch.Tensor:
@@ -211,6 +229,7 @@ def paged_prefill(
     logits_at: int,             # the prompt's last real row
     pool: PagedKVPool,
     table_row: torch.Tensor,    # int32 [max_blocks]: this request's blocks
+    mesh=None,                  # tensor-parallel DeviceMesh: params/pool are shards
 ) -> Tuple[torch.Tensor, PagedKVPool]:
     """Prefill a fresh request (positions 0..S-1) into its pool blocks.
     Never reads the pool. Returns (logits ``[1, vocab]`` at ``logits_at``,
@@ -218,6 +237,8 @@ def paged_prefill(
     B, S = tokens.shape
     if B != 1:
         raise ValueError("paged_prefill handles one request at a time")
+    if mesh is not None:
+        _check_shards(params, cfg, pool, mesh)
     if S % pool.block_size:
         raise ValueError(f"prefill length {S} must be a multiple of the "
                          f"block size {pool.block_size}")
@@ -229,8 +250,8 @@ def paged_prefill(
         q, k, v = _project(x, w, cfg, cos, sin)
         k, v = _write_prompt_rows(pool, li, k.transpose(1, 2), v.transpose(1, 2),
                                   table_row)
-        x = _finish_block(x, gqa_attention(q, k, v, mask), w, cfg)
-    return _logits_row(params, cfg, x, logits_at), pool
+        x = _finish_block(x, gqa_attention(q, k, v, mask), w, cfg, mesh)
+    return _logits_row(params, cfg, x, logits_at, mesh), pool
 
 
 def paged_prefill_shared(
@@ -241,6 +262,7 @@ def paged_prefill_shared(
     logits_at: int,             # suffix-local index of the last real row
     pool: PagedKVPool,
     table_row: torch.Tensor,    # int32 [max_blocks]: shared + owned blocks
+    mesh=None,                  # tensor-parallel DeviceMesh: params/pool are shards
 ) -> Tuple[torch.Tensor, PagedKVPool]:
     """Suffix-only prefill for a prefix-cache hit: the first ``shared_len``
     positions already live in the table row's first blocks (written by an
@@ -251,11 +273,13 @@ def paged_prefill_shared(
     B, S = tokens.shape
     if B != 1:
         raise ValueError("paged_prefill_shared handles one request at a time")
+    if mesh is not None:
+        _check_shards(params, cfg, pool, mesh)
     bs = pool.block_size
     if S % bs or shared_len % bs:
         raise ValueError(f"suffix length {S} and shared length {shared_len} must "
                          f"be multiples of the block size {bs}")
-    KV, D = cfg.kv_heads, cfg.head_dim
+    KV, D = pool.k.shape[2], cfg.head_dim      # a rank's KV heads under a mesh
     M = table_row.shape[0]
     dev = tokens.device
     x = params.tok_embeddings[tokens.long()]
@@ -289,8 +313,8 @@ def paged_prefill_shared(
         else:
             pk, pv = gather_prefix(pool.k[li]), gather_prefix(pool.v[li])
         att = gqa_attention(q, torch.cat([pk, k], dim=2), torch.cat([pv, v], dim=2), mask)
-        x = _finish_block(x, att, w, cfg)
-    return _logits_row(params, cfg, x, logits_at), pool
+        x = _finish_block(x, att, w, cfg, mesh)
+    return _logits_row(params, cfg, x, logits_at, mesh), pool
 
 
 def paged_decode_step(
@@ -301,11 +325,15 @@ def paged_decode_step(
     pool: PagedKVPool,
     tables: torch.Tensor,       # int32 [B, max_blocks]
     attn_impl: str = "plain",   # "plain" | "flash"
+    mesh=None,                  # tensor-parallel DeviceMesh: params/pool are shards
 ) -> Tuple[torch.Tensor, PagedKVPool]:
     """One batched decode step over paged caches. Returns (logits ``[B,
     vocab]``, the pool, written in place). Rows whose table is all trash
-    still step harmlessly."""
+    still step harmlessly. Under a mesh ``"flash"`` runs K6 on this rank's
+    heads (``tp_paged_flash_decode``)."""
     _check_impl(attn_impl)
+    if mesh is not None:
+        _check_shards(params, cfg, pool, mesh)
     B = tokens.shape[0]
     bs = pool.block_size
     x = params.tok_embeddings[tokens.long()]                   # [B, 1, dim]
@@ -328,7 +356,10 @@ def paged_decode_step(
         else:
             _write_rows(pool.k[li], k[:, 0], blocks, offsets)
             _write_rows(pool.v[li], v[:, 0], blocks, offsets)
-        if attn_impl == "flash":
+        if attn_impl == "flash" and mesh is not None:
+            att = tp_paged_flash_decode(mesh, q, pool.k, pool.v, tables, positions,
+                                        layer=li, **scales)
+        elif attn_impl == "flash":
             # K6 reads the layer's blocks straight from the stacked pool
             att = paged_flash_decode(q, pool.k, pool.v, tables, positions, layer=li,
                                      **scales)
@@ -337,9 +368,8 @@ def paged_decode_step(
                             {"pool_ks": pool.k_scale[li], "pool_vs": pool.v_scale[li]})
             att = _gathered_attention(q, pool.k[li], pool.v[li], tables, positions,
                                       **layer_scales)
-        x = _finish_block(x, att, w, cfg)
-    x = rms_norm(x, params.norm, cfg.norm_eps)
-    return linear(x[:, 0], params.output, out_dtype=torch.float32), pool
+        x = _finish_block(x, att, w, cfg, mesh)
+    return output_head(params, cfg, x, None, mesh)[:, 0], pool
 
 
 def paged_decode_step_spec(
@@ -349,6 +379,7 @@ def paged_decode_step_spec(
     positions: torch.Tensor,    # int32 [B]: position of each row's FEED token
     pool: PagedKVPool,
     tables: torch.Tensor,       # int32 [B, max_blocks]
+    mesh=None,                  # tensor-parallel DeviceMesh: params/pool are shards
 ) -> Tuple[torch.Tensor, PagedKVPool]:
     """Speculative verification step over paged caches: row j of slot b runs
     at position ``positions[b] + j`` (clamped to the table's last slot, as
@@ -360,6 +391,8 @@ def paged_decode_step_spec(
     blocks write to the trash block. Rejected rows' K/V land beyond the
     accepted point and stay unseen until overwritten. Always the gather
     path."""
+    if mesh is not None:
+        _check_shards(params, cfg, pool, mesh)
     B, S = tokens.shape
     bs = pool.block_size
     max_pos = tables.shape[1] * bs - 1
@@ -391,6 +424,5 @@ def paged_decode_step_spec(
             write(pool.v[li], v)
         att = _gathered_attention(q, pool.k[li], pool.v[li], tables, positions,
                                   **layer_scales)
-        x = _finish_block(x, att, w, cfg)
-    x = rms_norm(x, params.norm, cfg.norm_eps)
-    return linear(x, params.output, out_dtype=torch.float32), pool
+        x = _finish_block(x, att, w, cfg, mesh)
+    return output_head(params, cfg, x, None, mesh), pool

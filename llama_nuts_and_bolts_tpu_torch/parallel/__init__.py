@@ -1,5 +1,6 @@
 """Tensor parallelism over ``torch.distributed``: the mesh, the Megatron
-splits, and the attention kernels on a rank's head shard."""
+splits of the weights, the dense cache and the paged pool, the attention
+kernels on a rank's head shard, and the one-process-a-rank launch."""
 
 from llama_nuts_and_bolts_tpu_torch.parallel.mesh import (
     initialize_multihost,
@@ -9,9 +10,11 @@ from llama_nuts_and_bolts_tpu_torch.parallel.mesh import (
 )
 from llama_nuts_and_bolts_tpu_torch.parallel.sharding import (
     param_sharding_fn,
+    pool_sharding,
     shard_cache,
     shard_params,
+    shard_pool,
 )
 
-__all__ = ["initialize_multihost", "make_mesh", "param_sharding_fn", "shard_cache",
-           "shard_params", "tp_rank", "tp_size"]
+__all__ = ["initialize_multihost", "make_mesh", "param_sharding_fn", "pool_sharding",
+           "shard_cache", "shard_params", "shard_pool", "tp_rank", "tp_size"]

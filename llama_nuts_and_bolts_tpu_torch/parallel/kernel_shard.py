@@ -8,11 +8,14 @@ port already holds only its rank's heads (``parallel/sharding.py``), so each
 function here checks that the shard keeps whole GQA groups, the group the
 kernels are built for, and calls the kernel on the local heads:
 
-  q          [B, S, H/tp, D]
-  k/v cache  [B, KV/tp, T, D]  ([L, B, KV/tp, T, D] with ``layer``)
-  kv scales  [B, KV/tp, T]     ([L, B, KV/tp, T])
+  q            [B, S, H/tp, D]
+  k/v cache    [B, KV/tp, T, D]            ([L, B, KV/tp, T, D] with ``layer``)
+  kv scales    [B, KV/tp, T]               ([L, B, KV/tp, T])
+  paged pool   [n_blocks, KV/tp, bs, D]    ([L, n_blocks, KV/tp, bs, D] with ``layer``)
+  pool scales  [n_blocks, KV/tp, bs]       ([L, n_blocks, KV/tp, bs])
 
-``tp_paged_flash_decode`` (K6 over a sharded pool) waits for ROADMAP item 17b.
+The block tables and positions of the paged pool are replicated: the batch
+lives in them, not on a mesh axis.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
     K2_GROUP,
     flash_decode_attention,
 )
+from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import paged_flash_decode
 from llama_nuts_and_bolts_tpu_torch.parallel.mesh import tp_size
 
 
@@ -53,3 +57,16 @@ def tp_flash_gqa_attention(mesh, q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     """``flash_gqa_attention`` (K1, prefill) on this rank's heads."""
     _check_shard(mesh, q, k.shape[1], K1_GROUP)
     return flash_gqa_attention(q, k, v, start_pos)
+
+
+def tp_paged_flash_decode(mesh, q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                          tables: torch.Tensor, positions, layer: Optional[int] = None,
+                          pool_ks: Optional[torch.Tensor] = None,
+                          pool_vs: Optional[torch.Tensor] = None,
+                          split: Optional[int] = None) -> torch.Tensor:
+    """``paged_flash_decode`` (K6, its int8 mode for an int8 pool) on this
+    rank's heads of a sharded pool: ``[B, 1, H/tp, D]``. ``tables [B, M]``
+    and ``positions`` are every rank's."""
+    _check_shard(mesh, q, pool_k.shape[-3], K2_GROUP)
+    return paged_flash_decode(q, pool_k, pool_v, tables, positions, layer=layer,
+                              pool_ks=pool_ks, pool_vs=pool_vs, split=split)

@@ -26,8 +26,12 @@ ranks). A dense axis that tp does not divide is refused, as JAX's
 ``device_put`` refuses it.
 
 The dense cache ``[L, B, KV, T, hd]`` (and int8 scales ``[L, B, KV, T]``)
-keeps its rank's KV heads. The paged pool, the batch (``dp``) axis and the
-int4 load shardings of the JAX package wait for ROADMAP item 17b.
+keeps its rank's KV heads, and so does the paged pool ``[L, n_blocks, KV,
+bs, hd]`` (int8 scale pools ``[L, n_blocks, KV, bs]``): block writes, the
+gather path and K6 all stay on the rank, and the batch lives in the block
+tables, which every rank holds whole. The batch (``dp``) axis
+(``token_sharding``) and the int4 load shardings (``q4_shardings``) of the
+JAX package wait for ROADMAP item 17b.
 """
 
 from __future__ import annotations
@@ -158,6 +162,33 @@ def shard_cache_for(cache, rank: int, tp: int):
 def shard_cache(cache, mesh):
     """This process's KV heads of a whole dense cache."""
     return shard_cache_for(cache, tp_rank(mesh), tp_size(mesh))
+
+
+POOL_SPEC: Spec = (None, None, "tp", None, None)    # [L, n_blocks, KV, bs, hd]
+
+
+def pool_sharding(mesh=None) -> Spec:
+    """The paged pool's spec (the JAX package's ``pool_sharding(mesh)``): KV
+    heads on tp, no dp axis (the batch lives in the block tables). An int8
+    pool's scale pools take it without the head dim."""
+    return POOL_SPEC
+
+
+def shard_pool_for(pool, rank: int, tp: int):
+    """Rank ``rank``'s KV heads of a paged pool (bf16, or int8 with scale
+    pools), as a pool of its own: a pure function of its arguments."""
+    def cut(t):
+        return None if t is None else _take(t, POOL_SPEC[:t.dim()], rank, tp).clone(
+            memory_format=torch.contiguous_format)
+
+    return type(pool)(k=cut(pool.k), v=cut(pool.v), k_scale=cut(pool.k_scale),
+                      v_scale=cut(pool.v_scale))
+
+
+def shard_pool(pool, mesh):
+    """This process's KV heads of a whole paged pool, on the mesh's tp axis
+    (the JAX package's ``shard_pool``)."""
+    return shard_pool_for(pool, tp_rank(mesh), tp_size(mesh))
 
 
 def check_tp_shape(cfg, tp: int) -> None:

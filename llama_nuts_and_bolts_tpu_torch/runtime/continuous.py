@@ -37,6 +37,36 @@ decoding.
     row-0 sample. Admission is synchronous (the proposer needs the first
     token), the quantum is 1, and the dense cache holds K rows past the
     context, where rejected draft rows may land.
+
+Tensor parallelism (the engine's ``mesh``): every rank runs a batcher over
+its shards -- the dense cache from ``engine.new_cache`` holds a rank's KV
+heads, every forward passes the mesh (K2 and K4 through
+``tp_flash_decode_attention`` on a card, K8 on a rank's int4 shards) -- and
+every rank must make the same calls in the same order, or a collective
+waits forever. JAX schedules every device from one thread; here each rank
+is a process, and a batcher's decisions that depend on timing (which
+requests arrived before a step, which were cancelled, whether to step at
+all) are rank 0's alone. So they travel in a :class:`StepRecord`:
+
+  * on rank 0, ``submit`` and ``Request.cancel`` touch nothing ``step()``
+    reads: a request goes to an inbox, a cancellation is latched there;
+  * at each step boundary rank 0 drains the inbox into one record (the
+    arrivals in order with their prompts and sampling parameters, the ids
+    of cancelled requests, a stop flag) and broadcasts it over the gloo
+    control group (``parallel/launch.py``); every rank, rank 0 included,
+    applies it to its ``pending`` queue and cancel flags, then runs the
+    unchanged step. A follower's requests are shadows whose output is
+    dropped (:meth:`ContinuousBatcher.follow`);
+  * everything else a step does depends only on the batcher's state and on
+    the all-gathered logits, the same on every rank: stop tokens and
+    releases, the paged allocator and prefix cache, drafts and their
+    clamping, the pipelined delivery, and sampled tokens (seeded by
+    ``(seed, position)``);
+  * an idle rank 0 broadcasts nothing, and the followers wait in the
+    broadcast (a day, the control group's timeout); shutdown is a record
+    with the stop flag set.
+
+Without a mesh nothing is broadcast and the batcher is as before.
 """
 
 from __future__ import annotations
@@ -46,7 +76,7 @@ import threading
 import time
 import traceback
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -93,13 +123,21 @@ class Request:
     # per emitted token, when want_logprobs > 0:
     # (token_id, chosen_logprob, [(top_id, top_logprob) x want_logprobs])
     logprobs: List[tuple] = field(default_factory=list)
+    rid: int = -1                     # the request's id in the step records
+    finished: bool = False            # its last entry is on ``out``
+    # under a mesh, rank 0's latch (the next step record carries the cancel)
+    _latch: Optional[Callable[["Request"], None]] = field(default=None, repr=False)
 
     def cancel(self) -> None:
         """Stop generating for this request: its slot (and blocks) are
         released at the scheduler's next step, which also delivers a terminal
         CANCELLED sentinel so a consumer blocked in ``tokens()`` ends. Safe
-        from any thread, at any time (a no-op after completion)."""
-        self.cancelled = True
+        from any thread, at any time (a no-op after completion). Under a
+        mesh the cancellation is latched for the next step record."""
+        if self._latch is None:
+            self.cancelled = True
+        elif not self.finished:
+            self._latch(self)
 
     def tokens(self, timeout: Optional[float] = None):
         """Iterate (state, token_id) until the request finishes. A cancelled
@@ -114,18 +152,98 @@ class Request:
                 return
 
 
+class _Dropped:
+    """A follower's shadow request's output: rank 0 delivers the tokens."""
+
+    @staticmethod
+    def put(_item) -> None:
+        pass
+
+
+@dataclass
+class StepRecord:
+    """What rank 0 decided at one step boundary, for every rank to apply:
+    the arrivals in submit order, each ``(rid, prompt, max_new_tokens,
+    temperature, top_k, top_p, seed, logprobs)``, the ids of the requests
+    cancelled since the last record, and the stop flag."""
+
+    arrivals: List[tuple] = field(default_factory=list)
+    cancels: List[int] = field(default_factory=list)
+    stop: bool = False
+
+
+class Lockstep:
+    """A batcher's control group and rank 0's inbox (see the module
+    docstring): ``submit`` and ``cancel`` on rank 0 land here, and each step
+    boundary drains them into a :class:`StepRecord`."""
+
+    def __init__(self, control) -> None:
+        import torch.distributed as dist
+
+        self.control = control
+        self.leader = dist.get_rank(group=control) == 0
+        self._lock = threading.Lock()
+        self._arrivals: List[Request] = []
+        self._cancels: List[int] = []
+        self._next_rid = 0
+
+    def enqueue(self, req: Request) -> None:
+        if not self.leader:
+            raise RuntimeError("under a mesh only rank 0 submits; the followers "
+                               "apply its step records (ContinuousBatcher.follow)")
+        with self._lock:
+            req.rid = self._next_rid
+            self._next_rid += 1
+            req._latch = self._latch
+            self._arrivals.append(req)
+
+    def _latch(self, req: Request) -> None:
+        with self._lock:
+            self._cancels.append(req.rid)
+
+    @property
+    def waiting(self) -> bool:
+        """Rank 0 holds arrivals or cancellations for the next record."""
+        return bool(self._arrivals or self._cancels)
+
+    def exchange(self, stop: bool = False):
+        """Rank 0: drain the inbox into a record and broadcast it; a
+        follower: receive rank 0's. Returns (the record, its arrivals as
+        this rank's requests)."""
+        from llama_nuts_and_bolts_tpu_torch.parallel.launch import broadcast
+
+        if self.leader:
+            with self._lock:
+                reqs, self._arrivals = self._arrivals, []
+                cancels, self._cancels = self._cancels, []
+            record = StepRecord(
+                arrivals=[(r.rid, r.prompt, r.max_new_tokens, r.temperature, r.top_k,
+                           r.top_p, r.seed, r.want_logprobs) for r in reqs],
+                cancels=cancels, stop=stop)
+            broadcast(record, self.control)
+            return record, reqs
+        record = broadcast(None, self.control)
+        return record, [Request(prompt=list(prompt), max_new_tokens=n, temperature=t,
+                                top_k=k, top_p=p, seed=seed, want_logprobs=lp,
+                                out=_Dropped(), rid=rid)
+                        for rid, prompt, n, t, k, p, seed, lp in record.arrivals]
+
+
 class ContinuousBatcher:
     """Slot-based continuous batching over one ``InferenceEngine``'s model
     and a dense ``[L, n_slots, KV, seq_len, D]`` cache.
 
     ``step()`` admits waiting requests into free slots (one prefill each),
-    then dispatches one quantum of batched decode steps for every slot."""
+    then dispatches one quantum of batched decode steps for every slot.
+    Under the engine's mesh rank 0 steps and the followers :meth:`follow`;
+    ``control`` is the gloo group the step records travel on (default: a
+    new one, made by every rank together)."""
 
     PIPELINE_DEPTH = 2
 
     def __init__(self, engine, n_slots: int = 8, speculate_k: int = 0,
-                 step_quantum: Optional[int] = None):
-        self._init_common(engine, n_slots, speculate_k, step_quantum)
+                 step_quantum: Optional[int] = None, control=None):
+        self._init_common(engine, n_slots, speculate_k, step_quantum, control)
         # speculating: rows [seq_len, seq_len + K) hold draft rows written
         # past the context, so a verify's K+1 rows always fit
         self.cache = engine.new_cache(n_slots, self.seq_len + speculate_k)
@@ -138,12 +256,17 @@ class ContinuousBatcher:
         self._pos_cap = self.cache.max_seq - 1
 
     def _init_common(self, engine, n_slots: int, speculate_k: int,
-                     step_quantum: Optional[int]) -> None:
-        if engine.mesh is not None:
-            raise NotImplementedError("tensor parallelism in the batchers is ROADMAP "
-                                      "item 17b: rank 0 must broadcast each step's "
-                                      "admissions")
+                     step_quantum: Optional[int], control=None) -> None:
         self.engine = engine
+        self.mesh = engine.mesh
+        self._lockstep: Optional[Lockstep] = None
+        if self.mesh is not None:
+            from llama_nuts_and_bolts_tpu_torch.parallel.launch import new_control_group
+
+            self._lockstep = Lockstep(new_control_group() if control is None else control)
+        # every rank's live requests by id (the step records' cancels name them)
+        self._live: Dict[int, Request] = {}
+        self._thread: Optional[threading.Thread] = None
         self.cfg = engine.model.cfg
         self.vocab = engine.model.vocab
         self.device = engine.device
@@ -190,12 +313,16 @@ class ContinuousBatcher:
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
                       temperature=temperature, top_k=top_k, top_p=top_p,
                       seed=seed, want_logprobs=logprobs)
-        self.pending.put(req)
+        if self._lockstep is not None:
+            self._lockstep.enqueue(req)
+        else:
+            self.pending.put(req)
         return req
 
     @property
     def has_work(self) -> bool:
-        return any(r is not None for r in self.slots) or not self.pending.empty()
+        return (any(r is not None for r in self.slots) or not self.pending.empty()
+                or (self._lockstep is not None and self._lockstep.waiting))
 
     def spec_stats_snapshot(self) -> dict:
         """A copy of ``spec_stats`` taken under the step's lock, so the three
@@ -246,7 +373,7 @@ class ContinuousBatcher:
             except queue.Empty:
                 return
             if req.cancelled:
-                req.out.put((GenerationState.CANCELLED, -1))
+                self._finish(req, GenerationState.CANCELLED)
                 continue
             self._set_sampling(slot, req)
             first, lp = self._prefill_slot(slot, req)
@@ -267,7 +394,7 @@ class ContinuousBatcher:
                        k_scale=None if c.k_scale is None else c.k_scale[:, rows],
                        v_scale=None if c.v_scale is None else c.v_scale[:, rows])
         logits, _ = forward(self.engine.model.params, self.cfg, padded.to(self.device),
-                            0, view, logits_at=plen - 1)
+                            0, view, logits_at=plen - 1, mesh=self.mesh)
         return self._sample(logits[:, 0], [slot], [plen - 1])
 
     def _occupy(self, slot: int, req: Request, first, lp) -> None:
@@ -325,9 +452,17 @@ class ContinuousBatcher:
             state = GenerationState.FINISHED_BY_REACHING_EOS
         elif pos + 1 >= self.seq_len or req.produced >= req.max_new_tokens or force_finish:
             state = GenerationState.FINISHED_BY_REACHING_SEQ_LEN
-        req.out.put((state, tok))
-        if state != GenerationState.IN_PROGRESS:
+        if state == GenerationState.IN_PROGRESS:
+            req.out.put((state, tok))
+        else:
+            self._finish(req, state, tok)
             self._release_slot(slot)
+
+    def _finish(self, req: Request, state: GenerationState, tok: int = -1) -> None:
+        """Put a request's last entry on its queue; it leaves the live set."""
+        req.finished = True
+        self._live.pop(req.rid, None)
+        req.out.put((state, tok))
 
     def _release_slot(self, slot: int) -> None:
         """Free the slot; it keeps stepping with a pad token (see the module
@@ -343,7 +478,7 @@ class ContinuousBatcher:
                 self._release_slot(slot)
                 # after the release, in-flight rows of this slot are dropped,
                 # so the sentinel is the queue's last entry
-                r.out.put((GenerationState.CANCELLED, -1))
+                self._finish(r, GenerationState.CANCELLED)
 
     @staticmethod
     def _host_lp(lp, wanted: bool):
@@ -401,7 +536,7 @@ class ContinuousBatcher:
                      quantum_state) -> torch.Tensor:
         """One batched decode step: ``[B, vocab]`` fp32 logits."""
         logits, _ = forward(self.engine.model.params, self.cfg, toks, positions,
-                            self.cache, attn_impl=self._decode_impl)
+                            self.cache, attn_impl=self._decode_impl, mesh=self.mesh)
         return logits[:, -1]
 
     def _quantum_state(self):
@@ -449,7 +584,34 @@ class ContinuousBatcher:
         earlier quanta are still in flight; deliver the oldest beyond that,
         and every admission's first token (its prefill is queued before the
         quantum, so this waits at most for the prefill). Speculating, one
-        verify step (:meth:`_step_speculative`)."""
+        verify step (:meth:`_step_speculative`). Under a mesh (rank 0) the
+        step record goes out first."""
+        if self._lockstep is not None:
+            if not self._lockstep.leader:
+                raise RuntimeError("a follower's batcher steps in follow()")
+            self._exchange()
+        self._step_once()
+
+    def follow(self) -> None:
+        """A follower's loop under a mesh: apply each of rank 0's step
+        records and step, until the record that stops."""
+        while not self._exchange().stop:
+            self._step_once()
+
+    def _exchange(self, stop: bool = False) -> StepRecord:
+        """Send (rank 0) or receive the step record and apply it: arrivals
+        join ``pending`` in order, cancelled ids set their requests' flags."""
+        record, reqs = self._lockstep.exchange(stop)
+        for r in reqs:
+            self._live[r.rid] = r
+            self.pending.put(r)
+        for rid in record.cancels:
+            r = self._live.get(rid)
+            if r is not None:
+                r.cancelled = True
+        return record
+
+    def _step_once(self) -> None:
         if self.speculate_k:
             self._step_speculative()
             return
@@ -481,7 +643,7 @@ class ContinuousBatcher:
     def _verify_logits(self, toks: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """``[B, K+1, vocab]`` fp32 logits of one verify forward."""
         logits, _ = forward(self.engine.model.params, self.cfg, toks, positions,
-                            self.cache)
+                            self.cache, mesh=self.mesh)
         return logits
 
     def _verify(self, tokens: np.ndarray, positions: np.ndarray):
@@ -564,7 +726,8 @@ class ContinuousBatcher:
 
     def serve_forever_in_thread(self) -> threading.Thread:
         """Background scheduler thread for the HTTP server: steps whenever
-        there is work, sleeps briefly when idle, ends on :meth:`stop`."""
+        there is work, sleeps briefly when idle, ends on :meth:`stop` (under
+        a mesh with the record that stops the followers)."""
 
         def loop():
             try:
@@ -573,15 +736,28 @@ class ContinuousBatcher:
                         self.step()
                     else:
                         time.sleep(0.002)
+                if self._lockstep is not None:
+                    self._exchange(stop=True)
             except Exception:
                 get_logger().error("batcher thread failed; its requests time out:\n%s",
                                    traceback.format_exc())
                 raise
 
-        t = threading.Thread(target=loop, daemon=True, name="batcher")
-        t.start()
-        return t
+        self._thread = threading.Thread(target=loop, daemon=True, name="batcher")
+        self._thread.start()
+        return self._thread
 
-    def stop(self) -> None:
-        """End the thread of :meth:`serve_forever_in_thread` after its step."""
+    def stop(self, timeout: float = 60.0) -> None:
+        """End the thread of :meth:`serve_forever_in_thread` after its step.
+        Under a mesh the followers' :meth:`follow` ends too: rank 0's thread
+        sends the stop record as it ends (waited for up to ``timeout``), or
+        without a thread this call sends it; a second call sends nothing."""
+        if self._stop.is_set():
+            return
         self._stop.set()
+        if self._lockstep is None or not self._lockstep.leader:
+            return
+        if self._thread is not None:
+            self._thread.join(timeout)
+        else:
+            self._exchange(stop=True)

@@ -20,6 +20,12 @@ Scheduling policy (host side, O(slots) per step):
     gracefully after its current token (FINISHED_BY_REACHING_SEQ_LEN);
   * free slots keep stepping with a pad token into the TRASH block;
   * ``submit`` refuses a prompt the pool can never hold.
+
+Under the engine's tensor-parallel mesh each rank holds its KV heads of the
+pool (the pool ``parallel.shard_pool`` cuts from a whole one, made at its
+local size), passes the mesh to every paged call, and keeps the allocator,
+the tables and the prefix cache whole and equal to every other rank's:
+they follow from the step records (``runtime/continuous.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import paged_kernel_takes
+from llama_nuts_and_bolts_tpu_torch.parallel.mesh import tp_size
 from llama_nuts_and_bolts_tpu_torch.models.llama.paged import (
     DEFAULT_BLOCK_SIZE,
     TRASH_BLOCK,
@@ -83,7 +90,14 @@ def default_attn_impl(engine, block_size: int = DEFAULT_BLOCK_SIZE) -> str:
     (``"plain"``). A pool whose ``block_size`` K6 cannot copy (not a
     multiple of 8 up to 64, :func:`paged_kernel_takes`) takes the gather
     path too. ``"probe"`` reads as ``"auto"``: the engine's probe measures
-    its own one-row step, as in the JAX package."""
+    its own one-row step, as in the JAX package.
+
+    A mesh keeps these rules: on a card a bf16 pool takes K6 on a rank's
+    heads (``parallel/kernel_shard.py::tp_paged_flash_decode``). The JAX
+    package keeps the gather under a mesh only because its paged kernel had
+    no ``shard_map`` wrapper (``runtime/paged.py:213-221`` there); that
+    wrapper exists (``parallel/kernel_shard.py:86`` there), and here a
+    forced ``"flash"`` under a mesh runs K6 or raises, never the gather."""
     forced = engine.args.attn_impl
     if forced not in ("auto", "probe"):
         return "plain" if forced == "plain" else "flash"
@@ -110,7 +124,8 @@ class PagedBatcher(ContinuousBatcher):
                  prefix_cache: bool = True,
                  allocator_backend: str = "auto",
                  speculate_k: int = 0,
-                 step_quantum: Optional[int] = None) -> None:
+                 step_quantum: Optional[int] = None,
+                 control=None) -> None:
         attn_impl = attn_impl or default_attn_impl(engine, block_size)
         if attn_impl not in ("plain", "flash"):
             raise ValueError(f"attn_impl must be 'plain' or 'flash', got {attn_impl!r}")
@@ -118,7 +133,7 @@ class PagedBatcher(ContinuousBatcher):
                 and not paged_kernel_takes(block_size)):
             raise ValueError(f"attn_impl='flash' on a card needs pool blocks of a multiple "
                              f"of 8 positions up to 64 (K6's copies), got {block_size}")
-        self._init_common(engine, n_slots, speculate_k, step_quantum)
+        self._init_common(engine, n_slots, speculate_k, step_quantum, control)
         kv_is_int8 = engine.args.kv_cache_dtype == "int8"
         self.attn_impl = attn_impl
         self.block_size = block_size
@@ -127,7 +142,7 @@ class PagedBatcher(ContinuousBatcher):
             n_blocks = 1 + n_slots * self.max_blocks
         self.pool = PagedKVPool.create(self.cfg, n_blocks, block_size,
                                        torch.int8 if kv_is_int8 else torch.bfloat16,
-                                       device=self.device)
+                                       device=self.device, tp=tp_size(self.mesh))
         self.prefix_cache = prefix_cache
         self.allocator = PrefixBlockAllocator(n_blocks, block_size,
                                               backend=allocator_backend)
@@ -179,7 +194,7 @@ class PagedBatcher(ContinuousBatcher):
             if req is None:
                 return
             if req.cancelled:
-                req.out.put((GenerationState.CANCELLED, -1))
+                self._finish(req, GenerationState.CANCELLED)
                 continue
             plen = len(req.prompt)
             total_needed = plen // bs + 1                  # prompt + next write
@@ -218,10 +233,11 @@ class PagedBatcher(ContinuousBatcher):
             self._set_sampling(slot, req)
             if shared:
                 logits, _ = paged_prefill_shared(params, self.cfg, padded, shared_len,
-                                                 len(suffix) - 1, self.pool, table_row)
+                                                 len(suffix) - 1, self.pool, table_row,
+                                                 mesh=self.mesh)
             else:
                 logits, _ = paged_prefill(params, self.cfg, padded, plen - 1, self.pool,
-                                          table_row)
+                                          table_row, mesh=self.mesh)
             # the sampled token's global position: a cache hit never changes
             # a seeded stream
             first, lp = self._sample(logits, [slot], [plen - 1])
@@ -266,13 +282,14 @@ class PagedBatcher(ContinuousBatcher):
 
     def _step_logits(self, toks, positions, tables) -> torch.Tensor:
         logits, _ = paged_decode_step(self.engine.model.params, self.cfg, toks,
-                                      positions, self.pool, tables, self.attn_impl)
+                                      positions, self.pool, tables, self.attn_impl,
+                                      mesh=self.mesh)
         return logits
 
     def _verify_logits(self, toks, positions) -> torch.Tensor:
         tables = torch.from_numpy(self.tables.copy()).to(self.device)
         logits, _ = paged_decode_step_spec(self.engine.model.params, self.cfg, toks,
-                                           positions, self.pool, tables)
+                                           positions, self.pool, tables, mesh=self.mesh)
         return logits
 
     def _back_positions(self, slot: int, upto_pos: int) -> int:
@@ -288,11 +305,11 @@ class PagedBatcher(ContinuousBatcher):
             blocks.extend(grown)
         return len(blocks) * bs - 1
 
-    def step(self) -> None:
+    def _step_once(self) -> None:
         if self.speculate_k:
             self._step_speculative_paged()
             return
-        super().step()
+        super()._step_once()
 
     def _step_speculative_paged(self) -> None:
         """One speculative iteration over the pool: every slot's feed token

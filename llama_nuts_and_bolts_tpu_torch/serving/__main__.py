@@ -1,10 +1,19 @@
 """``python -m llama_nuts_and_bolts_tpu_torch.serving [--tiny] [--port N] ...``
 
 The JAX package's server flags, plus ``--device {cuda,cpu}`` (default
-``cuda``; no fallback). ``--tp`` reaches a part not ported yet: it raises and
-names its ROADMAP item (17b; the CLI runs ``--tp``). ``--attn-impl probe``
-measures the sequential engine's decode path per cache bucket; the batchers
-keep the ``auto`` rules.
+``cuda``; no fallback). ``--attn-impl probe`` measures the sequential
+engine's decode path per cache bucket; the batchers keep the ``auto`` rules.
+
+``--tp N`` shards the model over N ranks on the process model of
+``parallel/launch.py``: this process is rank 0 (the socket, the console,
+the logs) and spawns N - 1 followers; NCCL on cards (rank r on ``cuda:r``;
+fewer than N cards raise), gloo with ``--device cpu``. Each rank shards the
+``--tiny`` params (``shard_params``) or loads its slices of a checkpoint
+(``param_sharding_fn``), keeps the split layout (no fused decode layout
+under a mesh, as in the JAX package), and loads a ``--draft-model`` whole.
+The followers follow rank 0's batcher step records or sequential engine
+calls (``serving/server.py``); SIGINT or SIGTERM to rank 0 ends every
+rank with code 0, a follower that dies ends rank 0 with code 1.
 ``--decode-chunk K`` reaches the engine: the sequential path (no
 ``--continuous``) streams in captured K-step chunks. ``--speculate K``
 speculates on the sequential engine and in both batchers; ``--draft-model
@@ -13,9 +22,11 @@ device.
 """
 
 import argparse
+import signal
 import sys
 
 from llama_nuts_and_bolts_tpu_torch.device import resolve_device
+from llama_nuts_and_bolts_tpu_torch.parallel.launch import launch, rank_group
 from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
 from llama_nuts_and_bolts_tpu_torch.serving.server import serve
 
@@ -47,8 +58,8 @@ def parse_args(argv=None):
                    help="with --paged-blocks: disable automatic prefix "
                         "caching (hash-shared prompt blocks)")
     p.add_argument("--tp", type=int, default=0, metavar="N",
-                   help="tensor parallelism over N devices (ROADMAP item 17b; "
-                        "the CLI has --tp)")
+                   help="tensor parallelism: shard the model over N ranks, one a "
+                        "device (0 = single device)")
     p.add_argument("--kv-cache", choices=["bf16", "int8"], default="bf16",
                    help="KV cache dtype: int8 halves the cache's bytes")
     p.add_argument("--prefill-chunk", type=int, default=0, metavar="C",
@@ -82,21 +93,36 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    if args.tp > 1:
-        raise NotImplementedError("the server's --tp is ROADMAP item 17b (tensor "
-                                  "parallelism in the batchers and the server), not "
-                                  "ported yet; the CLI runs --tp")
-
-
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    _refuse_unported(args)
     if args.tiny and args.draft_model:
         from llama_nuts_and_bolts_tpu_torch.cli.main import TINY_DRAFT_REFUSAL
 
         raise SystemExit(TINY_DRAFT_REFUSAL)
-    device = resolve_device(args.device)
+    if args.tp > 1:
+        return launch(_run_rank, argv, args.tp, args.device)
+    return run(args, resolve_device(args.device))
+
+
+def _run_rank(argv, rank: int, port: int) -> int:
+    """One rank of ``--tp N``: join the group and serve (rank 0) or follow."""
+    args = parse_args(argv)
+    if rank == 0:
+        # SIGTERM ends the server as SIGINT does: the followers are told
+        signal.signal(signal.SIGTERM, signal.default_int_handler)
+    else:
+        # a terminal's Ctrl-C reaches every rank: rank 0 ends the followers
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+    with rank_group(rank, args.tp, port, args.device) as (device, mesh, control):
+        try:
+            return run(args, device, mesh, control)
+        except KeyboardInterrupt:
+            return 0
+
+
+def run(args, device, mesh=None, control=None) -> int:
+    """The server on ``device``; under ``mesh``, this rank's part of it."""
     quant = None if args.quant == "none" else args.quant
     if args.tiny:
         from llama_nuts_and_bolts_tpu_torch.cli.main import load_tiny_model
@@ -110,7 +136,11 @@ def main(argv=None) -> int:
 
             qfn = quantize_params_q4 if quant == "int4" else quantize_params
             model.params = qfn(model.params)
-        elif not args.paged_blocks:
+        if mesh is not None:
+            from llama_nuts_and_bolts_tpu_torch.parallel import shard_params
+
+            model.params = shard_params(model.params, mesh)
+        elif quant is None and not args.paged_blocks:
             # the fused decode layout (paged batching keeps the split layout:
             # models/llama/paged.py has its own forward)
             from llama_nuts_and_bolts_tpu_torch.models.llama import fuse_decode_params
@@ -121,9 +151,15 @@ def main(argv=None) -> int:
         from llama_nuts_and_bolts_tpu_torch.cli.main import discover_model_dir
         from llama_nuts_and_bolts_tpu_torch.models.llama.loader import load_llama_model
 
+        sharding_fn = None
+        if mesh is not None:
+            from llama_nuts_and_bolts_tpu_torch.parallel import param_sharding_fn
+
+            sharding_fn = param_sharding_fn(mesh)
         model = load_llama_model(discover_model_dir(args.model_dir),
                                  max_sequence_length=args.seq_len, device=device,
-                                 quant=quant, fused=quant is None and not args.paged_blocks)
+                                 quant=quant, sharding_fn=sharding_fn,
+                                 fused=quant is None and mesh is None and not args.paged_blocks)
         name = "llama-3.1-8b-instruct"
 
     draft = None
@@ -138,7 +174,7 @@ def main(argv=None) -> int:
                                                   prefill_chunk=args.prefill_chunk,
                                                   attn_impl=args.attn_impl,
                                                   decode_chunk=args.decode_chunk),
-                             draft_model=draft, device=device)
+                             draft_model=draft, device=device, mesh=mesh)
     if args.cache_system_prompt and not args.continuous:
         from llama_nuts_and_bolts_tpu_torch.tokenizer import PromptPart, render_prefix_tokens
 
@@ -150,7 +186,7 @@ def main(argv=None) -> int:
           prefix_cache=not args.no_prefix_cache,
           max_pending=args.max_pending, prewarm=not args.no_prewarm,
           token_timeout_s=args.token_timeout,
-          step_quantum=args.step_quantum or None)
+          step_quantum=args.step_quantum or None, control=control)
     return 0
 
 

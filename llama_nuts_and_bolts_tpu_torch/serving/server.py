@@ -22,6 +22,28 @@ leaving mid-flight. Otherwise generations serialize on a lock with a
 per-request cache; a request's ``seed`` then reseeds the engine's generator
 for that request only. With the engine's ``speculate_k`` the batchers
 speculate too, and ``/metrics`` and ``/health`` carry their counters.
+
+Tensor parallelism (the engine's ``mesh``, ``--tp N``): every rank builds
+the same server over its shards; rank 0 alone opens the socket, and the
+followers :meth:`LlamaHTTPServer.follow` it over the gloo control group
+(``parallel/launch.py``), so every rank makes the same engine calls:
+
+  * with a batcher, its step records (``runtime/continuous.py``);
+  * on the sequential path, rank 0 broadcasts each engine call with its
+    arguments before it runs it, under ``_gen_lock``: a blocking request
+    (``device_loop.generate_block``, the prewarm's too) or a streamed one
+    (``engine.generate_tokens`` with its sampling parameters and seed), and
+    the followers run the same call. ``cache_prefix`` runs on every rank
+    at start-up, from the same flags.
+  * A streamed request whose client goes away, or whose stop sequence
+    matches, is still run by rank 0 to its end (its ``max_tokens``, a stop
+    token or the context) with the output dropped: the followers are
+    already in that generation's collectives, and a stop sent at a step
+    boundary would cost a broadcast every token on the latency-bound path,
+    where the drain costs at most the request's remaining tokens. The next
+    request then starts on every rank together.
+  * :meth:`LlamaHTTPServer.shutdown` ends the followers: the batcher's stop
+    record, or on the sequential path a ``None`` call.
 """
 
 from __future__ import annotations
@@ -33,6 +55,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from llama_nuts_and_bolts_tpu_torch.parallel.launch import broadcast, new_control_group
 from llama_nuts_and_bolts_tpu_torch.runtime import InferenceEngine
 from llama_nuts_and_bolts_tpu_torch.runtime.types import GenerationState
 from llama_nuts_and_bolts_tpu_torch.tokenizer import PromptPart
@@ -80,7 +103,8 @@ class LlamaHTTPServer:
                  continuous_slots: int = 0, paged_blocks: int = 0,
                  prefix_cache: bool = True, max_pending: int = 0,
                  token_timeout_s: float = 120.0,
-                 step_quantum: Optional[int] = None):
+                 step_quantum: Optional[int] = None,
+                 control=None):
         self.engine = engine
         self.model_name = model_name
         # max wall-clock wait for ONE token from the batcher before the
@@ -105,6 +129,16 @@ class LlamaHTTPServer:
                         "requests_rejected": 0,
                         "tokens_generated_total": 0,
                         "generation_seconds_total": 0.0}
+        # under a mesh: the control group the followers follow on, and this
+        # process's rank in it (0 serves)
+        self.control = None
+        self.rank = 0
+        self._stopped = False
+        if engine.mesh is not None:
+            import torch.distributed as dist
+
+            self.control = new_control_group() if control is None else control
+            self.rank = dist.get_rank(group=self.control)
         self.batcher = None
         if continuous_slots > 0:
             if paged_blocks:
@@ -114,7 +148,7 @@ class LlamaHTTPServer:
                     engine, n_slots=continuous_slots, n_blocks=paged_blocks,
                     prefix_cache=prefix_cache,
                     speculate_k=engine.args.speculate_k,
-                    step_quantum=step_quantum)
+                    step_quantum=step_quantum, control=self.control)
             else:
                 from llama_nuts_and_bolts_tpu_torch.runtime.continuous import (
                     ContinuousBatcher,
@@ -123,8 +157,35 @@ class LlamaHTTPServer:
                 self.batcher = ContinuousBatcher(
                     engine, n_slots=continuous_slots,
                     speculate_k=engine.args.speculate_k,
-                    step_quantum=step_quantum)
-            self.batcher.serve_forever_in_thread()
+                    step_quantum=step_quantum, control=self.control)
+            if self.rank == 0:
+                self.batcher.serve_forever_in_thread()
+
+    # ---------------------------------------------------- tensor parallelism
+
+    def _share(self, call) -> None:
+        """Rank 0 under a mesh: send the sequential engine call the
+        followers run next (the caller holds ``_gen_lock``)."""
+        if self.control is not None:
+            broadcast(call, self.control)
+
+    def follow(self) -> None:
+        """A follower's whole run: rank 0's step records with a batcher, else
+        its sequential engine calls, until the one that stops."""
+        if self.batcher is not None:
+            self.batcher.follow()
+            return
+        from llama_nuts_and_bolts_tpu_torch.runtime.device_loop import generate_block
+
+        while (call := broadcast(None, self.control)) is not None:
+            try:
+                if call[0] == "block":
+                    generate_block(self.engine, *call[1:])
+                else:
+                    for _ in self._sequential_tokens(*call[1:], stats={}):
+                        pass
+            except Exception as e:    # a refused request: rank 0 refused it alike
+                get_logger().debug("follower: %s call refused: %s", call[0], e)
 
     # ------------------------------------------------------------ requests
 
@@ -155,6 +216,7 @@ class LlamaHTTPServer:
             from llama_nuts_and_bolts_tpu_torch.runtime.device_loop import generate_block
 
             with self._gen_lock:
+                self._share(("block", list(tokens), max_tokens))
                 ids, finish = generate_block(self.engine, list(tokens), max_tokens)
         # strip the stop token from the rendered text like the streaming path
         if finish == "stop":
@@ -320,34 +382,11 @@ class LlamaHTTPServer:
                 stats["tokens"] = req.produced
                 req.cancel()   # no-op if already finished
         with self._gen_lock:
-            args = self.engine.args
-            old = (args.temperature, args.top_k, args.top_p)
-            args.temperature, args.top_k, args.top_p = temperature, top_k, top_p
-            gen = self.engine._generator
-            old_rng = gen.get_state()
-            if seed is not None:
-                gen.manual_seed(int(seed) & ((1 << 64) - 1))
+            call = (list(tokens), max_tokens, temperature, top_k, top_p, seed)
+            self._share(("stream",) + call)
+            toks = self._sequential_tokens(*call, stats=stats)
             try:
-                def limited():
-                    # cap at the TOKEN level (a byte-fallback token that only
-                    # joins the waiting buffer still consumed a decode step
-                    # and counts toward max_tokens); ending the token stream
-                    # here lets _generate_string flush pending incomplete
-                    # bytes as <0xNN> literals, exactly like the batcher
-                    # stream and the block path (_render_block) do
-                    n = 0
-                    # max_new_tokens both caps the stream and buckets the
-                    # request's cache buffer (engine.cache_bucket)
-                    for state, tok in self.engine.generate_tokens(
-                            tokens, max_new_tokens=max_tokens):
-                        n += 1
-                        stats["tokens"] = n
-                        yield state, tok
-                        if (n >= max_tokens
-                                or state != GenerationState.IN_PROGRESS):
-                            return
-
-                for part in self.engine._generate_string(limited()):
+                for part in self.engine._generate_string(toks):
                     if part.added_to_waiting:
                         continue
                     finish, text = self._finish_of(part)
@@ -357,8 +396,44 @@ class LlamaHTTPServer:
                 yield "", "length"
                 return
             finally:
-                args.temperature, args.top_k, args.top_p = old
-                gen.set_state(old_rng)
+                if self.control is not None:
+                    # the followers run this generation to its end: so does
+                    # rank 0 (the module docstring), without counting it
+                    n = stats.get("tokens", 0)
+                    for _ in toks:
+                        pass
+                    stats["tokens"] = n
+                toks.close()
+
+    def _sequential_tokens(self, tokens, max_tokens: int, temperature: float,
+                           top_k: int, top_p: float, seed, stats):
+        """The sequential engine's (state, token) stream of one request with
+        its sampling parameters and seed, restored after; every rank runs
+        the same. Capped at the TOKEN level (a byte-fallback token that only
+        joins the waiting buffer still consumed a decode step and counts
+        toward max_tokens); ending the stream here lets _generate_string
+        flush pending incomplete bytes as <0xNN> literals, exactly like the
+        batcher stream and the block path (_render_block) do."""
+        args = self.engine.args
+        old = (args.temperature, args.top_k, args.top_p)
+        args.temperature, args.top_k, args.top_p = temperature, top_k, top_p
+        gen = self.engine._generator
+        old_rng = gen.get_state()
+        if seed is not None:
+            gen.manual_seed(int(seed) & ((1 << 64) - 1))
+        try:
+            n = 0
+            # max_new_tokens both caps the stream and buckets the request's
+            # cache buffer (engine.cache_bucket)
+            for state, tok in self.engine.generate_tokens(tokens, max_new_tokens=max_tokens):
+                n += 1
+                stats["tokens"] = n
+                yield state, tok
+                if n >= max_tokens or state != GenerationState.IN_PROGRESS:
+                    return
+        finally:
+            args.temperature, args.top_k, args.top_p = old
+            gen.set_state(old_rng)
 
     # ------------------------------------------------------------- plumbing
 
@@ -788,6 +863,7 @@ class LlamaHTTPServer:
             )
 
             with self._gen_lock:
+                self._share(("block", tokens, 16))
                 generate_block(self.engine, tokens, 16)
         dt = time.perf_counter() - t0
         get_logger().info("prewarm: one request in %.1fs", dt)
@@ -799,7 +875,11 @@ class LlamaHTTPServer:
             self.prewarm()
         self._httpd = _HTTPServer((host, port), self.make_handler())
         get_logger().info("Serving %s on http://%s:%d", self.model_name, host, port)
-        self._httpd.serve_forever()
+        try:
+            self._httpd.serve_forever()
+        finally:
+            if self.control is not None:
+                self.shutdown()      # the followers end with this rank
 
     def start_background(self, host: str = "127.0.0.1", port: int = 0) -> int:
         """Start in a daemon thread; returns the bound port (0 ⇒ ephemeral)."""
@@ -809,23 +889,35 @@ class LlamaHTTPServer:
         return self._httpd.server_address[1]
 
     def shutdown(self):
-        """Stop serving: the HTTP loop, then the batcher's thread."""
+        """Stop serving: the HTTP loop, then the batcher's thread; under a
+        mesh the followers' :meth:`follow` ends with it."""
         if self._httpd:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
+        if self._stopped:
+            return
+        self._stopped = True
         if self.batcher is not None:
             self.batcher.stop()
+        elif self.control is not None and self.rank == 0:
+            with self._gen_lock:
+                self._share(None)
 
 
 def serve(engine: InferenceEngine, host: str = "0.0.0.0", port: int = 8000,
           model_name: str = "llama-3.1-8b-instruct", continuous_slots: int = 0,
           paged_blocks: int = 0, prefix_cache: bool = True,
           max_pending: int = 0, prewarm: bool = True,
-          token_timeout_s: float = 120.0, step_quantum=None):
-    LlamaHTTPServer(engine, model_name, continuous_slots=continuous_slots,
-                    paged_blocks=paged_blocks, prefix_cache=prefix_cache,
-                    max_pending=max_pending,
-                    token_timeout_s=token_timeout_s,
-                    step_quantum=step_quantum).serve_forever(
-                        host, port, prewarm=prewarm)
+          token_timeout_s: float = 120.0, step_quantum=None, control=None):
+    """Serve until interrupted; under the engine's mesh a follower rank
+    follows rank 0 instead (``control``: the gloo control group)."""
+    srv = LlamaHTTPServer(engine, model_name, continuous_slots=continuous_slots,
+                          paged_blocks=paged_blocks, prefix_cache=prefix_cache,
+                          max_pending=max_pending,
+                          token_timeout_s=token_timeout_s,
+                          step_quantum=step_quantum, control=control)
+    if srv.rank != 0:
+        srv.follow()
+    else:
+        srv.serve_forever(host, port, prewarm=prewarm)

@@ -1053,3 +1053,81 @@ def test_cli_tp_refuses_more_ranks_than_cards(cuda):
     with pytest.raises(RuntimeError, match=f"--tp {n + 1} needs {n + 1} CUDA devices"):
         check_cards(n + 1, "cuda")
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("B,M,positions", [(4, 64, [3, 700, 2047, 1000]), (4, 64, [114] * 4),
+                                           (1, 64, [1850])])
+def test_k6_at_tp_rank_shapes(cuda, one_rank_group, tp, B, M, positions):
+    """K6 through ``tp_paged_flash_decode`` at one tp rank's shapes of
+    Llama-3.1-8B (H/tp, KV/tp heads of a 32-layer pool of 32-position
+    blocks, G = 4), bf16 and int8, each launch counted, against the plain
+    versions."""
+    from llama_nuts_and_bolts_tpu_torch.parallel import make_mesh
+    from llama_nuts_and_bolts_tpu_torch.parallel.kernel_shard import tp_paged_flash_decode
+
+    one_rank_group("nccl")
+    mesh = make_mesh(tp=1)
+    h, kv, bs, L, layer = H // tp, KV // tp, 32, 32, 5
+    gen = torch.Generator(device=cuda).manual_seed(tp * 10 + B)
+    n_blocks = B * M + 1
+    perm = torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(B + M)) + 1
+    tables = perm[:B * M].reshape(B, M).to(torch.int32).to(cuda)
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    q = rand((B, 1, h, D), gen, cuda)
+    shape = (L, n_blocks, kv, bs, D)
+    pk, pv = rand(shape, gen, cuda), rand(shape, gen, cuda)
+    before = paged_flash_decode.launches
+    got = tp_paged_flash_decode(mesh, q, pk, pv, tables, pos, layer=layer)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 1
+    assert_matches(got, paged_flash_decode_plain(q, pk, pv, tables, pos, layer,
+                                                 paged_chunk(M, bs)))
+    del pk, pv
+    (pk, pks), (pv, pvs) = int8_cache(shape, gen, cuda), int8_cache(shape, gen, cuda)
+    before = paged_flash_decode_int8.launches
+    got = tp_paged_flash_decode(mesh, q, pk, pv, tables, pos, layer=layer, pool_ks=pks,
+                                pool_vs=pvs)
+    torch.cuda.synchronize()
+    assert paged_flash_decode_int8.launches == before + 1
+    assert_matches(got, paged_flash_decode_int8_plain(q, pk, pv, pks, pvs, tables, pos,
+                                                      layer))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_batcher_on_a_one_rank_nccl_mesh_runs_k6(cuda, one_rank_group, kv):
+    """The paged batcher under ``make_mesh(tp=1)`` over NCCL keeps the card's
+    rule (K6 for a bf16 pool; a forced ``flash`` runs K6's int8 mode), never
+    the gather, and its tokens equal the batcher's without the mesh."""
+    from llama_nuts_and_bolts_tpu_torch.parallel import make_mesh
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+
+    one_rank_group("nccl")
+    mesh = make_mesh(tp=1)
+    counter = paged_flash_decode if kv == "bf16" else paged_flash_decode_int8
+    out = []
+    for m in (None, mesh):
+        engine = tiny_engine(cuda, fused=False, mesh=m, kv_cache_dtype=kv,
+                             attn_impl="auto" if kv == "bf16" else "flash")
+        b = PagedBatcher(engine, n_slots=2)
+        assert b.attn_impl == "flash"
+        before = counter.launches
+        reqs = [b.submit(PROMPT_IDS, max_new_tokens=12), b.submit([7, 8, 9], max_new_tokens=9)]
+        b.run_until_idle()
+        b.stop()
+        assert counter.launches - before == engine.model.cfg.n_layers * b.decode_steps
+        out.append([[t for _, t in r.tokens(timeout=60)] for r in reqs])
+    assert out[0] == out[1]
+
+
+@pytest.mark.gpu
+def test_server_tp_refuses_more_ranks_than_cards(cuda):
+    """The server's ``--tp N`` with fewer than N cards raises and names both
+    counts before any rank starts."""
+    from llama_nuts_and_bolts_tpu_torch.serving import __main__ as serving
+
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match=f"--tp {n + 1} needs {n + 1} CUDA devices"):
+        serving.main(["--tiny", "--tp", str(n + 1), "--continuous", "2"])

@@ -35,7 +35,7 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                           REPO / "tests" / "tp_workers.py"]
     assert len(files) > 30
-    assert {"__init__.py", "mesh.py", "sharding.py", "kernel_shard.py"} <= {
+    assert {"__init__.py", "mesh.py", "sharding.py", "kernel_shard.py", "launch.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
     bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
            for f in files for line, mod in imported_modules(f)
@@ -95,6 +95,20 @@ def test_scan_covers_the_single_device_modules(module):
     """The probe's, profiling's, the native merge's and the sharded loader's
     modules are among the scanned files, and each imports nothing of JAX on
     its own."""
+    path = PORT / module
+    assert path in set(PORT.rglob("*.py"))
+    assert [m for _, m in imported_modules(path) if m.split(".")[0] in FORBIDDEN] == []
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/launch.py", "parallel/sharding.py", "parallel/kernel_shard.py",
+    "models/llama/paged.py", "runtime/paged.py", "runtime/continuous.py",
+    "serving/server.py", "serving/__main__.py", "cli/main.py"])
+def test_scan_covers_the_tp_serving_modules(module):
+    """Tensor parallelism for serving -- the process model, the pool's
+    shards, K6 on a rank's heads, the paged functions, both batchers in
+    lockstep, the server's --tp -- is scanned, and each module imports
+    nothing of JAX on its own."""
     path = PORT / module
     assert path in set(PORT.rglob("*.py"))
     assert [m for _, m in imported_modules(path) if m.split(".")[0] in FORBIDDEN] == []

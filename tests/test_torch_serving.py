@@ -2,9 +2,10 @@
 paged batcher (health, models, chat streamed against blocking, completions
 with logprobs, seeded sampling, /metrics with the prefix cache, the 429
 admission bound), the serialized server, the non-streaming greedy loop, the
-stop-sequence filter against the JAX package's, and the CLI's refusals of
-unported flags."""
+stop-sequence filter against the JAX package's, ``--tp`` without cards,
+and the batchers on a one-rank mesh."""
 
+import dataclasses
 import json
 import time
 import urllib.error
@@ -12,12 +13,17 @@ import urllib.request
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from llama_nuts_and_bolts_tpu.serving.server import (
     apply_stop_sequences as jax_apply_stop_sequences,
 )
 
+from llama_nuts_and_bolts_tpu_torch.parallel import initialize_multihost, make_mesh, shard_params
+from llama_nuts_and_bolts_tpu_torch.parallel.launch import free_port
+from llama_nuts_and_bolts_tpu_torch.runtime.continuous import ContinuousBatcher
 from llama_nuts_and_bolts_tpu_torch.runtime.device_loop import generate_block
+from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
 from llama_nuts_and_bolts_tpu_torch.serving import __main__ as cli
 from llama_nuts_and_bolts_tpu_torch.serving.server import LlamaHTTPServer, apply_stop_sequences
 from tests.test_torch_continuous import make_engine, one_torch_thread
@@ -196,11 +202,44 @@ def test_stop_sequences_match_jax(stops):
         list(jax_apply_stop_sequences(iter(pieces), stops))
 
 
-@pytest.mark.parametrize("flag,item", [(["--tp", "2"], "17b")])
-def test_cli_refuses_unported_flags(flag, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        cli.main(["--tiny", "--device", "cpu", *flag])
-    assert cli.parse_args([]).device == "cuda"
+def test_tp_on_cuda_without_cards_raises():
+    """``--tp 2`` on ``cuda`` (the default) with no card raises before any
+    rank starts: nothing falls back to the CPU or to fewer ranks (with
+    fewer cards than ranks ``check_cards`` names both counts)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card (tests/test_torch_gpu.py checks the count)")
+    assert cli.parse_args([]).device == "cuda" and cli.parse_args(["--tp", "2"]).tp == 2
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--tiny", "--tp", "2", "--continuous", "2"])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_batchers_accept_a_mesh(paged):
+    """A one-rank gloo mesh: the batchers accept it (the step records go
+    over a one-rank control group) and give the tokens of the batcher
+    without a mesh, greedy and seeded sampled."""
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="gloo")
+    try:
+        streams = [batcher_streams(mesh, paged) for mesh in (None, make_mesh())]
+    finally:
+        dist.destroy_process_group()
+    assert streams[0] == streams[1]
+
+
+def batcher_streams(mesh, paged: bool):
+    """Two requests, greedy and seeded sampled, through a batcher on the
+    tiny cyclic engine (its shards under ``mesh``): their streams."""
+    eng = make_engine()
+    if mesh is not None:
+        eng = type(eng)(dataclasses.replace(eng.model, params=shard_params(
+            eng.model.params, mesh)), eng.args, device="cpu", mesh=mesh)
+    b = PagedBatcher(eng, n_slots=2, block_size=8) if paged else ContinuousBatcher(eng, 2)
+    assert (b._lockstep is None) == (mesh is None)
+    reqs = [b.submit([1, 2, 3], max_new_tokens=9),
+            b.submit([4, 5], max_new_tokens=7, temperature=0.9, seed=11)]
+    b.run_until_idle()
+    b.stop()
+    return [list(r.tokens(timeout=30)) for r in reqs]
 
 
 def test_server_accepts_attn_impl_probe(monkeypatch):

@@ -4,9 +4,12 @@ Each rank's slices (``parallel.sharding.shard_params_for``) must be byte-equal
 to the shard that the JAX package's ``shard_params(params, make_mesh(tp))``
 places on device ``r`` of the 8-device CPU mesh, for bf16, int8 and int4
 leaves, a ``_fit_spec``-replicated int4 axis included; the same for the
-dense cache (``shard_cache``). Also: the mesh on a one-rank gloo group, the
-loader's sharding function, the ``kv_heads % tp`` gate, the kernel-shard
-wrappers on the CPU, and K8's routing at the head shards of Llama-3.1-8B."""
+dense cache (``shard_cache``) and the paged pool (``shard_pool``). Also: the
+mesh on a one-rank gloo group, the loader's sharding function, the
+``kv_heads % tp`` gate, the kernel-shard wrappers on the CPU (K6 on each
+rank's heads against the JAX package's ``tp_paged_flash_decode`` on the CPU
+mesh, its Pallas kernel in interpret mode), and K8's routing at the head
+shards of Llama-3.1-8B."""
 
 import dataclasses
 
@@ -21,13 +24,19 @@ import jax.numpy as jnp
 from llama_nuts_and_bolts_tpu import quant as jquant
 from llama_nuts_and_bolts_tpu.io.params import ModelArgs as JModelArgs
 from llama_nuts_and_bolts_tpu.models.llama import model as jmodel
+from llama_nuts_and_bolts_tpu.models.llama import paged as jpaged
 from llama_nuts_and_bolts_tpu.parallel import make_mesh as jmake_mesh
 from llama_nuts_and_bolts_tpu.parallel import shard_cache as jshard_cache
 from llama_nuts_and_bolts_tpu.parallel import shard_params as jshard_params
+from llama_nuts_and_bolts_tpu.parallel import shard_pool as jshard_pool
+from llama_nuts_and_bolts_tpu.parallel.kernel_shard import (
+    tp_paged_flash_decode as jtp_paged_flash_decode,
+)
 
 from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
 from llama_nuts_and_bolts_tpu_torch.kernels.attention import flash_gqa_attention
 from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import flash_decode_attention
+from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import paged_flash_decode
 from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import k8_takes
 from llama_nuts_and_bolts_tpu_torch.models.llama.convert import (
     params_from_numpy,
@@ -35,6 +44,7 @@ from llama_nuts_and_bolts_tpu_torch.models.llama.convert import (
     tensor_to_numpy,
 )
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache
+from llama_nuts_and_bolts_tpu_torch.models.llama.paged import PagedKVPool
 from llama_nuts_and_bolts_tpu_torch.parallel import (
     initialize_multihost,
     make_mesh,
@@ -44,18 +54,24 @@ from llama_nuts_and_bolts_tpu_torch.parallel import (
 from llama_nuts_and_bolts_tpu_torch.parallel.kernel_shard import (
     tp_flash_decode_attention,
     tp_flash_gqa_attention,
+    tp_paged_flash_decode,
 )
 from llama_nuts_and_bolts_tpu_torch.parallel.mesh import gather_last, reduce_partial
 from llama_nuts_and_bolts_tpu_torch.parallel.sharding import (
     LAYER_SPECS,
     TOP_SPECS,
+    POOL_SPEC,
     check_tp_shape,
+    pool_sharding,
     shard_cache_for,
     shard_leaf,
     shard_params_for,
+    shard_pool_for,
     sharding_fn_for,
 )
 from llama_nuts_and_bolts_tpu_torch.quant.int4 import host_quantize_q4
+from llama_nuts_and_bolts_tpu_torch.utils.testing import compare_tensor
+from tests.test_torch_kernels_int8 import int8_cache
 from tests.test_torch_quant_model import leaves
 
 # 8 heads over 8 KV heads, so tp 2, 4 and 8 all keep whole heads; the int4
@@ -152,6 +168,107 @@ def test_cache_shards_equal_jax(dtype):
     local = KVCache.create(cfg, 2, 16, device="cpu", dtype=torch.int8 if dtype == "int8"
                            else torch.bfloat16, tp=4)
     assert local.k.shape == mine.k.shape and local.quantized == (dtype == "int8")
+
+
+def filled_pools(jcfg, n_blocks, bs, int8, seed=0):
+    """The same seeded values in a JAX and a port paged pool."""
+    rng = np.random.default_rng(seed)
+    shape = (jcfg.n_layers, n_blocks, jcfg.kv_heads, bs, jcfg.head_dim)
+    if int8:
+        (k, ks), (v, vs) = int8_cache(rng, shape), int8_cache(rng, shape)
+        vals = dict(k=k, v=v, k_scale=ks, v_scale=vs)
+    else:
+        vals = {f: rng.standard_normal(shape).astype(np.float32).astype(jnp.bfloat16)
+                for f in ("k", "v")}
+    jpool = jpaged.PagedKVPool(**{f: jnp.asarray(a) for f, a in vals.items()})
+    pool = PagedKVPool(**{f: tensor_from_numpy(a, "cpu") for f, a in vals.items()})
+    return jpool, pool
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_pool_shards_equal_jax(dtype, tp):
+    """A rank's KV heads of a paged pool (and of an int8 pool's scale
+    pools) are byte-equal to the JAX package's ``shard_pool`` shards."""
+    jcfg = JModelArgs(**SPEC)
+    jpool, pool = filled_pools(jcfg, 6, 8, dtype == "int8")
+    jsharded = jshard_pool(jpool, jmake_mesh(tp=tp))
+    assert pool_sharding() == POOL_SPEC == (None, None, "tp", None, None)
+    fields_ = ("k", "v", "k_scale", "v_scale") if dtype == "int8" else ("k", "v")
+    for r in range(tp):
+        mine = shard_pool_for(pool, r, tp)
+        assert mine.k.shape[2] == jcfg.kv_heads // tp and mine.quantized == (dtype == "int8")
+        assert mine.k.is_contiguous()
+        for f in fields_:
+            assert_shard_equal(getattr(jsharded, f), getattr(mine, f), r, f)
+    local = PagedKVPool.create(ModelArgs(**SPEC), 6, 8, torch.int8 if dtype == "int8"
+                               else torch.bfloat16, device="cpu", tp=tp)
+    assert local.k.shape == mine.k.shape and local.quantized == (dtype == "int8")
+
+
+def paged_case(seed, int8, n_blocks=9, KV=4, bs=8, B=3, M=2, H=16):
+    """One layer's pool [1, n_blocks, KV, bs, 128] (int8 with scale pools),
+    q [B, 1, H, 128] and seeded tables: the JAX sharding test's case at the
+    kernels' head_dim and group of 4."""
+    rng = np.random.default_rng(seed)
+    shape = (1, n_blocks, KV, bs, 128)
+    if int8:
+        (k, ks), (v, vs) = int8_cache(rng, shape), int8_cache(rng, shape)
+    else:
+        k, v = (rng.standard_normal(shape).astype(np.float32).astype(jnp.bfloat16)
+                for _ in range(2))
+        ks = vs = None
+    q = rng.standard_normal((B, 1, H, 128)).astype(np.float32).astype(jnp.bfloat16)
+    tables = (rng.permutation(n_blocks - 1)[:B * M] + 1).reshape(B, M).astype(np.int32)
+    return q, k, v, ks, vs, tables, np.array([5, 11, 15], np.int32)[:B]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_paged_flash_decode_matches_jax_tp(one_rank_group, tp):
+    """K6's plain version on each rank's heads of a sharded bf16 pool,
+    concatenated in rank order, against the JAX package's
+    ``tp_paged_flash_decode`` (shard_map over the CPU mesh, the Pallas
+    kernel in interpret mode): the bf16 tolerance of tests/test_torch_paged.py's
+    unsharded K6 check (1e-2 absolute and relative), and bit-equal to the
+    port's unsharded call, since attention is head-local."""
+    mesh = make_mesh()
+    q, k, v, _, _, tables, pos = paged_case(tp, int8=False)
+    want = jax.jit(jtp_paged_flash_decode, static_argnums=(0,))(
+        jmake_mesh(tp=tp), jnp.asarray(q), jnp.asarray(k[0]), jnp.asarray(v[0]),
+        jnp.asarray(tables), jnp.asarray(pos))
+    pool = PagedKVPool(k=tensor_from_numpy(k, "cpu"), v=tensor_from_numpy(v, "cpu"))
+    qt, tbl, p = tensor_from_numpy(q, "cpu"), torch.from_numpy(tables), torch.from_numpy(pos)
+    h = q.shape[2] // tp
+    got = torch.cat([tp_paged_flash_decode(mesh, qt[:, :, r * h:(r + 1) * h].contiguous(),
+                                           shard.k, shard.v, tbl, p, layer=0)
+                     for r, shard in enumerate(shard_pool_for(pool, r, tp)
+                                               for r in range(tp))], dim=2)
+    compare_tensor(got.float().numpy(), np.asarray(want, np.float32), "bfloat16")
+    assert torch.equal(got, paged_flash_decode(qt, pool.k, pool.v, tbl, p, layer=0))
+
+
+def test_tp_paged_flash_decode_int8_pool_and_group_gate(one_rank_group):
+    """K6's int8 mode on each rank's heads of a sharded int8 pool is the
+    unsharded call's heads, bit for bit (q is quantized per head row); a
+    shard whose group is not the kernels' 4 is refused."""
+    mesh = make_mesh()
+    q, k, v, ks, vs, tables, pos = paged_case(7, int8=True)
+    pool = PagedKVPool(*(tensor_from_numpy(a, "cpu") for a in (k, v, ks, vs)))
+    qt, tbl, p = tensor_from_numpy(q, "cpu"), torch.from_numpy(tables), torch.from_numpy(pos)
+    whole = paged_flash_decode(qt, pool.k, pool.v, tbl, p, layer=0, pool_ks=pool.k_scale,
+                               pool_vs=pool.v_scale)
+    for tp in (2, 4):
+        h = q.shape[2] // tp
+        for r in range(tp):
+            shard = shard_pool_for(pool, r, tp)
+            heads = qt[:, :, r * h:(r + 1) * h].contiguous()
+            got = tp_paged_flash_decode(mesh, heads, shard.k, shard.v, tbl, p, layer=0,
+                                        pool_ks=shard.k_scale, pool_vs=shard.v_scale)
+            assert torch.equal(got, whole[:, :, r * h:(r + 1) * h]), (tp, r)
+    shard = shard_pool_for(pool, 0, 2)
+    with pytest.raises(ValueError, match="does not keep whole GQA groups of 4"):
+        tp_paged_flash_decode(mesh, qt[:, :, :6].contiguous(), shard.k, shard.v, tbl, p,
+                              layer=0)
 
 
 def test_loader_sharding_fn_cuts_one_layer():
