@@ -1865,15 +1865,17 @@ def check_paged_kernels():
 
 @contextlib.contextmanager
 def planted_paged_fault(fault):
-    """``paged_decode_step``'s K6 wrapper swapped for a planted fault."""
+    """``paged_decode_step``'s K6 call (``tp_paged_flash_decode``, no mesh
+    here) swapped for a planted fault with ``paged_flash_decode``'s
+    arguments."""
     from llama_nuts_and_bolts_tpu_torch.models.llama import paged as mod
 
-    saved = mod.paged_flash_decode
-    mod.paged_flash_decode = fault
+    saved = mod.tp_paged_flash_decode
+    mod.tp_paged_flash_decode = lambda mesh, *args, **kw: fault(*args, **kw)
     try:
         yield
     finally:
-        mod.paged_flash_decode = saved
+        mod.tp_paged_flash_decode = saved
 
 
 def shared_prefill_err(params, cfg, pool, prompt, table, spare, ref, kind: str) -> float:
@@ -3580,7 +3582,7 @@ def run_tp_children(phase: str, world: int, timeout: float = TP_CHILD_TIMEOUT_S)
     each rank's JSON result; a rank that failed fails the phase."""
     import tempfile
 
-    from llama_nuts_and_bolts_tpu_torch.cli.main import free_port
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import free_port
 
     port = free_port()
     out = tempfile.mkdtemp(prefix=f"tp_{phase}_")
@@ -3890,7 +3892,7 @@ def tp_phase_c(mesh, rank, tk, vocab, device) -> dict:
 def tp_phase_d(mesh, rank, tk, vocab, device) -> dict:
     """Phase D: NCCL at tp = the world, one card a rank, on the CLI's process
     model: rank 0 broadcasts each request's token ids over a gloo control
-    group (``cli.main._broadcast``) and every rank runs the same engine calls
+    group (``parallel.launch.broadcast``) and every rank runs the same engine calls
     in lockstep. The 32-layer 8B constructed-cyclic model (``cyclic_params``:
     wo and w_down zeroed, head rows walking 0..7), bf16; requests A and B
     with their last token set to 0, so greedy decoding walks the cycle from
@@ -3899,7 +3901,7 @@ def tp_phase_d(mesh, rank, tk, vocab, device) -> dict:
     tok/s, launches per rank, the one-step graph's device ms."""
     import torch.distributed as dist
 
-    from llama_nuts_and_bolts_tpu_torch.cli.main import _broadcast
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import broadcast
     from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel, init_random_params
     from llama_nuts_and_bolts_tpu_torch.parallel import shard_params, tp_size
     from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
@@ -3930,7 +3932,7 @@ def tp_phase_d(mesh, rank, tk, vocab, device) -> dict:
                                                     "launches")}
         out["single"]["one_step_graph"] = graph_ms(single, 4096)
         del single
-    requests = _broadcast(requests, control)
+    requests = broadcast(requests, control)
     engine = InferenceEngine(loaded(shard_params(whole, mesh)),
                              InferenceArgs(sequence_length=8192), device=device, mesh=mesh)
     del whole
@@ -3950,7 +3952,7 @@ def tp_phase_d(mesh, rank, tk, vocab, device) -> dict:
     torch.cuda.empty_cache()
     out["graph_logits"] = tp_graph_logits(mesh, rank, control, cfg, prompt_b_ids(tk, vocab),
                                           4096, tk, vocab, device)
-    _broadcast(None, control)          # the CLI's quit sentinel
+    broadcast(None, control)          # the CLI's quit sentinel
     return out
 
 
@@ -3967,7 +3969,7 @@ def tp_graph_logits(mesh, rank, control, cfg, ids, cache_len, tk, vocab, device)
     all-reduce), which must fail the limit."""
     import torch.distributed as dist
 
-    from llama_nuts_and_bolts_tpu_torch.cli.main import _broadcast
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import broadcast
     from llama_nuts_and_bolts_tpu_torch.models.llama import (
         KVCache, LoadedModel, forward, init_random_params)
     from llama_nuts_and_bolts_tpu_torch.parallel import shard_params, tp_size
@@ -4001,7 +4003,7 @@ def tp_graph_logits(mesh, rank, control, cfg, ids, cache_len, tk, vocab, device)
         del cache
     del whole
     torch.cuda.empty_cache()
-    feed = _broadcast(feed, control)
+    feed = broadcast(feed, control)
 
     def graph_run(index: int) -> torch.Tensor:
         """The prefill into a fresh slot, then a replay of its one-step

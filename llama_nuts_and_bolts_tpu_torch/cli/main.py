@@ -30,13 +30,7 @@ from typing import List, Optional
 from llama_nuts_and_bolts_tpu_torch.cli.console import AppState
 from llama_nuts_and_bolts_tpu_torch.device import resolve_device
 from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs, find_model_dir
-from llama_nuts_and_bolts_tpu_torch.parallel.launch import (  # noqa: F401 (re-exported)
-    broadcast,
-    check_cards,
-    free_port,
-    launch,
-    rank_group,
-)
+from llama_nuts_and_bolts_tpu_torch.parallel.launch import broadcast, launch, rank_group
 from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
 from llama_nuts_and_bolts_tpu_torch.runtime.types import GenerationState
 from llama_nuts_and_bolts_tpu_torch.tokenizer import PromptPart

@@ -45,7 +45,6 @@ import torch
 
 from llama_nuts_and_bolts_tpu_torch.device import resolve_device
 from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
-from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import paged_flash_decode
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import (
     LlamaParams,
     _check_shards,
@@ -356,13 +355,10 @@ def paged_decode_step(
         else:
             _write_rows(pool.k[li], k[:, 0], blocks, offsets)
             _write_rows(pool.v[li], v[:, 0], blocks, offsets)
-        if attn_impl == "flash" and mesh is not None:
+        if attn_impl == "flash":
+            # K6 reads the layer's blocks straight from the stacked pool
             att = tp_paged_flash_decode(mesh, q, pool.k, pool.v, tables, positions,
                                         layer=li, **scales)
-        elif attn_impl == "flash":
-            # K6 reads the layer's blocks straight from the stacked pool
-            att = paged_flash_decode(q, pool.k, pool.v, tables, positions, layer=li,
-                                     **scales)
         else:
             layer_scales = ({} if not pool.quantized else
                             {"pool_ks": pool.k_scale[li], "pool_vs": pool.v_scale[li]})

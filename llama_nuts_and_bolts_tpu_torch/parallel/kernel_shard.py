@@ -34,6 +34,8 @@ from llama_nuts_and_bolts_tpu_torch.parallel.mesh import tp_size
 
 
 def _check_shard(mesh, q: torch.Tensor, kv_heads: int, group: int) -> None:
+    if mesh is None:
+        return        # the whole heads: the kernel checks its own group
     H = q.shape[2]
     if H % kv_heads or H // kv_heads != group:
         raise ValueError(

@@ -17,8 +17,11 @@ Failures end every rank within a bounded time, never in a collective that
 a dead rank will not join: rank 0 watches its followers, and one that exits
 with a non-zero code (or is killed) makes rank 0 print which, stop the
 others and exit 1 within ``WATCH_S``; a follower whose rank 0 is gone exits
-too. ``--tp N`` with fewer than N cards raises before any rank starts.
-Every rank leaves the group through :func:`leave_group`.
+too. A rank whose run fails (rank 0's batcher thread included) ends at
+once through :func:`abort`, without leaving the group: the others may be
+inside a collective it will never join, and leaving would wait on them.
+``--tp N`` with fewer than N cards raises before any rank starts. Every
+rank that ends cleanly leaves the group through :func:`leave_group`.
 """
 
 from __future__ import annotations
@@ -94,6 +97,13 @@ def launch(entry: Entry, argv: List[str], tp: int, device: str) -> int:
               f"{[followers[r - 1].exitcode for r in failed]}", file=sys.stderr)
         return 1
     return rc
+
+
+def abort(why: str) -> None:
+    """End this rank now with code 1, saying ``why`` on stderr; the other
+    ranks' watches end them."""
+    print(f"error: {why}", file=sys.stderr, flush=True)
+    os._exit(1)
 
 
 def _watch_followers(followers, done: threading.Event) -> None:

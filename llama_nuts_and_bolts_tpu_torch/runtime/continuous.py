@@ -64,7 +64,12 @@ all) are rank 0's alone. So they travel in a :class:`StepRecord`:
     ``(seed, position)``);
   * an idle rank 0 broadcasts nothing, and the followers wait in the
     broadcast (a day, the control group's timeout); shutdown is a record
-    with the stop flag set.
+    with the stop flag set;
+  * a step that fails on one rank ends that rank's process at once (rank
+    0's thread through ``parallel/launch.py::abort``, a follower's
+    :meth:`ContinuousBatcher.follow` by raising), and the watches of
+    ``parallel/launch.py`` end the others: no rank waits on a record or a
+    collective that a failed rank will not issue.
 
 Without a mesh nothing is broadcast and the batcher is as before.
 """
@@ -95,6 +100,7 @@ from llama_nuts_and_bolts_tpu_torch.runtime.types import GenerationState
 from llama_nuts_and_bolts_tpu_torch.utils.logging import get_logger
 
 LOGPROBS_K = 5   # OpenAI caps top_logprobs at 5 for completions
+STOP_JOIN_S = 60.0   # how long stop() waits for rank 0's thread to send the stop record
 
 
 def make_base_seed(seed: int) -> int:
@@ -236,8 +242,9 @@ class ContinuousBatcher:
     ``step()`` admits waiting requests into free slots (one prefill each),
     then dispatches one quantum of batched decode steps for every slot.
     Under the engine's mesh rank 0 steps and the followers :meth:`follow`;
-    ``control`` is the gloo group the step records travel on (default: a
-    new one, made by every rank together)."""
+    ``control`` is the gloo group the step records travel on
+    (``parallel/launch.py::new_control_group``, made by every rank
+    together)."""
 
     PIPELINE_DEPTH = 2
 
@@ -261,9 +268,10 @@ class ContinuousBatcher:
         self.mesh = engine.mesh
         self._lockstep: Optional[Lockstep] = None
         if self.mesh is not None:
-            from llama_nuts_and_bolts_tpu_torch.parallel.launch import new_control_group
-
-            self._lockstep = Lockstep(new_control_group() if control is None else control)
+            if control is None:
+                raise ValueError("a batcher under a mesh needs the control group its step "
+                                 "records travel on (parallel.launch.new_control_group)")
+            self._lockstep = Lockstep(control)
         # every rank's live requests by id (the step records' cancels name them)
         self._live: Dict[int, Request] = {}
         self._thread: Optional[threading.Thread] = None
@@ -739,18 +747,24 @@ class ContinuousBatcher:
                 if self._lockstep is not None:
                     self._exchange(stop=True)
             except Exception:
-                get_logger().error("batcher thread failed; its requests time out:\n%s",
-                                   traceback.format_exc())
-                raise
+                if self._lockstep is None:
+                    get_logger().error("batcher thread failed; its requests time out:\n%s",
+                                       traceback.format_exc())
+                    raise
+                # the followers wait for a record or a collective this rank
+                # will not send: end every rank (their watch ends them)
+                from llama_nuts_and_bolts_tpu_torch.parallel.launch import abort
+
+                abort(f"rank 0's batcher failed:\n{traceback.format_exc()}")
 
         self._thread = threading.Thread(target=loop, daemon=True, name="batcher")
         self._thread.start()
         return self._thread
 
-    def stop(self, timeout: float = 60.0) -> None:
+    def stop(self) -> None:
         """End the thread of :meth:`serve_forever_in_thread` after its step.
         Under a mesh the followers' :meth:`follow` ends too: rank 0's thread
-        sends the stop record as it ends (waited for up to ``timeout``), or
+        sends the stop record as it ends (waited for up to ``STOP_JOIN_S``), or
         without a thread this call sends it; a second call sends nothing."""
         if self._stop.is_set():
             return
@@ -758,6 +772,6 @@ class ContinuousBatcher:
         if self._lockstep is None or not self._lockstep.leader:
             return
         if self._thread is not None:
-            self._thread.join(timeout)
+            self._thread.join(STOP_JOIN_S)
         else:
             self._exchange(stop=True)

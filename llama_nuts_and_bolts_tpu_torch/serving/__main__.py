@@ -13,7 +13,8 @@ fewer than N cards raise), gloo with ``--device cpu``. Each rank shards the
 under a mesh, as in the JAX package), and loads a ``--draft-model`` whole.
 The followers follow rank 0's batcher step records or sequential engine
 calls (``serving/server.py``); SIGINT or SIGTERM to rank 0 ends every
-rank with code 0, a follower that dies ends rank 0 with code 1.
+rank with code 0. A rank that fails or dies ends every rank: rank 0 exits
+with code 1.
 ``--decode-chunk K`` reaches the engine: the sequential path (no
 ``--continuous``) streams in captured K-step chunks. ``--speculate K``
 speculates on the sequential engine and in both batchers; ``--draft-model
@@ -24,9 +25,10 @@ device.
 import argparse
 import signal
 import sys
+import traceback
 
 from llama_nuts_and_bolts_tpu_torch.device import resolve_device
-from llama_nuts_and_bolts_tpu_torch.parallel.launch import launch, rank_group
+from llama_nuts_and_bolts_tpu_torch.parallel.launch import abort, launch, rank_group
 from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
 from llama_nuts_and_bolts_tpu_torch.serving.server import serve
 
@@ -119,6 +121,9 @@ def _run_rank(argv, rank: int, port: int) -> int:
             return run(args, device, mesh, control)
         except KeyboardInterrupt:
             return 0
+        except Exception:
+            # the other ranks may be in a collective this one will not join
+            abort(f"tensor-parallel rank {rank} failed:\n{traceback.format_exc()}")
 
 
 def run(args, device, mesh=None, control=None) -> int:

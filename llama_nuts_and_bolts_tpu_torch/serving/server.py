@@ -44,6 +44,10 @@ followers :meth:`LlamaHTTPServer.follow` it over the gloo control group
     request then starts on every rank together.
   * :meth:`LlamaHTTPServer.shutdown` ends the followers: the batcher's stop
     record, or on the sequential path a ``None`` call.
+  * A follower skips only a call the engine refuses (``ValueError``, raised
+    before any collective, so rank 0 refused it too). Any other failure
+    leaves :meth:`LlamaHTTPServer.follow`, and the process model ends
+    every rank (``parallel/launch.py``).
 """
 
 from __future__ import annotations
@@ -184,7 +188,10 @@ class LlamaHTTPServer:
                 else:
                     for _ in self._sequential_tokens(*call[1:], stats={}):
                         pass
-            except Exception as e:    # a refused request: rank 0 refused it alike
+            except ValueError as e:
+                # the engine's argument refusals, raised before any
+                # collective: rank 0 refused the same call alike. Anything
+                # else fails this rank (and so every rank)
                 get_logger().debug("follower: %s call refused: %s", call[0], e)
 
     # ------------------------------------------------------------ requests

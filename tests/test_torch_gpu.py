@@ -996,7 +996,7 @@ def one_rank_group(cuda):
     asks), torn down after."""
     import torch.distributed as dist
 
-    from llama_nuts_and_bolts_tpu_torch.cli.main import free_port
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import free_port
     from llama_nuts_and_bolts_tpu_torch.parallel import initialize_multihost
 
     def start(backend):
@@ -1047,7 +1047,7 @@ def test_engine_refuses_gloo_on_the_card(cuda, one_rank_group):
 
 @pytest.mark.gpu
 def test_cli_tp_refuses_more_ranks_than_cards(cuda):
-    from llama_nuts_and_bolts_tpu_torch.cli.main import check_cards
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import check_cards
 
     n = torch.cuda.device_count()
     with pytest.raises(RuntimeError, match=f"--tp {n + 1} needs {n + 1} CUDA devices"):
@@ -1102,16 +1102,18 @@ def test_paged_batcher_on_a_one_rank_nccl_mesh_runs_k6(cuda, one_rank_group, kv)
     rule (K6 for a bf16 pool; a forced ``flash`` runs K6's int8 mode), never
     the gather, and its tokens equal the batcher's without the mesh."""
     from llama_nuts_and_bolts_tpu_torch.parallel import make_mesh
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import new_control_group
     from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
 
     one_rank_group("nccl")
     mesh = make_mesh(tp=1)
+    control = new_control_group()
     counter = paged_flash_decode if kv == "bf16" else paged_flash_decode_int8
     out = []
     for m in (None, mesh):
         engine = tiny_engine(cuda, fused=False, mesh=m, kv_cache_dtype=kv,
                              attn_impl="auto" if kv == "bf16" else "flash")
-        b = PagedBatcher(engine, n_slots=2)
+        b = PagedBatcher(engine, n_slots=2, control=None if m is None else control)
         assert b.attn_impl == "flash"
         before = counter.launches
         reqs = [b.submit(PROMPT_IDS, max_new_tokens=12), b.submit([7, 8, 9], max_new_tokens=9)]

@@ -1,9 +1,12 @@
 """The PyTorch port stands alone: neither its package (``parallel/``
 included) nor chip_smoke.py nor the tensor-parallel test ranks import JAX, Flax or anything of the JAX package (an AST scan, so dynamic
-imports inside functions count too), and its entry points default to the
-card with no silent CPU fallback."""
+imports inside functions count too), every name that the port, the smoke
+or the port's tests import from the port exists (chip_smoke.py's phases that
+need several cards run nowhere else, so a name they import is checked here),
+and its entry points default to the card with no silent CPU fallback."""
 
 import ast
+import importlib
 import pathlib
 
 import pytest
@@ -41,6 +44,45 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
            for f in files for line, mod in imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
     assert bad == []
+
+
+def port_names(path):
+    """Each ``(line, module, name)`` of a ``from llama_nuts_and_bolts_tpu_torch...
+    import name`` in ``path``, inside functions too."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.ImportFrom) and node.level == 0
+                and node.module.split(".")[0] == "llama_nuts_and_bolts_tpu_torch"):
+            for alias in node.names:
+                yield node.lineno, node.module, alias.name
+
+
+IMPORTING = (["chip_smoke.py", "tests/tp_workers.py"]
+             + sorted(str(f.relative_to(REPO)) for f in (REPO / "tests").glob("test_torch_*.py")))
+
+
+@pytest.mark.parametrize("rel", IMPORTING)
+def test_every_name_imported_from_the_port_exists(rel):
+    missing = []
+    for line, module, name in port_names(REPO / rel):
+        mod = importlib.import_module(module)
+        if not hasattr(mod, name):
+            try:
+                importlib.import_module(f"{module}.{name}")
+            except ModuleNotFoundError:
+                missing.append(f"{rel}:{line}: {module}.{name}")
+    assert missing == []
+
+
+def test_name_check_sees_a_missing_name(tmp_path):
+    src = tmp_path / "probe.py"
+    src.write_text("def f():\n    from llama_nuts_and_bolts_tpu_torch.parallel.launch "
+                   "import _broadcast, broadcast\n")
+    found = [(m, n) for _, m, n in port_names(src)]
+    assert found == [("llama_nuts_and_bolts_tpu_torch.parallel.launch", "_broadcast"),
+                     ("llama_nuts_and_bolts_tpu_torch.parallel.launch", "broadcast")]
+    launch = importlib.import_module(found[0][0])
+    assert not hasattr(launch, "_broadcast") and hasattr(launch, "broadcast")
 
 
 def test_scanner_sees_every_import_form(tmp_path):

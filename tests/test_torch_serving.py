@@ -3,7 +3,9 @@ paged batcher (health, models, chat streamed against blocking, completions
 with logprobs, seeded sampling, /metrics with the prefix cache, the 429
 admission bound), the serialized server, the non-streaming greedy loop, the
 stop-sequence filter against the JAX package's, ``--tp`` without cards,
-and the batchers on a one-rank mesh."""
+the batchers on a one-rank mesh, and how a failure under a mesh ends the
+ranks (a follower skips only the engine's refusals; rank 0's failed
+batcher thread ends its process)."""
 
 import dataclasses
 import json
@@ -20,11 +22,14 @@ from llama_nuts_and_bolts_tpu.serving.server import (
 )
 
 from llama_nuts_and_bolts_tpu_torch.parallel import initialize_multihost, make_mesh, shard_params
-from llama_nuts_and_bolts_tpu_torch.parallel.launch import free_port
+from llama_nuts_and_bolts_tpu_torch.parallel import launch
+from llama_nuts_and_bolts_tpu_torch.parallel.launch import free_port, new_control_group
 from llama_nuts_and_bolts_tpu_torch.runtime.continuous import ContinuousBatcher
+from llama_nuts_and_bolts_tpu_torch.runtime import device_loop
 from llama_nuts_and_bolts_tpu_torch.runtime.device_loop import generate_block
 from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
 from llama_nuts_and_bolts_tpu_torch.serving import __main__ as cli
+from llama_nuts_and_bolts_tpu_torch.serving import server as server_mod
 from llama_nuts_and_bolts_tpu_torch.serving.server import LlamaHTTPServer, apply_stop_sequences
 from tests.test_torch_continuous import make_engine, one_torch_thread
 
@@ -213,33 +218,96 @@ def test_tp_on_cuda_without_cards_raises():
         cli.main(["--tiny", "--tp", "2", "--continuous", "2"])
 
 
-@pytest.mark.parametrize("paged", [False, True])
-def test_batchers_accept_a_mesh(paged):
-    """A one-rank gloo mesh: the batchers accept it (the step records go
-    over a one-rank control group) and give the tokens of the batcher
-    without a mesh, greedy and seeded sampled."""
+@pytest.fixture
+def one_rank_mesh():
+    """A one-rank gloo group in this process and its mesh, torn down after."""
     initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="gloo")
     try:
-        streams = [batcher_streams(mesh, paged) for mesh in (None, make_mesh())]
+        yield make_mesh()
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_batchers_accept_a_mesh(one_rank_mesh, paged):
+    """A one-rank gloo mesh: the batchers accept it with a control group
+    (the step records go over it) and give the tokens of the batcher
+    without a mesh, greedy and seeded sampled; without one they refuse."""
+    streams = [batcher_streams(mesh, paged) for mesh in (None, one_rank_mesh)]
     assert streams[0] == streams[1]
+    with pytest.raises(ValueError, match="needs the control group"):
+        make_batcher(mesh_engine(one_rank_mesh), paged, control=None)
+
+
+def mesh_engine(mesh):
+    """The tiny cyclic engine, on its shards under ``mesh``."""
+    eng = make_engine()
+    if mesh is None:
+        return eng
+    return type(eng)(dataclasses.replace(eng.model, params=shard_params(
+        eng.model.params, mesh)), eng.args, device="cpu", mesh=mesh)
+
+
+def make_batcher(eng, paged: bool, control):
+    if paged:
+        return PagedBatcher(eng, n_slots=2, block_size=8, control=control)
+    return ContinuousBatcher(eng, 2, control=control)
 
 
 def batcher_streams(mesh, paged: bool):
     """Two requests, greedy and seeded sampled, through a batcher on the
     tiny cyclic engine (its shards under ``mesh``): their streams."""
-    eng = make_engine()
-    if mesh is not None:
-        eng = type(eng)(dataclasses.replace(eng.model, params=shard_params(
-            eng.model.params, mesh)), eng.args, device="cpu", mesh=mesh)
-    b = PagedBatcher(eng, n_slots=2, block_size=8) if paged else ContinuousBatcher(eng, 2)
+    b = make_batcher(mesh_engine(mesh), paged,
+                     control=None if mesh is None else new_control_group())
     assert (b._lockstep is None) == (mesh is None)
     reqs = [b.submit([1, 2, 3], max_new_tokens=9),
             b.submit([4, 5], max_new_tokens=7, temperature=0.9, seed=11)]
     b.run_until_idle()
     b.stop()
     return [list(r.tokens(timeout=30)) for r in reqs]
+
+
+@pytest.mark.parametrize("failure", [ValueError, RuntimeError])
+def test_follower_skips_only_the_engines_refusals(one_rank_mesh, monkeypatch, failure):
+    """A sequential follower skips a call the engine refuses (a
+    ``ValueError``, raised before any collective, as on rank 0) and follows
+    the next; any other failure leaves ``follow`` (the process model then
+    ends every rank), never waiting for a call rank 0 sends into
+    collectives this rank will not join."""
+    srv = LlamaHTTPServer(mesh_engine(one_rank_mesh), model_name="tiny-test")
+    calls = iter([("block", [1, 2, 3], 4), None])
+    monkeypatch.setattr(server_mod, "broadcast", lambda obj, control: next(calls))
+
+    def planted(*_args):
+        raise failure("planted")
+
+    monkeypatch.setattr(device_loop, "generate_block", planted)
+    if failure is ValueError:
+        srv.follow()
+        assert next(calls, "spent") == "spent"      # it went on to the stop call
+    else:
+        with pytest.raises(RuntimeError, match="planted"):
+            srv.follow()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_rank0_batcher_failure_ends_the_rank(one_rank_mesh, monkeypatch, paged):
+    """Under a mesh, rank 0's batcher thread that fails ends the process
+    through ``parallel.launch.abort`` (the followers, waiting for its next
+    record or collective, are ended by their watch); it does not log and
+    leave the server taking requests that can only time out."""
+    aborted = []
+    monkeypatch.setattr(launch, "abort", aborted.append)
+    b = make_batcher(mesh_engine(one_rank_mesh), paged, control=new_control_group())
+
+    def planted():
+        raise RuntimeError("planted step failure")
+
+    b._step_once = planted
+    b.submit([1, 2, 3], max_new_tokens=4)
+    b.serve_forever_in_thread().join(30)
+    assert not b._thread.is_alive()
+    assert len(aborted) == 1 and "planted step failure" in aborted[0]
 
 
 def test_server_accepts_attn_impl_probe(monkeypatch):

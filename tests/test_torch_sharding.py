@@ -300,7 +300,7 @@ def test_kv_heads_gate():
 @pytest.fixture
 def one_rank_group():
     """A one-rank gloo group in this process, torn down after."""
-    from llama_nuts_and_bolts_tpu_torch.cli.main import free_port
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import free_port
 
     assert initialize_multihost(None) is None and not dist.is_initialized()
     initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="gloo")

@@ -312,7 +312,8 @@ def test_tp2_cli_on_cpu_exits_cleanly():
 def test_tp_on_cuda_without_cards_raises():
     """``--tp 2`` on ``cuda`` (the default) where there is no card raises
     before any rank starts: nothing falls back to the CPU or to fewer ranks."""
-    from llama_nuts_and_bolts_tpu_torch.cli.main import check_cards, main
+    from llama_nuts_and_bolts_tpu_torch.cli.main import main
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import check_cards
 
     if torch.cuda.is_available():
         pytest.skip("this machine has a card (tests/test_torch_gpu.py checks the count)")

@@ -20,6 +20,10 @@ spawn at the join deadline):
     --tp 2 --continuous 2``, once with ``--paged-blocks`` (ended by SIGTERM:
     both ranks exit 0) and once without (a follower killed: rank 0 exits 1
     within its watch).
+
+One more spawn holds the failure path alone, without a model forward
+beyond the first: a follower that raises where rank 0 does not (its
+first sequential call) ends rank 0 with code 1.
 """
 
 import dataclasses
@@ -400,3 +404,24 @@ def test_tp2_server_cli_dense_ends_when_a_follower_dies():
             proc.kill()
     assert rc == 1 and took < 10, (rc, took)
     assert "rank(s) [1] exited with [-9]" in proc.stderr.read()
+
+
+def test_tp2_follower_only_failure_ends_rank0():
+    """The server's ``--tp 2`` on the sequential path, with a failure
+    planted on the follower alone (``tp_workers.planted_follower_failure``:
+    its first engine call, rank 0's prewarm, raises a RuntimeError). The
+    follower does not skip it and wait for the next call: it exits 1, and
+    rank 0, already in the prewarm's collectives, ends with code 1 within
+    its watch instead of waiting in them."""
+    argv = ["--tiny", "--device", "cpu", "--tp", "2", "--seq-len", "96",
+            "--port", str(free_port())]
+    code = ("import sys; from tests import tp_workers; "
+            "from llama_nuts_and_bolts_tpu_torch.parallel.launch import launch; "
+            f"sys.exit(launch(tp_workers.planted_follower_failure, {argv!r}, 2, 'cpu'))")
+    t0 = time.time()
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode == 1, (run.returncode, run.stderr[-3000:])
+    assert "planted follower-only failure" in run.stderr
+    assert "tensor-parallel rank 1 failed" in run.stderr
+    assert time.time() - t0 < 60, run.stderr[-3000:]

@@ -198,6 +198,7 @@ def _batchers_job(mesh, payload):
     records its batcher's snapshot after each step; rank 0 also returns its
     requests' streams."""
     from llama_nuts_and_bolts_tpu_torch.parallel import shard_params, tp_rank
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import new_control_group
     from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
     from llama_nuts_and_bolts_tpu_torch.runtime.continuous import ContinuousBatcher
     from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
@@ -208,7 +209,7 @@ def _batchers_job(mesh, payload):
     for name, case in payload["cases"].items():
         eng = InferenceEngine(model, InferenceArgs(**case["args"]), device="cpu", mesh=mesh)
         make = PagedBatcher if case["kind"] == "paged" else ContinuousBatcher
-        b = make(eng, **case["batcher"])
+        b = make(eng, **case["batcher"], control=new_control_group())
         snaps = []
         step_once = b._step_once
 
@@ -282,6 +283,23 @@ def _seq_server_job(mesh, payload):
     finally:
         srv.shutdown()
     return {"first": first, "block": block, "metrics": metrics}
+
+
+def planted_follower_failure(argv, rank: int, port: int) -> int:
+    """One rank of the server's ``--tp`` (``serving/__main__.py``) whose
+    follower fails where rank 0 does not: its first sequential engine call,
+    rank 0's prewarm, raises a ``RuntimeError``, while rank 0 runs the same
+    call into collectives the follower will never join. For
+    ``parallel.launch.launch``: rank 0 must end with code 1."""
+    from llama_nuts_and_bolts_tpu_torch.runtime import device_loop
+    from llama_nuts_and_bolts_tpu_torch.serving.__main__ import _run_rank
+
+    if rank != 0:
+        def planted(*_args):
+            raise RuntimeError("planted follower-only failure")
+
+        device_loop.generate_block = planted
+    return _run_rank(argv, rank, port)
 
 
 JOBS = {"forward": _forward_job, "mesh": _mesh_job, "engine": _engine_job,
