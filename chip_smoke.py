@@ -42,7 +42,14 @@ dense batcher on int4 weights and an int8 cache), texts, /metrics and
 launches equal to the server's without a mesh; two gloo ranks on the one
 card through the eager paged functions against the unsharded ones; and, on
 2 cards or more, the server at --tp min(4, cards) against one card's
-texts. These run in child processes (``--tp-rank``) after the parent's
+texts. Then the dp and sp axes (phases 26-27): two gloo ranks on the one
+card at dp 2 (requests B and A as one padded batch, bf16 and int4 + int8
+KV) and sp 2 (request B's prefill under plain, flash and ring, then decode)
+against the unsharded 32-layer forward, with each prefill's host and device
+ms, the collectives' ms and the peak memory; and, on 2 cards or more, NCCL
+at min(4, cards) ranks started as two "hosts": dp, sp (ring and flash) and
+the engine at (sp 2, tp n/2), every rank's tokens against one card's.
+These run in child processes (``--tp-rank``) after the parent's
 models are freed. Every limit is also read against
 planted faults, which must fail it. Any failed check exits non-zero.
 
@@ -3618,16 +3625,16 @@ def run_tp_children(phase: str, world: int, timeout: float = TP_CHILD_TIMEOUT_S)
 
 
 def tp_rank_main(phase: str, rank: int, world: int, port: int, out: str) -> int:
-    """A rank of phase B, C, D, F, G or H: join the group, run, write
+    """A rank of phase B, C, D, F, G, H, I or J: join the group, run, write
     rank<r>.json."""
     import torch.distributed as dist
 
     from llama_nuts_and_bolts_tpu_torch.parallel import initialize_multihost, make_mesh
     from llama_nuts_and_bolts_tpu_torch.parallel.launch import leave_group
 
-    # phases C and G put two ranks on the one card: gloo (NCCL refuses a
+    # phases C, G and I put two ranks on the one card: gloo (NCCL refuses a
     # duplicate device); the others drive a card a rank over NCCL
-    shared = phase in ("C", "G")
+    shared = phase in ("C", "G", "I")
     device = torch.device("cuda", 0 if shared else rank)
     torch.cuda.set_device(device)
     initialize_multihost(f"127.0.0.1:{port}", world, rank,
@@ -3636,7 +3643,8 @@ def tp_rank_main(phase: str, rank: int, world: int, port: int, out: str) -> int:
     tk, vocab = synthetic_tokenizer()
     mesh = make_mesh(tp=world)
     result = {"B": tp_phase_b, "C": tp_phase_c, "D": tp_phase_d, "F": tp_phase_f,
-              "G": tp_phase_g, "H": tp_phase_h}[phase](mesh, rank, tk, vocab, device)
+              "G": tp_phase_g, "H": tp_phase_h, "I": tp_phase_i,
+              "J": tp_phase_j}[phase](mesh, rank, tk, vocab, device)
     result["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     log(f"phase {phase} rank {rank}: peak device memory {result['peak_memory_gib']:.2f} GiB")
     result["failed"] = list(FAILED)
@@ -4635,6 +4643,541 @@ def tp_phase_d_parent(tp: int) -> dict:
     return summary
 
 
+# ------------------------------------------------ phases 26-27: the dp and sp axes
+#
+# I: two gloo ranks on the one card, in child processes, the 32-layer 8B at
+#    full width on random weights: (a) dp 2, requests B and A as one padded
+#    batch (each rank its row), bf16 (K1, K2) and int4 + int8 KV (K8, K4);
+#    (b) sp 2, request B's prompt, 2048 rows a rank, under plain, flash (K1)
+#    and ring, then 8 decode steps on K2 from the sp-prefilled cache. Each
+#    against the unsharded forward that rank 0 runs first, per logits row,
+#    and read against planted faults.
+# J: NCCL at min(4, cards) ranks, two "hosts" of half of them, when there are
+#    2 cards or more: (dp 2, tp n/2), (sp 2, tp n/2) ring and flash, (sp n,
+#    tp 1) ring on the cyclic 8B, every rank's tokens against the single
+#    card's; the engine at (sp 2, tp n/2) on its captured graphs; the ring
+#    meshes' prefill logits on random weights against the single card's.
+
+# Per logits row against the unsharded forward, 32 layers. dp: a rank's row
+# runs alone where the reference runs both. bf16 decode steps round their
+# GEMMs apart at one row and at two (row B read 2.2e-2 to 2.4e-2 on an H100,
+# row A 0, the prefills 0); int4 + int8 KV read 0 (K8 and the dequantized
+# route round a row alike at any row count). The planted fault, rank 1's
+# [B] positions not cut with its rows (it decodes at row 0's positions),
+# read 1.40-1.42 (bf16) and 5.19e-4 to 2.0 (int4): each limit sits between.
+# sp (bf16): plain and flash read 0 (bit-equal), the ring 2.28e-2 from the
+# plain prefill (exact products in fp32, another order); the ring skipping
+# the rotation that feeds its last step, and reading src off by one, read
+# 1.37 and 1.32 (PERF.md). Every run reads them all again.
+I_REL_L2 = {"bf16": 0.1, "int4": 1e-4}
+I_BUCKET = 4096
+I_DECODE_STEPS = 8
+RING_FAULTS = {
+    "the ring skips the rotation that feeds its last step": [
+        ("k = rotate(k, mesh, axis)", "k = k if r == sp - 2 else rotate(k, mesh, axis)"),
+        ("v = rotate(v, mesh, axis)", "v = v if r == sp - 2 else rotate(v, mesh, axis)")],
+    "the ring reads src off by one": [("src = (idx - r) % sp", "src = (idx - r + 1) % sp")],
+}
+
+
+def prompt_a_ids(tk, vocab) -> list:
+    """Request A's chat prompt (``prompts``), without an engine."""
+    from llama_nuts_and_bolts_tpu_torch.tokenizer import PromptPart, render_chat_tokens
+
+    return render_chat_tokens([
+        PromptPart("system", "You are a helpful assistant."),
+        PromptPart("user", "Explain what a key-value cache is, in a few sentences."),
+    ], vocab, tk.mergeable_ranks)
+
+
+def mutated(fn, edits):
+    """``fn`` compiled again from its source with each ``(old, new)`` of
+    ``edits`` applied (each ``old`` must occur), in its module's globals: a
+    planted fault in the real code."""
+    import inspect
+
+    src = inspect.getsource(fn)
+    for old, new in edits:
+        if old not in src:
+            fail(f"planted fault: {old!r} is not in {fn.__name__}'s source")
+        src = src.replace(old, new)
+    ns = {}
+    exec(compile(src, f"<planted {fn.__name__}>", "exec"), fn.__globals__, ns)
+    return ns[fn.__name__]
+
+
+@contextlib.contextmanager
+def planted_ring(edits):
+    from llama_nuts_and_bolts_tpu_torch.models.llama import model as mod
+
+    sound = mod.ring_gqa_attention
+    mod.ring_gqa_attention = mutated(sound, edits)
+    try:
+        yield
+    finally:
+        mod.ring_gqa_attention = sound
+
+
+@contextlib.contextmanager
+def timed_comm(device):
+    """Host ms, synchronised on both sides, in the sp collectives that the
+    forward and the ring call: ``{"gather_seq": ms, "rotate": ms,
+    "broadcast_from": ms}``."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import model as mod
+    from llama_nuts_and_bolts_tpu_torch.parallel import ring_attention as ring
+
+    spent = {"gather_seq": 0.0, "rotate": 0.0, "broadcast_from": 0.0}
+    sites = [(mod, "gather_seq"), (mod, "broadcast_from"), (ring, "rotate")]
+    sound = {site: getattr(*site) for site in sites}
+
+    def timed(fn, name):
+        def call(*a, **kw):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize(device)
+            spent[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    for (m, name), fn in sound.items():
+        setattr(m, name, timed(fn, name))
+    try:
+        yield spent
+    finally:
+        for (m, name), fn in sound.items():
+            setattr(m, name, fn)
+
+
+def padded_rows(rows, device) -> torch.Tensor:
+    t = torch.zeros((len(rows), I_BUCKET), dtype=torch.int32, device=device)
+    for i, r in enumerate(rows):
+        t[i, :len(r)] = torch.tensor(r, dtype=torch.int32)
+    return t
+
+
+def dp_greedy(params, cfg, mesh, rows, device, kind, feed=None, faulty=False):
+    """``rows`` (prompts) as one batch padded to I_BUCKET: the prefill
+    (each row's logits at its last prompt token), then I_DECODE_STEPS decode
+    steps at per-row positions, fed ``feed [rows, steps]`` (greedy tokens
+    when None). Under a dp mesh this rank runs its own row. Returns the
+    rank's rows' logits ``[n, 1 + steps, vocab]`` and tokens ``[n, steps]``.
+    ``faulty``: the [B] positions not cut with the rows (the planted fault)."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import KVCache, forward
+    from llama_nuts_and_bolts_tpu_torch.models.llama.model import (
+        decoder_block, layer_weights, output_head, prepare_forward)
+    from llama_nuts_and_bolts_tpu_torch.parallel.mesh import dp_rank, tp_size
+    from llama_nuts_and_bolts_tpu_torch.parallel.sharding import shard_tokens
+
+    padded = padded_rows(rows, device)
+    lens = torch.tensor([len(r) for r in rows], dtype=torch.int32, device=device)
+    mine = list(range(len(rows))) if mesh is None else [dp_rank(mesh)]
+    toks, pos0 = (padded, lens) if mesh is None else (shard_tokens(padded, mesh),
+                                                      shard_tokens(lens, mesh))
+    if faulty:
+        pos0 = lens[:len(mine)]
+    dtype = torch.bfloat16 if kind == "bf16" else torch.int8
+    cache = KVCache.create(cfg, len(mine), I_BUCKET, device=device, dtype=dtype,
+                           tp=tp_size(mesh))
+    x, inp = prepare_forward(params, cfg, toks, 0, cache,
+                             "flash" if kind == "bf16" else "plain", mesh)
+    for li in range(cfg.n_layers):
+        x = decoder_block(layer_weights(params, li), li, x, inp)
+    steps = [torch.cat([output_head(params, cfg, x[i:i + 1], len(rows[r]) - 1, mesh)
+                        for i, r in enumerate(mine)])]
+    del x, inp
+    fed = []
+    for j in range(I_DECODE_STEPS):
+        tok = (steps[-1][:, -1].argmax(-1).to(torch.int32) if feed is None
+               else feed[mine, j])
+        fed.append(tok)
+        logits, _ = forward(params, cfg, tok[:, None], pos0 + j, cache, attn_impl="flash",
+                            mesh=mesh)
+        steps.append(logits)
+    return torch.cat(steps, 1), torch.stack(fed, 1)
+
+
+def phase_i_dp(whole, kind, dp_mesh, rank, ids, cfg, device, launches) -> dict:
+    """Phase I (a) on one weight kind: rank 0's unsharded batch of B and A,
+    then the dp run, its rows gathered over dp, then the planted fault."""
+    import torch.distributed as dist
+
+    from llama_nuts_and_bolts_tpu_torch.parallel import shard_params
+    from llama_nuts_and_bolts_tpu_torch.parallel.mesh import gather_rows
+
+    rows = [ids["B"], ids["A"]]
+    feed = torch.zeros((2, I_DECODE_STEPS), dtype=torch.int32, device=device)
+    if rank == 0:
+        ref, feed = dp_greedy(whole, cfg, None, rows, device, kind)
+    dist.broadcast(feed, src=0)
+    shard = shard_params(whole, dp_mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    got, _ = dp_greedy(shard, cfg, dp_mesh, rows, device, kind, feed)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    planted, _ = dp_greedy(shard, cfg, dp_mesh, rows, device, kind, feed, faulty=True)
+    got, planted = gather_rows(got, dp_mesh), gather_rows(planted, dp_mesh)
+    res = {"host_ms": host_ms, "peak_gib_over_weights": peak,
+           "launches": {k: n for k, n in counts.items() if n}}
+    if rank == 0:
+        limit = I_REL_L2[kind]
+        errs = [[rel_l2(g, r) for g, r in zip(got[i], ref[i])] for i in range(2)]
+        bad = [[rel_l2(g, r) for g, r in zip(planted[i], ref[i])] for i in range(2)]
+        res.update(rel_l2=errs, planted_rel_l2=bad, limit=limit)
+        log(f"phase I dp {kind}, dp 2 on one card over gloo, {cfg.n_layers} layers, B and A as one "
+            f"padded batch of 2 at {I_BUCKET}: relative L2 per row (prefill, then "
+            f"{I_DECODE_STEPS} decode steps at per-row positions), row B "
+            f"{[f'{e:.2e}' for e in errs[0]]}, row A {[f'{e:.2e}' for e in errs[1]]}; "
+            f"planted fault (rank 1's positions not cut with its rows), row A's decode "
+            f"steps {[f'{e:.2e}' for e in bad[1][1:]]} (limit {limit}); rank 0 "
+            f"{host_ms:.1f} host ms, launches {res['launches']}")
+        if not (max(max(e) for e in errs) <= limit and bool(torch.isfinite(got).all())):
+            check_failed(f"phase I dp {kind}: the dp rows are outside {limit}")
+        if min(bad[1][1:]) <= limit:
+            check_failed(f"phase I dp {kind}: the planted fault passes {limit}")
+    return res
+
+
+def sp_prefill(params, cfg, mesh, ids, impl, device, cache):
+    """Request B's prompt padded to I_BUCKET, under ``mesh``'s sp axis the
+    rank's rows (``seq_parallel``): the fp32 logits row of its last token."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import forward
+    from llama_nuts_and_bolts_tpu_torch.parallel.sharding import shard_tokens
+
+    padded = padded_rows([ids], device)
+    toks = padded if mesh is None else shard_tokens(padded, mesh, seq_parallel=True)
+    logits, _ = forward(params, cfg, toks, 0, cache, attn_impl=impl, logits_at=len(ids) - 1,
+                        mesh=mesh, seq_parallel=mesh is not None)
+    return logits[0, 0]
+
+
+def sp_decode(params, cfg, mesh, ids, cache, device, first_row, feed=None):
+    """I_DECODE_STEPS decode steps on K2 after a prefill whose last logits
+    row is ``first_row``, every sp rank the same calls: (rows, tokens)."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import forward
+
+    rows, toks = [], []
+    row = first_row
+    for j in range(I_DECODE_STEPS):
+        tok = int(torch.argmax(row)) if feed is None else feed[j]
+        toks.append(tok)
+        logits, _ = forward(params, cfg, torch.tensor([[tok]], dtype=torch.int32,
+                                                      device=device),
+                            len(ids) + j, cache, attn_impl="flash", mesh=mesh)
+        row = logits[0, 0]
+        rows.append(row)
+    return torch.stack(rows), toks
+
+
+def cache_digest(cache) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (cache.k, cache.v):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_i_sp(whole, sp_mesh, rank, ids, cfg, device, launches) -> dict:
+    """Phase I (b): rank 0's unsharded plain and flash prefills (and 8
+    decode steps from the flash cache), then each impl at sp 2: the logits
+    row, the cache, host and device ms, the collectives' ms (a second,
+    synchronised run) and the peak memory above the weights; the decode
+    after the flash prefill; the ring's planted faults."""
+    import torch.distributed as dist
+
+    from llama_nuts_and_bolts_tpu_torch.models.llama import KVCache
+    from llama_nuts_and_bolts_tpu_torch.parallel import shard_params
+    from llama_nuts_and_bolts_tpu_torch.parallel.mesh import HOST_STAGED
+
+    ids_b = ids["B"]
+    limit = I_REL_L2["bf16"]
+    new_cache = lambda: KVCache.create(cfg, 1, I_BUCKET, device=device)  # noqa: E731
+    refs, feed = {}, torch.zeros(I_DECODE_STEPS, dtype=torch.int64, device=device)
+    if rank == 0:
+        for impl in ("plain", "flash"):
+            cache = new_cache()
+            refs[impl] = (sp_prefill(whole, cfg, None, ids_b, impl, device, cache), cache)
+        ref_rows, toks = sp_decode(whole, cfg, None, ids_b, refs["flash"][1], device,
+                                   refs["flash"][0])
+        feed = torch.tensor(toks, device=device)
+    dist.broadcast(feed, src=0)
+    feed = feed.tolist()
+    shard = shard_params(whole, sp_mesh)
+    out = {}
+    for impl in ("plain", "flash", "ring"):
+        cache = new_cache()
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        staged = HOST_STAGED["rotate"]
+        reset_counts()
+        t0 = time.perf_counter()
+        e0.record()
+        row = sp_prefill(shard, cfg, sp_mesh, ids_b, impl, device, cache)
+        e1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        res = out[impl] = {
+            "host_ms": host_ms, "device_ms": e0.elapsed_time(e1),
+            "peak_gib_over_weights": peak, "cache_sha256": cache_digest(cache),
+            "host_staged_rotations": HOST_STAGED["rotate"] - staged,
+            "launches": {k: n for k, n in counts.items() if n}}
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        spare = new_cache()
+        with timed_comm(device) as spent:
+            sp_prefill(shard, cfg, sp_mesh, ids_b, impl, device, spare)
+        del spare
+        res["collective_ms"] = dict(spent)
+        if impl == "flash":
+            reset_counts()
+            rows, _ = sp_decode(shard, cfg, sp_mesh, ids_b, cache, device, row, feed)
+            counts = read_counts()
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            res["decode_launches"] = {k: n for k, n in counts.items() if n}
+        log(f"phase I sp {impl} rank {rank}, request B ({len(ids_b)} tokens at {I_BUCKET}, "
+            f"{I_BUCKET // 2} rows a rank): prefill {host_ms:.1f} host ms, "
+            f"{res['device_ms']:.1f} device ms by events, collectives (synchronised run) "
+            f"{ {k: round(v, 3) for k, v in spent.items()} } ms, "
+            f"{res['host_staged_rotations']} rotations staged through the host (gloo), "
+            f"peak {peak:.2f} GiB above the weights, launches {res['launches']}")
+        if rank == 0:
+            ref_row, ref_cache = refs["plain" if impl == "ring" else impl]
+            res["rel_l2"] = rel_l2(row, ref_row)
+            res["cache_rel_l2"] = max(rel_l2(cache.k, ref_cache.k), rel_l2(cache.v, ref_cache.v))
+            if impl == "flash":
+                res["decode_rel_l2"] = [rel_l2(g, r) for g, r in zip(rows, ref_rows)]
+            log(f"phase I sp {impl}: the logits row {res['rel_l2']:.2e} relative L2 from the "
+                f"unsharded {'plain' if impl == 'ring' else impl} prefill's, the cache "
+                f"{res['cache_rel_l2']:.2e}" + (
+                    f", {I_DECODE_STEPS} decode steps on K2 from it "
+                    f"{[f'{e:.2e}' for e in res['decode_rel_l2']]}" if impl == "flash"
+                    else "") + f" (limit {limit})")
+            worst = max([res["rel_l2"], res["cache_rel_l2"]] + res.get("decode_rel_l2", []))
+            if not (worst <= limit and bool(torch.isfinite(row).all())):
+                check_failed(f"phase I sp {impl}: outside {limit}")
+        del cache
+    for name, edits in RING_FAULTS.items():
+        with planted_ring(edits):
+            bad = sp_prefill(shard, cfg, sp_mesh, ids_b, "ring", device, new_cache())
+        if rank == 0:
+            err = out["ring"].setdefault("planted_rel_l2", {})[name] = rel_l2(bad, refs["plain"][0])
+            log(f"planted fault, phase I sp ring: {name}: {err:.2e} (limit {limit})")
+            if err <= limit:
+                check_failed(f"phase I sp ring: the planted fault ({name}) passes {limit}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase_i(mesh, rank, tk, vocab, device) -> dict:
+    """Phase I: two gloo ranks on the one card, each holding the whole
+    weights (dp and sp replicate them): (a) dp 2 on bf16 and on int4 +
+    int8 KV, (b) sp 2 under plain, flash and ring (``phase_i_dp``,
+    ``phase_i_sp``). The sound mesh runs' launches are counted."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import init_random_params
+    from llama_nuts_and_bolts_tpu_torch.parallel import make_mesh
+    from llama_nuts_and_bolts_tpu_torch.quant import init_random_params_q4
+
+    cfg = cfg_8b(32)
+    ids = {"B": prompt_b_ids(tk, vocab), "A": prompt_a_ids(tk, vocab)}
+    dp_mesh, sp_mesh = make_mesh(tp=1, dp=2), make_mesh(tp=1, sp=2)
+    out = {"launches": {}, "dp": {}}
+    whole = init_random_params(cfg, seed=0, device=device)
+    out["dp"]["bf16"] = phase_i_dp(whole, "bf16", dp_mesh, rank, ids, cfg, device,
+                                   out["launches"])
+    out["sp"] = phase_i_sp(whole, sp_mesh, rank, ids, cfg, device, out["launches"])
+    del whole
+    torch.cuda.empty_cache()
+    whole = init_random_params_q4(cfg, seed=0, device=device)
+    out["dp"]["int4"] = phase_i_dp(whole, "int4", dp_mesh, rank, ids, cfg, device,
+                                   out["launches"])
+    del whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase_i_parent() -> dict:
+    """Phase I's two ranks; their sp caches must be byte-equal."""
+    ranks = run_tp_children("I", 2)
+    if any(r is None for r in ranks):
+        return {"ranks": ranks}
+    for impl in ("plain", "flash", "ring"):
+        if ranks[0]["sp"][impl]["cache_sha256"] != ranks[1]["sp"][impl]["cache_sha256"]:
+            check_failed(f"phase I sp {impl}: the sp ranks' caches differ")
+    log("phase I: the two sp ranks' caches are byte-equal after each prefill")
+    for r in ranks:
+        for res in r["sp"].values():
+            res.pop("cache_sha256")
+    summary = {"ranks": ranks}
+    log(f"phase I: {json.dumps(summary)}")
+    return summary
+
+
+def tp_phase_j(mesh, rank, tk, vocab, device) -> dict:
+    """Phase J: NCCL at n ranks (two "hosts" of n/2 processes, one card a
+    rank) on the cyclic 32-layer 8B: requests B and A (last token 0, so
+    greedy walks the cycle) under (dp 2, tp n/2) as one padded batch; B
+    under (sp 2, tp n/2) with ring and flash and (sp n, tp 1) with ring;
+    every rank's tokens against rank 0's single-card run's. Then the
+    engine at (sp 2, tp n/2) through generate_string on its captured
+    graphs, A and B, against the single card's engine; then random weights,
+    the ring meshes' prefill logits row against the single card's flash
+    prefill (I_REL_L2)."""
+    import torch.distributed as dist
+
+    from llama_nuts_and_bolts_tpu_torch.models.llama import (
+        KVCache, LoadedModel, init_random_params)
+    from llama_nuts_and_bolts_tpu_torch.parallel import make_mesh, shard_params
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import broadcast
+    from llama_nuts_and_bolts_tpu_torch.parallel.mesh import gather_rows, tp_size
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+
+    world = dist.get_world_size()
+    half = world // 2
+    cfg = cfg_8b(32)
+    L = cfg.n_layers
+    control = dist.new_group(backend="gloo")
+    ids = {"B": prompt_b_ids(tk, vocab)[:-1] + [0], "A": prompt_a_ids(tk, vocab)[:-1] + [0]}
+    meshes = [("dp2_tp%d" % half, dict(dp=2, tp=half), "flash"),
+              ("sp2_tp%d_ring" % half, dict(sp=2, tp=half), "ring"),
+              ("sp2_tp%d_flash" % half, dict(sp=2, tp=half), "flash")]
+    if world > 2:
+        meshes.append(("sp%d_ring" % world, dict(sp=world, tp=1), "ring"))
+    out = {"host": rank // half, "world": world, "tokens": {}, "launches": {}}
+    log(f"phase J rank {rank}: 'host' {rank // half} of 2, cuda:{device.index}")
+    whole = cyclic_params(init_random_params(cfg, seed=0, device=device), SPEC_CYCLE)
+
+    def count(counts):
+        for k, n in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+
+    def tokens_under(params, m, impl):
+        if impl == "dp":
+            _, toks = dp_greedy(params, cfg, m, [ids["B"], ids["A"]], device, "bf16")
+            return (toks if m is None else gather_rows(toks, m)).tolist()
+        cache = KVCache.create(cfg, 1, I_BUCKET, device=device, tp=tp_size(m))
+        row = sp_prefill(params, cfg, m, ids["B"], impl, device, cache)
+        return [sp_decode(params, cfg, m, ids["B"], cache, device, row)[1]]
+
+    single = {}
+    if rank == 0:
+        single = {"dp": tokens_under(whole, None, "dp"),
+                  "sp": tokens_under(whole, None, "flash")}
+    single = broadcast(single, control)
+    for name, kw, impl in meshes:
+        m = make_mesh(**kw)
+        reset_counts()
+        got = tokens_under(shard_params(whole, m), m, "dp" if "dp" in kw else impl)
+        count(read_counts())
+        out["tokens"][name] = got
+        want = single["dp" if "dp" in kw else "sp"]
+        if got != want:
+            check_failed(f"phase J {name} rank {rank}: tokens {got} differ from the single "
+                         f"card's {want}")
+        log(f"phase J {name} rank {rank}: tokens {got} (the single card's)")
+    # the engine under (sp 2, tp n/2), its decode graphs captured
+    sp_mesh = make_mesh(sp=2, tp=half)
+
+    def loaded(params):
+        return LoadedModel(params=params, cfg=cfg, vocab=vocab,
+                           mergeable_ranks=tk.mergeable_ranks, tensor_meta={})
+
+    def expect(steps, prefill_len):
+        return {"K1": L, "K2": L * steps}
+
+    requests = {"A": (ids["A"], 32), "B": (ids["B"], 32)}
+    engine_single = {}
+    if rank == 0:
+        single_eng = InferenceEngine(loaded(whole), InferenceArgs(sequence_length=8192),
+                                     device=device)
+        for key, (toks, n) in requests.items():
+            engine_single[key] = run_request(single_eng, toks, n, expect, f"phase J request "
+                                             f"{key}, the whole model on one card",
+                                             captures=(1,))["ids"]
+        del single_eng
+    engine_single = broadcast(engine_single, control)
+    engine = InferenceEngine(loaded(shard_params(whole, sp_mesh)),
+                             InferenceArgs(sequence_length=8192), device=device, mesh=sp_mesh)
+    out["engine"] = {}
+    for key, (toks, n) in requests.items():
+        r = run_request(engine, toks, n, expect, f"phase J request {key}, engine at sp 2 "
+                        f"tp {half}, rank {rank}", captures=(1,))
+        count(r["launches"])
+        out["engine"][key] = {f: r[f] for f in ("ttft_ms", "decode_tok_s", "launches")}
+        if r["ids"] != engine_single[key]:
+            check_failed(f"phase J engine request {key} rank {rank}: tokens differ from the "
+                         "single card's engine")
+    del engine, whole
+    torch.cuda.empty_cache()
+    # random weights: the ring meshes' prefill logits row
+    whole = init_random_params(cfg, seed=0, device=device)
+    ref = None
+    if rank == 0:
+        ref = sp_prefill(whole, cfg, None, ids["B"], "flash", device,
+                         KVCache.create(cfg, 1, I_BUCKET, device=device)).cpu()
+    out["ring_rel_l2"] = {}
+    for name, kw, impl in meshes:
+        if impl != "ring":
+            continue
+        m = make_mesh(**kw)
+        row = sp_prefill(shard_params(whole, m), cfg, m, ids["B"], "ring", device,
+                         KVCache.create(cfg, 1, I_BUCKET, device=device, tp=kw["tp"]))
+        if rank == 0:
+            err = out["ring_rel_l2"][name] = rel_l2(row.cpu(), ref)
+            log(f"phase J {name}, random weights: the ring prefill's logits row {err:.2e} "
+                f"relative L2 from the single card's flash prefill (limit "
+                f"{I_REL_L2['bf16']})")
+            if not err <= I_REL_L2["bf16"]:
+                check_failed(f"phase J {name}: the ring's logits are outside the limit")
+    del whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase_j_parent(n: int) -> dict:
+    """Phase J's ranks; every rank's tokens must be rank 0's."""
+    log(f"phase 27 (J): the dp and sp axes over NCCL at {n} ranks (two 'hosts' of "
+        f"{n // 2}), 32-layer 8B")
+    ranks = run_tp_children("J", n)
+    if any(r is None for r in ranks):
+        return {"ran": True, "ranks": ranks}
+    for r, res in enumerate(ranks):
+        for name, toks in res["tokens"].items():
+            if toks != ranks[0]["tokens"][name]:
+                check_failed(f"phase J {name}: rank {r}'s tokens differ from rank 0's")
+    summary = {"ran": True, "ranks": ranks}
+    log(f"phase J: {json.dumps(summary)}")
+    return summary
+
+
+def dp_sp_phases() -> dict:
+    """Phases 26-27 (I, J), after phases 22-25."""
+    log("phase 26 (I): two gloo ranks on the one card, the dp and sp axes, 32-layer 8B")
+    out = {"I": tp_phase_i_parent()}
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"phase 27 (J): the dp and sp axes over NCCL need 2 or more cards; this machine "
+            f"has {cards}, so phase J did not run")
+        out["J"] = {"ran": False, "cards": cards}
+    else:
+        out["J"] = tp_phase_j_parent(min(4, cards))
+    return out
+
+
 def main() -> int:
     name, smi = setup()
     log("phase 2: kernels vs plain at 8B widths")
@@ -4677,6 +5220,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp = tp_phases(errs, results, tk, vocab)
     tps = tp_serving_phases(errs)
+    dpsp = dp_sp_phases()
     # the speculative paths' launches join their kernels' counts, and so do
     # the probe's requests (its timed graphs included), the narrated prefill,
     # the traced prefill and decode step and the sharded load's prefills
@@ -4703,6 +5247,9 @@ def main() -> int:
                      if isinstance(run, dict) and "launches" in run.get("mesh", ())]
     mesh_launches += [runs["mesh"]["launches"] for runs in (tps["F"] or {}).values()
                       if isinstance(runs, dict) and "mesh" in runs]
+    # and the sound mesh runs of phases I and J, every rank's
+    mesh_launches += [r["launches"] for phase in ("I", "J")
+                      for r in (dpsp[phase].get("ranks") or []) if r]
     for row in rows:
         tag = "K" + row["name"].split("(K")[-1].rstrip(")")
         tag = "K6i8" if tag == "K6" and "int8" in row["name"] else tag
@@ -4726,6 +5273,7 @@ def main() -> int:
         f"{json.dumps({k: v for k, v in tp.items() if k != 'A'})}")
     log(f"summary, tensor parallelism for serving (phases F-H): "
         f"{json.dumps({k: v for k, v in tps.items() if k != 'E'})}")
+    log(f"summary, the dp and sp axes (phases I-J): {json.dumps(dpsp)}")
     if FAILED:
         fail(f"{len(FAILED)} checks failed: " + "; ".join(FAILED))
     log(f"total {time.perf_counter() - T_START:.1f}s on {smi}")
@@ -4743,7 +5291,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:
-        # a rank of phase B, C, D, F, G or H (run_tp_children)
+        # a rank of phase B, C, D, F, G, H, I or J (run_tp_children)
         phase, rank, world, port, out_dir = sys.argv[2:7]
         sys.exit(tp_rank_main(phase, int(rank), int(world), int(port), out_dir))
     sys.exit(main())

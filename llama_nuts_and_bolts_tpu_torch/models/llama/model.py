@@ -23,20 +23,40 @@ with the additive mask, on the dequantized layer for an int8 cache.
 ``"flash"`` runs K1 for S>1 and, for S==1, K2 on a bf16 cache and K4's
 int8-dot mode on an int8 cache; ``"flash_folded"`` (S==1 only) runs K4 on
 either cache (``kernels/``). An int8 cache takes ``"flash"`` for decode
-only: its prefill runs the plain path.
+only: its prefill runs the plain path. ``"ring"`` is the sequence-parallel
+prefill (a mesh and S > 1): ring attention over the current segment only
+(``parallel/ring_attention.py``), on the bf16 K/V rows before the cache
+quantizes them; the rows still land in the cache for the decode steps that
+follow.
 
-Under a tensor-parallel ``mesh`` (``parallel/``) the params and the cache are
-this rank's shards (``parallel/sharding.py``): the heads, KV heads and FFN
-width are the local ones, the kernels run on the local heads
-(``parallel/kernel_shard.py``), and each block runs one all-reduce after
-``wo`` and one after ``w_down``. A rank's partial products are summed in
-fp32 and cast to bf16 once (at tp = 1 the one term is the product itself, so
-it is rounded as without a mesh). The vocab-sharded head's fp32 logits are
-all-gathered, so every rank holds the whole ``[B, S|1, vocab]`` row and
-samples the same token. A leaf that ``_fit_spec`` replicated (an int4
-weight of fewer groups than ranks) takes the whole input instead: its input
-is all-gathered first and its product needs no sum. The fused layout is
-single-device, as in the JAX package.
+Under a ``(dp, sp, tp)`` ``mesh`` (``parallel/``) the params and the cache
+are this rank's shards (``parallel/sharding.py``):
+
+  * tp: the heads, KV heads and FFN width are the local ones, the kernels
+    run on the local heads (``parallel/kernel_shard.py``), and each block
+    runs one all-reduce after ``wo`` and one after ``w_down``. A rank's
+    partial products are summed in fp32 and cast to bf16 once (at tp = 1 the
+    one term is the product itself, so it is rounded as without a mesh). The
+    vocab-sharded head's fp32 logits are all-gathered, so every rank of the
+    tp group holds the whole row. A leaf that ``_fit_spec`` replicated (an
+    int4 weight of fewer groups than ranks) takes the whole input instead:
+    its input is all-gathered first and its product needs no sum;
+  * dp: ``tokens``, ``start_pos`` (a ``[B]`` one) and the cache hold the
+    rank's batch rows, and the logits returned are its rows (the block JAX's
+    global array holds on that device; ``parallel.mesh.gather_rows`` joins
+    them). No collective runs on dp;
+  * sp: without ``seq_parallel`` every sp rank runs the same whole call.
+    With ``seq_parallel=True`` (and always under ``"ring"``) ``tokens`` are
+    the rank's ``S/sp`` rows of the prompt (``parallel.sharding.shard_tokens``),
+    at global positions ``start_pos + sp_rank * S/sp + i``: each layer
+    all-gathers the new K/V rows over sp and writes all S into the rank's
+    cache (so every sp rank's cache is the same, byte for byte), and the
+    rank's query rows attend from their own global start (the plain mask,
+    K1, or the ring). Every sp rank ends with the same fp32 logits: the row
+    ``logits_at`` (its hidden row broadcast from the rank that holds it), or
+    all S rows (the hidden rows gathered in rank order).
+
+The fused layout is single-device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -71,10 +91,20 @@ from llama_nuts_and_bolts_tpu_torch.parallel.kernel_shard import (
     tp_flash_decode_attention,
     tp_flash_gqa_attention,
 )
-from llama_nuts_and_bolts_tpu_torch.parallel.mesh import gather_last, reduce_partial, tp_size
+from llama_nuts_and_bolts_tpu_torch.parallel.mesh import (
+    broadcast_from,
+    dp_size,
+    gather_last,
+    gather_seq,
+    reduce_partial,
+    sp_rank,
+    sp_size,
+    tp_size,
+)
+from llama_nuts_and_bolts_tpu_torch.parallel.ring_attention import ring_gqa_attention
 from llama_nuts_and_bolts_tpu_torch.parallel.sharding import check_split_layout, check_tp_shape
 
-ATTN_IMPLS = ("plain", "flash", "flash_folded")
+ATTN_IMPLS = ("plain", "flash", "flash_folded", "ring")
 
 
 @dataclass
@@ -166,24 +196,31 @@ def quantize_kv_rows(rows: torch.Tensor):
 class BlockInputs:
     """What every decoder block of one forward shares: the rows' RoPE
     tables, the additive mask (plain path) or the positions (decode
-    kernels), and where the new rows go in the cache."""
+    kernels), and where the new rows go in the cache. Under a
+    sequence-parallel prefill ``S`` counts this rank's rows and ``S_all``
+    the prompt's, whose K/V every rank writes."""
 
     cfg: ModelArgs
     cache: KVCache
     start_pos: Any                      # int, or int32 [B] tensor
-    S: int
+    q_start: Any                        # global position of the rank's first row
+    S: int                              # the rows of x
+    S_all: int                          # the prompt's rows (S without seq_parallel)
     attn_impl: str
     cos: torch.Tensor
     sin: torch.Tensor
     mask: Optional[torch.Tensor]
     positions: Optional[torch.Tensor]   # int32 [B]: the decode kernels' rows
-    rows_at: Optional[torch.Tensor]     # [B, S] write positions (per-row start_pos)
+    rows_at: Optional[torch.Tensor]     # [B, S_all] write positions (per-row start_pos)
     batch_at: Optional[torch.Tensor]    # [B, 1] batch index (per-row start_pos)
-    mesh: Any = None                    # tensor-parallel DeviceMesh (parallel/)
+    mesh: Any = None                    # (dp, sp, tp) DeviceMesh (parallel/)
+    seq_parallel: bool = False          # tokens are the rank's S/sp prompt rows
 
 
-def _check_shards(params: LlamaParams, cfg: ModelArgs, cache: KVCache, mesh) -> None:
-    """Under a mesh the params and the cache must be this rank's shards."""
+def _check_shards(params: LlamaParams, cfg: ModelArgs, cache: KVCache, mesh,
+                  batch: Optional[int] = None) -> None:
+    """Under a mesh the params and the cache must be this rank's shards,
+    and ``batch`` token rows (the rank's, on dp) those of the cache."""
     check_split_layout(params)
     tp = tp_size(mesh)
     check_tp_shape(cfg, tp)
@@ -195,64 +232,81 @@ def _check_shards(params: LlamaParams, cfg: ModelArgs, cache: KVCache, mesh) -> 
     if cache.k.shape[2] != cfg.kv_heads // tp:
         raise ValueError(f"the cache holds {cache.k.shape[2]} KV heads, a tp={tp} "
                          f"shard {cfg.kv_heads // tp}")
+    if batch is not None and cache.k.shape[1] != batch:
+        raise ValueError(f"{batch} token rows over a cache of {cache.k.shape[1]}: under "
+                         f"dp={dp_size(mesh)} the tokens and the cache are the rank's rows "
+                         "(parallel.shard_tokens, parallel.shard_cache)")
 
 
 def prepare_forward(params: LlamaParams, cfg: ModelArgs, tokens: torch.Tensor,
                     start_pos, cache: KVCache, attn_impl: str = "plain",
-                    mesh=None) -> Tuple[torch.Tensor, BlockInputs]:
+                    mesh=None, seq_parallel: bool = False) -> Tuple[torch.Tensor, BlockInputs]:
     """Check a forward's arguments, look up the token embeddings and build
     the :class:`BlockInputs` of its blocks: ``(x [B, S, dim] bf16, inputs)``."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    if mesh is not None:
-        _check_shards(params, cfg, cache, mesh)
     B, S = tokens.shape
+    seq_parallel = seq_parallel or attn_impl == "ring"
+    sp = sp_size(mesh) if seq_parallel else 1
+    S_all = S * sp                      # the prompt's rows
+    off = sp_rank(mesh) * S if seq_parallel else 0
+    if attn_impl == "ring" and (mesh is None or S_all == 1):
+        raise ValueError("attn_impl='ring' is the sequence-parallel PREFILL path: "
+                         "needs a mesh with an sp axis and S > 1")
+    if mesh is not None:
+        _check_shards(params, cfg, cache, mesh, batch=B)
     T = cache.max_seq
     per_row = isinstance(start_pos, torch.Tensor)
     if per_row:
         if start_pos.dtype != torch.int32 or start_pos.shape != (B,):
             raise TypeError(f"a per-row start_pos is an int32 [B={B}] tensor, got "
                             f"{start_pos.dtype} {tuple(start_pos.shape)}")
-        if attn_impl != "plain" and S != 1:
+        if attn_impl != "plain" and S_all != 1:
             raise ValueError("vector start_pos requires attn_impl='plain' (or "
                              "'flash'/'flash_folded' at S=1)")
         if start_pos.device.type == "cpu" and (
-                int(start_pos.min()) < 0 or int(start_pos.max()) + S > T):
-            raise ValueError(f"positions {start_pos.tolist()} + {S} exceed the cache "
+                int(start_pos.min()) < 0 or int(start_pos.max()) + S_all > T):
+            raise ValueError(f"positions {start_pos.tolist()} + {S_all} exceed the cache "
                              f"length {T}")
     elif not isinstance(start_pos, int):
         raise TypeError("start_pos must be an int or an int32 [B] tensor")
-    elif start_pos + S > T:
-        raise ValueError(f"positions {start_pos}..{start_pos + S} exceed the "
+    elif start_pos + S_all > T:
+        raise ValueError(f"positions {start_pos}..{start_pos + S_all} exceed the "
                          f"cache length {T}")
-    if attn_impl == "flash_folded" and S != 1:
+    if attn_impl == "flash_folded" and S_all != 1:
         raise ValueError("attn_impl='flash_folded' is the folded-heads DECODE "
                          "kernel (S=1); use 'flash' for prefill")
-    if cache.quantized and attn_impl == "flash" and S != 1:
+    if cache.quantized and attn_impl == "flash" and S_all != 1:
         raise ValueError("int8 KV cache + flash is decode-only (S=1); use "
                          "attn_impl='plain' for prefill")
     flash = attn_impl in ("flash", "flash_folded")
+    masked = attn_impl == "plain"
 
     x = params.tok_embeddings[tokens.long()]                    # [B,S,dim] bf16
     dev = x.device
     rows_at = batch_at = None
     if per_row:
-        # [B, S] write/attend positions of every row; RoPE rows gathered per row
-        rows_at = start_pos.to(dev).long()[:, None] + torch.arange(S, device=dev)
-        cos, sin = params.rope_cos[rows_at], params.rope_sin[rows_at]
-        mask = None if flash else attention_mask_per_row(S, T, start_pos.to(dev))
-        positions = start_pos.to(dev).contiguous()
+        start = start_pos.to(dev)
+        # [B, S_all] write positions of every row; RoPE rows gathered per row
+        rows_at = start.long()[:, None] + torch.arange(S_all, device=dev)
+        mine = rows_at[:, off:off + S]
+        cos, sin = params.rope_cos[mine], params.rope_sin[mine]
+        q_start = start + off
+        mask = attention_mask_per_row(S, T, q_start) if masked else None
+        positions = start.contiguous()
         batch_at = torch.arange(B, device=dev)[:, None]
     else:
-        cos = params.rope_cos[start_pos:start_pos + S]
-        sin = params.rope_sin[start_pos:start_pos + S]
-        mask = None if flash else attention_mask(S, T, start_pos, dev)[None]
+        q_start = start_pos + off
+        cos = params.rope_cos[q_start:q_start + S]
+        sin = params.rope_sin[q_start:q_start + S]
+        mask = attention_mask(S, T, q_start, dev)[None] if masked else None
         positions = (torch.full((B,), start_pos, dtype=torch.int32, device=dev)
-                     if flash and S == 1 else None)
-    return x, BlockInputs(cfg=cfg, cache=cache, start_pos=start_pos, S=S,
-                          attn_impl=attn_impl, cos=cos, sin=sin, mask=mask,
-                          positions=positions, rows_at=rows_at, batch_at=batch_at,
-                          mesh=mesh)
+                     if flash and S_all == 1 else None)
+    return x, BlockInputs(cfg=cfg, cache=cache, start_pos=start_pos, q_start=q_start,
+                          S=S, S_all=S_all, attn_impl=attn_impl, cos=cos, sin=sin,
+                          mask=mask, positions=positions, rows_at=rows_at,
+                          batch_at=batch_at, mesh=mesh,
+                          seq_parallel=seq_parallel and mesh is not None)
 
 
 def layer_weights(params: LlamaParams, li: int) -> Dict[str, Any]:
@@ -261,14 +315,14 @@ def layer_weights(params: LlamaParams, li: int) -> Dict[str, Any]:
 
 
 def _write(buf: torch.Tensor, li: int, rows: torch.Tensor, inp: BlockInputs) -> None:
-    """``rows [B, S, KV(, D)]`` into ``buf [L, B, KV, T(, D)]`` at the rows'
-    positions, in place: only the S new rows are written."""
+    """``rows [B, S_all, KV(, D)]`` into ``buf [L, B, KV, T(, D)]`` at the
+    rows' positions, in place: only the new rows are written."""
     if inp.rows_at is not None:
         # the advanced indices (batch, position) are split by the KV slice,
         # so their [B, S] dims lead: the target is [B, S, KV(, D)] as rows
         buf[li][inp.batch_at, :, inp.rows_at] = rows.to(buf.dtype)
     else:
-        buf[li, :, :, inp.start_pos:inp.start_pos + inp.S] = rows.transpose(1, 2)
+        buf[li, :, :, inp.start_pos:inp.start_pos + inp.S_all] = rows.transpose(1, 2)
 
 
 def _row_linear(x: torch.Tensor, w, mesh) -> torch.Tensor:
@@ -290,8 +344,9 @@ def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
     (:func:`layer_weights`): attention (the new K/V rows written into the
     cache in place), then the SwiGLU feed-forward, each with its residual.
     Under ``inp.mesh`` the heads and FFN width are this rank's and each
-    half ends in an all-reduce. It reads nothing back to the host, so a
-    captured decode step runs it."""
+    half ends in an all-reduce; a sequence-parallel prefill all-gathers the
+    new K/V rows over sp before it writes them. It reads nothing back to
+    the host, so a captured decode step runs it."""
     cfg, cache, mesh = inp.cfg, inp.cache, inp.mesh
     B, S = x.shape[0], inp.S
     tp = tp_size(mesh)
@@ -311,6 +366,9 @@ def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
         v = linear(h, w["wv"]).reshape(B, S, KV, D)
     q = apply_rope(q, inp.cos, inp.sin)
     k = apply_rope(k, inp.cos, inp.sin)
+    k_new, v_new = k, v                 # this rank's rows
+    if inp.seq_parallel:
+        k, v = gather_seq(k, mesh), gather_seq(v, mesh)          # [B, S_all, KV, D]
     if quantized:
         kq, ks = quantize_kv_rows(k)
         vq, vs = quantize_kv_rows(v)
@@ -322,7 +380,12 @@ def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
         _write(cache.k, li, k, inp)
         _write(cache.v, li, v, inp)
 
-    if flash and S == 1:
+    if inp.attn_impl == "ring":
+        # the current segment's bf16 rows, as they were before the cache
+        # quantized them
+        att = ring_gqa_attention(mesh, q, k_new.transpose(1, 2).contiguous(),
+                                 v_new.transpose(1, 2).contiguous(), inp.start_pos)
+    elif flash and inp.S_all == 1:
         fold = quantized or inp.attn_impl == "flash_folded"
         kw = dict(k_scale=cache.k_scale, v_scale=cache.v_scale, layer=li,
                   fold_heads=fold, int8_mxu=quantized)
@@ -331,7 +394,7 @@ def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
         else:
             att = flash_decode_attention(q, cache.k, cache.v, inp.positions, **kw)
     elif flash and mesh is not None:
-        att = tp_flash_gqa_attention(mesh, q, cache.k[li], cache.v[li], inp.start_pos)
+        att = tp_flash_gqa_attention(mesh, q, cache.k[li], cache.v[li], inp.q_start)
     elif flash:
         att = flash_gqa_attention(q, cache.k[li], cache.v[li], inp.start_pos)
     elif quantized:
@@ -357,10 +420,21 @@ def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
 
 
 def output_head(params: LlamaParams, cfg: ModelArgs, x: torch.Tensor,
-                logits_at: Optional[int] = None, mesh=None) -> torch.Tensor:
+                logits_at: Optional[int] = None, mesh=None,
+                seq_parallel: bool = False) -> torch.Tensor:
     """The final norm and the LM head: fp32 logits ``[B, S, vocab]``
     (``[B, 1, vocab]`` when ``logits_at`` picks one row). Under a mesh the
-    head is vocab-sharded and every rank gets the all-gathered logits."""
+    head is vocab-sharded and every rank gets the all-gathered logits. With
+    ``seq_parallel`` ``x`` holds the rank's rows of the prompt, and
+    ``logits_at`` is a global row: every sp rank gets the same logits."""
+    if seq_parallel and sp_size(mesh) > 1:
+        if logits_at is None:
+            x = gather_seq(x, mesh)                             # [B,S_all,dim]
+        else:
+            owner, at = divmod(logits_at, x.shape[1])
+            row = (x[:, at:at + 1].contiguous() if sp_rank(mesh) == owner
+                   else x.new_empty((x.shape[0], 1, x.shape[2])))
+            x, logits_at = broadcast_from(row, mesh, "sp", owner), None
     if logits_at is not None:
         x = x[:, logits_at:logits_at + 1]                       # [B,1,dim]
     x = rms_norm(x, params.norm, cfg.norm_eps)
@@ -381,21 +455,24 @@ def forward(
     cache: KVCache,
     attn_impl: str = "plain",
     logits_at: Optional[int] = None,
-    mesh=None,                     # tensor-parallel DeviceMesh: params/cache are shards
+    mesh=None,                     # (dp, sp, tp) DeviceMesh: params/cache are shards
+    seq_parallel: bool = False,    # tokens are this rank's S/sp prompt rows
 ) -> Tuple[torch.Tensor, KVCache]:
     """One forward pass (prefill when S>1, decode step when S==1).
 
     Returns fp32 logits ``[B, S, vocab]`` (``[B, 1, vocab]`` when
-    ``logits_at`` picks one row) and ``cache``, written in place. A ``[B]``
+    ``logits_at`` picks one row; S is the prompt's under ``seq_parallel``)
+    and ``cache``, written in place. A ``[B]``
     ``start_pos`` runs on the plain path at any S and on the decode kernels
     at S=1, as in the JAX package; its rows' positions plus S must fit the
     cache (checked for CPU tensors; the batchers keep them in range).
     ``runtime/profiling.py::narrated_forward`` runs the same three parts,
     a layer at a time. Under ``mesh`` see the module docstring."""
-    x, inp = prepare_forward(params, cfg, tokens, start_pos, cache, attn_impl, mesh)
+    x, inp = prepare_forward(params, cfg, tokens, start_pos, cache, attn_impl, mesh,
+                             seq_parallel)
     for li in range(cfg.n_layers):
         x = decoder_block(layer_weights(params, li), li, x, inp)
-    return output_head(params, cfg, x, logits_at, mesh), cache
+    return output_head(params, cfg, x, logits_at, mesh, inp.seq_parallel), cache
 
 
 # --------------------------------------------------------------------------

@@ -1,11 +1,14 @@
-"""Megatron tensor-parallel splits of the Llama weights and the dense cache.
+"""The shardings of the ``(dp, sp, tp)`` mesh: Megatron tensor-parallel
+splits of the Llama weights, the dense cache's rows and heads, the paged
+pool's heads, and a rank's block of the tokens.
 
 Port of ``llama_nuts_and_bolts_tpu/parallel/sharding.py``. The JAX package
-places each weight with a ``NamedSharding`` and lets XLA keep the shards; a
-process of the port holds only its own rank's slices, so the specs below
-name the split axis of each weight and :func:`shard_leaf` cuts rank
-``r``'s block out of a whole tensor: the block that JAX's
-``addressable_shards[r]`` holds, byte for byte.
+places each array with a ``NamedSharding`` and lets XLA keep the shards; a
+process of the port holds only its own rank's blocks, so the specs below
+name the split axes of each array and :func:`shard_leaf` and
+:func:`cut_block` cut rank ``r``'s block out of a whole tensor: the block
+that JAX's ``addressable_shards`` holds on the device at the same mesh
+coordinate, byte for byte.
 
 Weight layouts are checkpoint layouts ``[out, in]`` stacked to ``[L, out, in]``:
 
@@ -16,34 +19,47 @@ Weight layouts are checkpoint layouts ``[out, in]`` stacked to ``[L, out, in]``:
   output    [V, D]            → ("tp", None)         vocab-sharded logits
   tok_emb   [V, D]            → replicated
 
+No weight spec names dp or sp: the weights are replicated on both.
 Quantized leaves follow the JAX package's ``_put_weight``: an int8
 ``QTensor``'s per-channel scale ``[..., out]`` takes the value's spec without
 its contraction axis; an int4 ``Q4Tensor`` (packed ``[..., G, out, K/2]``,
 scale ``[..., G, out]``) puts the contraction split on the group axis and
 the out split on its rows, and an axis that tp does not divide is
 replicated instead (``_fit_spec``: e.g. a weight of fewer int4 groups than
-ranks). A dense axis that tp does not divide is refused, as JAX's
-``device_put`` refuses it.
+ranks). This is the JAX package's ``q4_shardings``, for the whole tree
+(:func:`shard_params`) and for the loader's sharded load alike
+(:func:`sharding_fn_for`). A dense axis that tp does not divide is refused,
+as JAX's ``device_put`` refuses it.
 
 The dense cache ``[L, B, KV, T, hd]`` (and int8 scales ``[L, B, KV, T]``)
-keeps its rank's KV heads, and so does the paged pool ``[L, n_blocks, KV,
-bs, hd]`` (int8 scale pools ``[L, n_blocks, KV, bs]``): block writes, the
-gather path and K6 all stay on the rank, and the batch lives in the block
-tables, which every rank holds whole. The batch (``dp``) axis
-(``token_sharding``) and the int4 load shardings (``q4_shardings``) of the
-JAX package wait for ROADMAP item 17b.
+keeps its rank's batch rows on dp and KV heads on tp (``cache_sharding``),
+and is replicated on sp: a sequence-parallel prefill writes every row of the
+prompt into every sp rank's cache. The paged pool ``[L, n_blocks, KV, bs,
+hd]`` (int8 scale pools ``[L, n_blocks, KV, bs]``) keeps its rank's KV heads
+only: block writes, the gather path and K6 all stay on the rank, and the
+batch lives in the block tables, which every rank holds whole. Tokens ``[B,
+S]`` keep their batch rows on dp and, in a sequence-parallel prefill, their
+prompt rows on sp (:func:`token_sharding`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from llama_nuts_and_bolts_tpu_torch.parallel.mesh import tp_rank, tp_size
+from llama_nuts_and_bolts_tpu_torch.parallel.mesh import (
+    MESH_AXES,
+    axis_rank,
+    axis_size,
+    tp_rank,
+    tp_size,
+)
 
 Spec = Tuple[Optional[str], ...]
+# a rank's place on the axes a spec names: axis -> (index, size)
+Coords = Dict[str, Tuple[int, int]]
 
 LAYER_SPECS = {
     "attn_norm": (None, None),
@@ -71,17 +87,30 @@ def _fit_spec(spec: Spec, shape: Sequence[int], tp: int) -> Spec:
                  for i, ax in enumerate(spec))
 
 
-def _take(t: torch.Tensor, spec: Spec, rank: int, tp: int) -> torch.Tensor:
-    """Rank ``rank``'s block of ``t`` under ``spec`` (a view)."""
+def cut_block(t: torch.Tensor, spec: Spec, coords: Coords) -> torch.Tensor:
+    """The block of ``t`` at ``coords`` under ``spec`` (a view): each axis
+    that ``spec`` names is cut into ``coords[name][1]`` equal parts, and the
+    part at ``coords[name][0]`` kept."""
     for axis, name in enumerate(spec):
         if name is None:
             continue
-        if t.shape[axis] % tp:
+        index, n = coords[name]
+        if t.shape[axis] % n:
             raise ValueError(f"axis {axis} of a {tuple(t.shape)} tensor does not "
-                             f"divide over tp={tp}")
-        n = t.shape[axis] // tp
-        t = t.narrow(axis, rank * n, n)
+                             f"divide over {name}={n}")
+        size = t.shape[axis] // n
+        t = t.narrow(axis, index * size, size)
     return t
+
+
+def mesh_coords(mesh) -> Coords:
+    """This process's ``(index, size)`` on each axis of the mesh."""
+    return {a: (axis_rank(mesh, a), axis_size(mesh, a)) for a in MESH_AXES}
+
+
+def _take(t: torch.Tensor, spec: Spec, rank: int, tp: int) -> torch.Tensor:
+    """Rank ``rank``'s block of ``t`` under a spec that names tp only."""
+    return cut_block(t, spec, {"tp": (rank, tp)})
 
 
 def shard_leaf(value: Any, spec: Spec, rank: int, tp: int) -> Any:
@@ -148,11 +177,24 @@ def param_sharding_fn(mesh):
     return sharding_fn_for(tp_rank(mesh), tp_size(mesh))
 
 
-def shard_cache_for(cache, rank: int, tp: int):
-    """Rank ``rank``'s KV heads of a dense cache (bf16, or int8 with scales),
-    as a cache of its own."""
+CACHE_SPEC: Spec = (None, "dp", "tp", None, None)   # [L, B, KV, T, hd]
+
+
+def cache_sharding(mesh=None) -> Spec:
+    """The dense cache's spec (the JAX package's ``cache_sharding(mesh)``):
+    batch rows on dp, KV heads on tp, replicated on sp. An int8 cache's
+    scales take it without the head dim."""
+    return CACHE_SPEC
+
+
+def shard_cache_for(cache, rank: int, tp: int, dp_rank: int = 0, dp: int = 1):
+    """The block of a dense cache (bf16, or int8 with scales) at tp rank
+    ``rank`` of ``tp`` and dp rank ``dp_rank`` of ``dp``, as a cache of its
+    own: a pure function of its arguments."""
+    coords = {"tp": (rank, tp), "dp": (dp_rank, dp)}
+
     def cut(t):
-        return None if t is None else _take(t, (None, None, "tp"), rank, tp).clone(
+        return None if t is None else cut_block(t, CACHE_SPEC[:t.dim()], coords).clone(
             memory_format=torch.contiguous_format)
 
     return type(cache)(k=cut(cache.k), v=cut(cache.v), k_scale=cut(cache.k_scale),
@@ -160,8 +202,26 @@ def shard_cache_for(cache, rank: int, tp: int):
 
 
 def shard_cache(cache, mesh):
-    """This process's KV heads of a whole dense cache."""
-    return shard_cache_for(cache, tp_rank(mesh), tp_size(mesh))
+    """This process's rows and KV heads of a whole dense cache."""
+    c = mesh_coords(mesh)
+    return shard_cache_for(cache, *c["tp"], *c["dp"])
+
+
+def token_sharding(mesh=None, seq_parallel: bool = False) -> Spec:
+    """Tokens ``[B, S]`` (the JAX package's ``token_sharding``): batch rows
+    on dp and, with ``seq_parallel``, the prompt's rows on sp (a
+    sequence-parallel prefill, ``forward(..., seq_parallel=True)`` or
+    ``attn_impl="ring"``)."""
+    return ("dp", "sp" if seq_parallel else None)
+
+
+def shard_tokens(tokens: torch.Tensor, mesh, seq_parallel: bool = False) -> torch.Tensor:
+    """This process's block of a whole ``[B, S]`` token tensor (or of any
+    tensor whose leading axes are the batch and the sequence, e.g. a ``[B]``
+    positions tensor, whose spec is cut to its rank) under
+    :func:`token_sharding`, made contiguous."""
+    spec = token_sharding(mesh, seq_parallel)[:tokens.dim()]
+    return cut_block(tokens, spec, mesh_coords(mesh)).contiguous()
 
 
 POOL_SPEC: Spec = (None, None, "tp", None, None)    # [L, n_blocks, KV, bs, hd]

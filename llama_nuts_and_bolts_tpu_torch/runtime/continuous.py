@@ -71,6 +71,10 @@ all) are rank 0's alone. So they travel in a :class:`StepRecord`:
     ``parallel/launch.py`` end the others: no rank waits on a record or a
     collective that a failed rank will not issue.
 
+A mesh's dp and sp ranks are replicas of the batcher (``runtime/engine.py``):
+each holds every slot, applies the same records and runs the same steps,
+and its forwards meet only its own tp group.
+
 Without a mesh nothing is broadcast and the batcher is as before.
 """
 

@@ -20,9 +20,20 @@ every forward (prefill, prefix-cache suffix, decode and verify graphs, the
 probe's graphs) runs on the mesh. Every rank runs the same engine calls in
 lockstep: the logits are all-gathered, so every rank picks the same tokens
 (sampled ones from identically seeded generators), buckets and graphs; under
-``probe`` rank 0's choice is every rank's. On a card the group must be NCCL
-(gloo's collectives cannot be captured into the decode graphs). The draft
-model is not sharded, as in the JAX package: each rank runs all of it.
+``probe`` the mesh's first rank's choice is every rank's. On a card the
+group must be NCCL (gloo's collectives cannot be captured into the decode
+graphs). The draft model is not sharded, as in the JAX package: each rank
+runs all of it.
+
+The mesh's other axes replicate the engine, as the JAX engine's calls
+(which pass unsharded tokens) leave them: every sp rank runs the same whole
+calls, whose graphs hold only the tp group's collectives, and gives the
+tokens of the engine without a mesh. Under dp every rank keeps every row of
+a cache (the batchers' step records need every row's token on every rank);
+a cache whose rows dp does not divide is refused (:meth:`new_cache`), where
+the JAX engine's ``shard_cache`` fails: so the sequential requests, a row
+each, are refused under dp > 1, and the batchers, whose slots dp divides,
+run as the JAX batchers do.
 """
 
 from __future__ import annotations
@@ -40,7 +51,12 @@ from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import K2_GROUP
 from llama_nuts_and_bolts_tpu_torch.models.llama.loader import LoadedModel
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache, forward
 from llama_nuts_and_bolts_tpu_torch.ops.sampling import greedy, sample_token
-from llama_nuts_and_bolts_tpu_torch.parallel.mesh import broadcast_choice, tp_backend, tp_size
+from llama_nuts_and_bolts_tpu_torch.parallel.mesh import (
+    broadcast_choice,
+    dp_size,
+    tp_backend,
+    tp_size,
+)
 from llama_nuts_and_bolts_tpu_torch.parallel.sharding import check_tp_shape
 from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import (
     DecodeGraph,
@@ -156,7 +172,13 @@ class InferenceEngine:
     def new_cache(self, batch: int = 1, max_seq: Optional[int] = None) -> KVCache:
         """Fresh KV cache of ``args.kv_cache_dtype`` (bf16 | int8);
         ``max_seq`` bounds the buffer below the engine context (request
-        bucketing — see cache_bucket)."""
+        bucketing — see cache_bucket). Under a mesh its rows must divide
+        over dp (see the module docstring)."""
+        dp = dp_size(self.mesh)
+        if batch % dp:
+            raise ValueError(f"a cache of {batch} rows does not divide over dp={dp}: "
+                             "the sequential engine serves one row, so a dp mesh runs "
+                             "only the batchers (their slots a multiple of dp)")
         return KVCache.create(self.model.cfg, batch, max_seq or self.seq_len,
                               device=self.device,
                               dtype=KV_CACHE_DTYPES[self.args.kv_cache_dtype], tp=self.tp)

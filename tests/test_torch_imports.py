@@ -38,7 +38,8 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                           REPO / "tests" / "tp_workers.py"]
     assert len(files) > 30
-    assert {"__init__.py", "mesh.py", "sharding.py", "kernel_shard.py", "launch.py"} <= {
+    assert {"__init__.py", "mesh.py", "sharding.py", "kernel_shard.py", "launch.py",
+            "ring_attention.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
     bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
            for f in files for line, mod in imported_modules(f)

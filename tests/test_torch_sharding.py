@@ -4,8 +4,10 @@ Each rank's slices (``parallel.sharding.shard_params_for``) must be byte-equal
 to the shard that the JAX package's ``shard_params(params, make_mesh(tp))``
 places on device ``r`` of the 8-device CPU mesh, for bf16, int8 and int4
 leaves, a ``_fit_spec``-replicated int4 axis included; the same for the
-dense cache (``shard_cache``) and the paged pool (``shard_pool``). Also: the
-mesh on a one-rank gloo group, the loader's sharding function, the
+dense cache (``shard_cache``) and the paged pool (``shard_pool``); a dense
+cache's and the tokens' blocks on dp, sp and tp meshes byte-equal to JAX's
+``shard_cache`` and ``token_sharding`` shards at the same mesh coordinate.
+Also: the mesh on a one-rank gloo group, the loader's sharding function, the
 ``kv_heads % tp`` gate, the kernel-shard wrappers on the CPU (K6 on each
 rank's heads against the JAX package's ``tp_paged_flash_decode`` on the CPU
 mesh, its Pallas kernel in interpret mode), and K8's routing at the head
@@ -29,6 +31,7 @@ from llama_nuts_and_bolts_tpu.parallel import make_mesh as jmake_mesh
 from llama_nuts_and_bolts_tpu.parallel import shard_cache as jshard_cache
 from llama_nuts_and_bolts_tpu.parallel import shard_params as jshard_params
 from llama_nuts_and_bolts_tpu.parallel import shard_pool as jshard_pool
+from llama_nuts_and_bolts_tpu.parallel import token_sharding as jtoken_sharding
 from llama_nuts_and_bolts_tpu.parallel.kernel_shard import (
     tp_paged_flash_decode as jtp_paged_flash_decode,
 )
@@ -61,13 +64,16 @@ from llama_nuts_and_bolts_tpu_torch.parallel.sharding import (
     LAYER_SPECS,
     TOP_SPECS,
     POOL_SPEC,
+    cache_sharding,
     check_tp_shape,
+    cut_block,
     pool_sharding,
     shard_cache_for,
     shard_leaf,
     shard_params_for,
     shard_pool_for,
     sharding_fn_for,
+    token_sharding,
 )
 from llama_nuts_and_bolts_tpu_torch.quant.int4 import host_quantize_q4
 from llama_nuts_and_bolts_tpu_torch.utils.testing import compare_tensor
@@ -168,6 +174,77 @@ def test_cache_shards_equal_jax(dtype):
     local = KVCache.create(cfg, 2, 16, device="cpu", dtype=torch.int8 if dtype == "int8"
                            else torch.bfloat16, tp=4)
     assert local.k.shape == mine.k.shape and local.quantized == (dtype == "int8")
+
+
+def shards_by_coord(jarr, mesh):
+    """JAX's shard of ``jarr`` at each (dp, sp, tp) coordinate of ``mesh``."""
+    by_device = {sh.device: sh for sh in jarr.addressable_shards}
+    return {c: np.asarray(by_device[d].data) for c, d in np.ndenumerate(mesh.devices)}
+
+
+def coords_of(c, mesh):
+    """A mesh coordinate as the port's ``{axis: (index, size)}``."""
+    return {a: (c[i], mesh.shape[a]) for i, a in enumerate(("dp", "sp", "tp"))}
+
+
+def as_bits(a):
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+MESHES = {"dp2_tp2": dict(dp=2, tp=2), "dp2_sp2_tp2": dict(dp=2, sp=2, tp=2),
+          "dp4_sp2": dict(dp=4, sp=2, tp=1), "sp4_tp2": dict(sp=4, tp=2)}
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_cache_blocks_on_dp_sp_tp_equal_jax(dtype, mesh_name):
+    """The dense cache keeps its batch rows on dp and KV heads on tp and is
+    replicated on sp: each rank's block (``shard_cache_for`` at its dp and
+    tp coordinates) is byte-equal to JAX's shard on that device."""
+    jcfg = JModelArgs(**SPEC)
+    jdt = jnp.int8 if dtype == "int8" else jnp.bfloat16
+    rng = np.random.default_rng(1)
+    jcache = jmodel.KVCache.create(jcfg, 4, 8, dtype=jdt)
+    filled = {}
+    for f in ("k", "v", "k_scale", "v_scale"):
+        a = getattr(jcache, f)
+        if a is None:
+            continue
+        vals = rng.integers(-100, 100, a.shape) if dtype == "int8" and f in "kv" else \
+            rng.standard_normal(a.shape)
+        filled[f] = jnp.asarray(vals, a.dtype)
+    cache = KVCache(**{f: tensor_from_numpy(np.asarray(a), "cpu") for f, a in filled.items()})
+    mesh = jmake_mesh(**MESHES[mesh_name])
+    jsharded = jshard_cache(jmodel.KVCache(**filled), mesh)
+    assert cache_sharding() == (None, "dp", "tp", None, None)
+    for f in filled:
+        for c, want in shards_by_coord(getattr(jsharded, f), mesh).items():
+            co = coords_of(c, mesh)
+            mine = getattr(shard_cache_for(cache, *co["tp"], *co["dp"]), f)
+            assert mine.is_contiguous() and mine.shape == want.shape, (f, c)
+            np.testing.assert_array_equal(tensor_to_numpy(mine), as_bits(want),
+                                          err_msg=f"{f} at {c}")
+
+
+@pytest.mark.parametrize("seq_parallel", [False, True])
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_token_blocks_equal_jax(seq_parallel, mesh_name):
+    """Tokens ``[B, S]``: batch rows on dp, and the prompt's rows on sp in a
+    sequence-parallel prefill; a ``[B]`` positions tensor keeps its rows."""
+    mesh = jmake_mesh(**MESHES[mesh_name])
+    tokens = np.arange(4 * 16, dtype=np.int32).reshape(4, 16)
+    spec = token_sharding(None, seq_parallel)
+    assert spec == tuple(jtoken_sharding(mesh, seq_parallel).spec)
+    placed = jax.device_put(jnp.asarray(tokens), jtoken_sharding(mesh, seq_parallel))
+    pos = jax.device_put(jnp.asarray(tokens[:, 0]), jax.sharding.NamedSharding(
+        mesh, jax.sharding.PartitionSpec("dp")))
+    for c, want in shards_by_coord(placed, mesh).items():
+        co = coords_of(c, mesh)
+        np.testing.assert_array_equal(cut_block(torch.from_numpy(tokens), spec, co).numpy(),
+                                      want)
+        np.testing.assert_array_equal(
+            cut_block(torch.from_numpy(tokens[:, 0]), spec[:1], co).numpy(),
+            shards_by_coord(pos, mesh)[c])
 
 
 def filled_pools(jcfg, n_blocks, bs, int8, seed=0):

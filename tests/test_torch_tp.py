@@ -212,10 +212,11 @@ def params_bytes(p):
 
 
 def test_mesh_loader_and_refusal_on_two_ranks(tmp_path):
-    """The (dp, sp, tp) mesh and its errors (dp and sp name item 17b), the
-    sharded loader on every rank byte-equal to ``shard_params`` of the whole
-    load (bf16, int8 and int4), a mesh forward's refusal of whole params,
-    and the engine's refusal of a model of 1 KV head at tp 2."""
+    """The (dp, sp, tp) meshes (tp 2, and dp 2 and sp 2 on the same two
+    ranks) and the error of a tp that does not fit, the sharded loader on
+    every rank byte-equal to ``shard_params`` of the whole load (bf16, int8
+    and int4), a mesh forward's refusal of whole params, and the engine's
+    refusal of a model of 1 KV head at tp 2."""
     cfg = ModelArgs(**SPEC)
     tensors = checkpoint(cfg)
     odd_cfg = ModelArgs(**dict(SPEC, n_heads=2, n_kv_heads=1, dim=64))
@@ -230,9 +231,8 @@ def test_mesh_loader_and_refusal_on_two_ranks(tmp_path):
         assert res["rank"] == r and res["tp"] == 2
         assert res["errors"]["tp3"] == ("ValueError: dp(1) * sp(1) * tp(3) "
                                         "incompatible with device count (2)")
-        for axis in ("dp2", "sp2"):
-            assert res["errors"][axis].startswith("NotImplementedError") and \
-                "ROADMAP item 17b" in res["errors"][axis]
+        assert res["errors"]["dp2"] == ((2, 1, 1), ("dp", "sp", "tp"))
+        assert res["errors"]["sp2"] == ((1, 2, 1), ("dp", "sp", "tp"))
         assert "tp=2 must divide the KV heads (1)" in res["refusal"]
         assert "shard the params" in res["whole_params"]
         for quant, got in res["loads"].items():

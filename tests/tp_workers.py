@@ -1,13 +1,17 @@
-"""Ranks of a tensor-parallel CPU run for ``tests/test_torch_tp.py`` and
-``tests/test_torch_tp_serving.py``.
+"""Ranks of a multi-rank CPU run for ``tests/test_torch_tp.py``,
+``tests/test_torch_tp_serving.py``, ``tests/test_torch_ring.py``,
+``tests/test_torch_tp_dp.py`` and ``tests/test_torch_multiprocess.py``.
 
 :func:`spawn` starts ``tp`` processes that meet over gloo at a file of
 the test's directory, build the port's mesh and run jobs of :data:`JOBS`, each on
 a payload the test saved with ``torch.save``; each rank saves its results,
-and the test compares them. The ranks import the port and never JAX (this
-module imports nothing of the tests that do). Each rank runs on one thread,
-and a rank that hangs is killed at the join deadline, so a fault fails the
-test instead of holding the run.
+and the test compares them. A job runs on ``make_mesh(tp=world)`` unless its
+payload names another mesh of the same ranks (``"mesh": {"dp": 2, ...}``).
+The ranks import the port and never JAX (this module imports nothing of the
+tests that do). Each rank runs on one thread, and a rank that hangs is
+killed at the join deadline, so a fault fails the test instead of holding
+the run. :func:`multihost_main` is one process of the multi-host test,
+started on its own (``python -c``), not by :func:`spawn`.
 """
 
 from __future__ import annotations
@@ -76,6 +80,13 @@ def _rank(job: str, rank: int, tp: int, tmp: str) -> None:
 # ---------------------------------------------------------------- the jobs
 
 
+def job_mesh(mesh, payload):
+    """The mesh a job's payload names, else the spawn's."""
+    from llama_nuts_and_bolts_tpu_torch.parallel import make_mesh
+
+    return make_mesh(**payload["mesh"]) if "mesh" in payload else mesh
+
+
 def _forward_job(mesh, payload):
     """Each case: this rank's shards of the whole params, then forwards
     (tokens, start_pos, attn_impl) in turn over a shard of a fresh cache;
@@ -98,7 +109,7 @@ def _forward_job(mesh, payload):
 
 
 def _mesh_job(mesh, payload):
-    """The mesh's shape and errors, the sharded loader through the mesh's
+    """The meshes' shapes and errors, the sharded loader through the mesh's
     sharding_fn, and the engine's refusal of a model tp does not divide."""
     from llama_nuts_and_bolts_tpu_torch.models.llama.loader import (
         build_params_from_checkpoint,
@@ -116,9 +127,9 @@ def _mesh_job(mesh, payload):
     for name, kw in (("tp3", dict(tp=3)), ("dp2", dict(tp=1, dp=2)),
                      ("sp2", dict(tp=1, sp=2))):
         try:
-            make_mesh(**kw)
-            errors[name] = None
-        except (ValueError, NotImplementedError) as e:
+            m = make_mesh(**kw)
+            errors[name] = (tuple(m.shape), m.mesh_dim_names)
+        except ValueError as e:
             errors[name] = f"{type(e).__name__}: {e}"
     loads = {quant: build_params_from_checkpoint(
         payload["tensors"], payload["cfg"], device="cpu", quant=quant,
@@ -143,16 +154,20 @@ def _mesh_job(mesh, payload):
 
 def _engine_job(mesh, payload):
     """Greedy token streams of the engine on this rank's shards, one per
-    argument set."""
+    argument set (or the ``ValueError`` that refused it)."""
     from llama_nuts_and_bolts_tpu_torch.parallel import shard_params
     from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
 
-    model = payload["model"]
-    model.params = shard_params(model.params, mesh)
+    mesh = job_mesh(mesh, payload)
+    model = dataclasses.replace(payload["model"],
+                                params=shard_params(payload["model"].params, mesh))
     streams = {}
     for name, args in payload["args"].items():
         eng = InferenceEngine(model, InferenceArgs(**args), device="cpu", mesh=mesh)
-        streams[name] = [t for _, t in eng.generate_tokens(payload["prompt"])]
+        try:
+            streams[name] = [t for _, t in eng.generate_tokens(payload["prompt"])]
+        except ValueError as e:
+            streams[name] = f"ValueError: {e}"
     return streams
 
 
@@ -193,16 +208,19 @@ def batcher_snapshot(b) -> Dict[str, Any]:
 
 def _batchers_job(mesh, payload):
     """Each case: an engine on this rank's shards and a batcher over them;
-    rank 0 runs the case's script (``run_script``) and stops, the others
-    follow. Every rank
+    the group's rank 0 runs the case's script (``run_script``) and stops,
+    the others follow. Every rank
     records its batcher's snapshot after each step; rank 0 also returns its
     requests' streams."""
-    from llama_nuts_and_bolts_tpu_torch.parallel import shard_params, tp_rank
+    import torch.distributed as dist
+
+    from llama_nuts_and_bolts_tpu_torch.parallel import shard_params
     from llama_nuts_and_bolts_tpu_torch.parallel.launch import new_control_group
     from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
     from llama_nuts_and_bolts_tpu_torch.runtime.continuous import ContinuousBatcher
     from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
 
+    mesh = job_mesh(mesh, payload)
     model = dataclasses.replace(payload["model"],
                                 params=shard_params(payload["model"].params, mesh))
     results = {}
@@ -218,7 +236,7 @@ def _batchers_job(mesh, payload):
             snaps.append(batcher_snapshot(b))
 
         b._step_once = recorded
-        if tp_rank(mesh) != 0:
+        if dist.get_rank() != 0:
             b.follow()
             results[name] = {"snapshots": snaps}
             continue
@@ -285,6 +303,59 @@ def _seq_server_job(mesh, payload):
     return {"first": first, "block": block, "metrics": metrics}
 
 
+Q_SPEC = ("dp", "sp", "tp", None)       # ring attention's q [B, S, H, D]
+KV_SPEC = ("dp", "tp", "sp", None)      # and k/v [B, KV, S, D]
+
+
+def _ring_job(_mesh, payload):
+    """Each case on its own mesh: this rank's block of q, k and each v of
+    ``vs``, and ``ring_gqa_attention`` over them; the rank's coordinates and
+    out blocks."""
+    from llama_nuts_and_bolts_tpu_torch.parallel import make_mesh
+    from llama_nuts_and_bolts_tpu_torch.parallel.ring_attention import ring_gqa_attention
+    from llama_nuts_and_bolts_tpu_torch.parallel.sharding import cut_block, mesh_coords
+
+    results = {}
+    for name, case in payload.items():
+        mesh = make_mesh(**case["mesh"])
+        co = mesh_coords(mesh)
+        q, k = (cut_block(t, spec, co).contiguous()
+                for t, spec in ((case["q"], Q_SPEC), (case["k"], KV_SPEC)))
+        results[name] = {"coords": co, "out": [
+            ring_gqa_attention(mesh, q, k, cut_block(v, KV_SPEC, co).contiguous(),
+                               case["start_pos"]) for v in case["vs"]]}
+    return results
+
+
+def _mesh_forward_job(_mesh, payload):
+    """Each case on its own mesh: this rank's shards of the whole params and
+    of the case's cache (a fresh one, or ``cache``), then forwards ``(tokens,
+    start_pos, attn_impl, seq_parallel, logits_at)`` in turn on the rank's
+    block of the whole tokens (and of a ``[B]`` start_pos); the rank's
+    coordinates, the logits of each step and the cache after."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache, forward
+    from llama_nuts_and_bolts_tpu_torch.parallel import make_mesh, shard_cache, shard_params
+    from llama_nuts_and_bolts_tpu_torch.parallel.sharding import mesh_coords, shard_tokens
+
+    results = {}
+    for name, case in payload.items():
+        mesh = make_mesh(**case["mesh"])
+        params = shard_params(case["params"], mesh)
+        whole = case.get("cache") or KVCache.create(case["cfg"], case["batch"], case["T"],
+                                                    device="cpu", dtype=case["cache_dtype"])
+        cache = shard_cache(whole, mesh)
+        logits = []
+        for tokens, start_pos, impl, seq_parallel, logits_at in case["steps"]:
+            if isinstance(start_pos, torch.Tensor):
+                start_pos = shard_tokens(start_pos, mesh)
+            out, cache = forward(params, case["cfg"], shard_tokens(tokens, mesh, seq_parallel),
+                                 start_pos, cache, attn_impl=impl, logits_at=logits_at,
+                                 mesh=mesh, seq_parallel=seq_parallel)
+            logits.append(out)
+        results[name] = {"coords": mesh_coords(mesh), "logits": logits, "cache": cache}
+    return results
+
+
 def planted_follower_failure(argv, rank: int, port: int) -> int:
     """One rank of the server's ``--tp`` (``serving/__main__.py``) whose
     follower fails where rank 0 does not: its first sequential engine call,
@@ -302,5 +373,57 @@ def planted_follower_failure(argv, rank: int, port: int) -> int:
     return _run_rank(argv, rank, port)
 
 
+def multihost_main() -> None:
+    """One process of ``tests/test_torch_multiprocess.py``, launched on its
+    own like one process of a host: ``LNB_COORD`` (the coordinator's
+    ``host:port``), ``LNB_PROC`` (its process id), ``LNB_NPROC``, ``LNB_HOST``
+    (the "host" it stands for), ``LNB_PAYLOAD`` and ``LNB_OUT``. It meets the
+    others through ``initialize_multihost``, builds a ``(dp 2, tp 2)`` mesh,
+    and for each model of the payload prefills its row of the batch and
+    takes one greedy decode step; it writes its mesh coordinates, every
+    row's tokens (gathered over dp) and its rows' logits. A process still
+    running after ``LNB_LIMIT_S`` dumps its stacks and exits."""
+    import faulthandler
+    import sys
+
+    import torch.distributed as dist
+
+    from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache, forward
+    from llama_nuts_and_bolts_tpu_torch.parallel import (
+        initialize_multihost,
+        make_mesh,
+        shard_params,
+    )
+    from llama_nuts_and_bolts_tpu_torch.parallel.mesh import gather_rows
+    from llama_nuts_and_bolts_tpu_torch.parallel.sharding import mesh_coords, shard_tokens
+
+    faulthandler.dump_traceback_later(float(os.environ["LNB_LIMIT_S"]), exit=True)
+    torch.set_num_threads(1)
+    pid = int(os.environ["LNB_PROC"])
+    initialize_multihost(os.environ["LNB_COORD"], int(os.environ["LNB_NPROC"]), pid)
+    assert dist.get_backend() == "gloo" and dist.get_rank() == pid
+    mesh = make_mesh(tp=2, dp=2)
+    payload = torch.load(os.environ["LNB_PAYLOAD"], weights_only=False)
+    out = {"proc": pid, "host": int(os.environ["LNB_HOST"]), "coords": mesh_coords(mesh)}
+    for name, case in payload["models"].items():
+        cfg, prompts = case["cfg"], payload["prompts"]
+        params = shard_params(case["params"], mesh)
+        tokens = shard_tokens(prompts, mesh)
+        cache = KVCache.create(cfg, tokens.shape[0], payload["T"], device="cpu", tp=2)
+        logits, cache = forward(params, cfg, tokens, 0, cache, mesh=mesh)
+        first = logits[:, -1].argmax(-1).to(torch.int32)
+        logits2, cache = forward(params, cfg, first[:, None], prompts.shape[1], cache,
+                                 mesh=mesh)
+        second = logits2[:, -1].argmax(-1).to(torch.int32)
+        out[name] = {"tokens": gather_rows(torch.stack([first, second], 1), mesh).tolist(),
+                     "logits": [logits, logits2]}
+    torch.save(out, os.environ["LNB_OUT"])
+    dist.barrier()
+    dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+    sys.stdout.write(f"proc {pid}: done\n")
+
+
 JOBS = {"forward": _forward_job, "mesh": _mesh_job, "engine": _engine_job,
-        "paged": _paged_job, "batchers": _batchers_job, "seq_server": _seq_server_job}
+        "paged": _paged_job, "batchers": _batchers_job, "seq_server": _seq_server_job,
+        "ring": _ring_job, "mesh_forward": _mesh_forward_job}
