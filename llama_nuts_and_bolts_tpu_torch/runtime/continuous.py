@@ -76,6 +76,19 @@ each holds every slot, applies the same records and runs the same steps,
 and its forwards meet only its own tp group.
 
 Without a mesh nothing is broadcast and the batcher is as before.
+
+Spans and counters (``runtime/profiling.py``'s ``SPANS``): a request's
+``request.queued`` (submit to the start of the admission that seats it)
+and ``request.first_token`` (that start to its first token's put), under
+its id; each step's
+``batcher.step`` with its children ``batcher.admit`` (one an admission
+attempt, under the request's id), ``batcher.prepare`` (feed splice, block
+growth, tables to the card), ``batcher.launch`` (the forwards and samples,
+queued), ``batcher.readback`` (the host waits for the card) and
+``batcher.deliver`` (the emit loop). The counters beside ``decode_steps`` (``rows_stepped``,
+``prefill_tokens``, ``prefill_padded_tokens``, ``prefill_cached_tokens``,
+``admissions``, ``admission_stalls``, ``queue_wait_s``) are the server's
+``/metrics``.
 """
 
 from __future__ import annotations
@@ -96,6 +109,7 @@ from llama_nuts_and_bolts_tpu_torch.ops.sampling import (
     sample_tokens_batched,
     top_logprobs_batched,
 )
+from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
 from llama_nuts_and_bolts_tpu_torch.runtime.speculative import (
     NgramProposer,
     longest_accepted_prefix,
@@ -133,8 +147,11 @@ class Request:
     # per emitted token, when want_logprobs > 0:
     # (token_id, chosen_logprob, [(top_id, top_logprob) x want_logprobs])
     logprobs: List[tuple] = field(default_factory=list)
-    rid: int = -1                     # the request's id in the step records
+    rid: int = -1                     # its id: the step records', its spans'
     finished: bool = False            # its last entry is on ``out``
+    # perf_counter_ns of its submit and of the admission that seated it
+    t_submit: int = 0
+    t_admit: int = 0
     # under a mesh, rank 0's latch (the next step record carries the cancel)
     _latch: Optional[Callable[["Request"], None]] = field(default=None, repr=False)
 
@@ -195,15 +212,13 @@ class Lockstep:
         self._lock = threading.Lock()
         self._arrivals: List[Request] = []
         self._cancels: List[int] = []
-        self._next_rid = 0
 
     def enqueue(self, req: Request) -> None:
         if not self.leader:
             raise RuntimeError("under a mesh only rank 0 submits; the followers "
                                "apply its step records (ContinuousBatcher.follow)")
         with self._lock:
-            req.rid = self._next_rid
-            self._next_rid += 1
+            req.rid = SPANS.new_id()
             req._latch = self._latch
             self._arrivals.append(req)
 
@@ -233,9 +248,10 @@ class Lockstep:
             broadcast(record, self.control)
             return record, reqs
         record = broadcast(None, self.control)
+        now = time.perf_counter_ns()
         return record, [Request(prompt=list(prompt), max_new_tokens=n, temperature=t,
                                 top_k=k, top_p=p, seed=seed, want_logprobs=lp,
-                                out=_Dropped(), rid=rid)
+                                out=_Dropped(), rid=rid, t_submit=now)
                         for rid, prompt, n, t, k, p, seed, lp in record.arrivals]
 
 
@@ -292,6 +308,14 @@ class ContinuousBatcher:
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.decode_steps = 0           # batched plain decode steps dispatched
         self.verify_steps = 0           # batched speculative verify steps
+        self.rows_stepped = 0           # live rows, summed over the decode steps
+        self.prefill_tokens = 0         # prompt rows computed by admissions
+        self.prefill_padded_tokens = 0  # their buckets' padding rows
+        self.prefill_cached_tokens = 0  # prompt rows the prefix cache gave
+        self.admissions = 0
+        self.admission_stalls = 0       # admission attempts the pool turned back
+        self.queue_wait_s = 0.0         # submit to admission, summed
+        self._step = None               # the running step's ``batcher.step`` span
         # per-slot feed token and the position it is written at
         self._feed = np.zeros(n_slots, dtype=np.int32)
         self._pos = np.zeros(n_slots, dtype=np.int32)
@@ -324,10 +348,11 @@ class ContinuousBatcher:
             raise ValueError(f"logprobs must be in [0, {LOGPROBS_K}]")
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
                       temperature=temperature, top_k=top_k, top_p=top_p,
-                      seed=seed, want_logprobs=logprobs)
+                      seed=seed, want_logprobs=logprobs, t_submit=time.perf_counter_ns())
         if self._lockstep is not None:
             self._lockstep.enqueue(req)
         else:
+            req.rid = SPANS.new_id()
             self.pending.put(req)
         return req
 
@@ -376,29 +401,62 @@ class ContinuousBatcher:
 
     # ----------------------------------------------------------- admission
 
+    def _next_waiting(self) -> Optional[Request]:
+        try:
+            return self.pending.get_nowait()
+        except queue.Empty:
+            return None
+
     def _admit(self) -> None:
+        """Seat waiting requests in free slots, in order, each attempt under
+        a ``batcher.admit`` span; one that cannot be seated yet ends the
+        pass (:meth:`_seat`)."""
         for slot in range(self.n_slots):
             if self.slots[slot] is not None:
                 continue
-            try:
-                req = self.pending.get_nowait()
-            except queue.Empty:
+            req = self._next_waiting()
+            if req is None:
                 return
             if req.cancelled:
                 self._finish(req, GenerationState.CANCELLED)
                 continue
-            self._set_sampling(slot, req)
-            first, lp = self._prefill_slot(slot, req)
-            self._occupy(slot, req, first, lp)
+            with SPANS.span("batcher.admit", id=req.rid, parent=self._step.id,
+                            prompt=len(req.prompt)) as span:
+                seated = self._seat(slot, req, span)
+            if not seated:
+                return
 
-    def _prefill_slot(self, slot: int, req: Request):
-        """Prefill ``req`` into slot ``slot``'s rows of the shared cache (a
-        view, written in place); returns its first token and logprob info,
-        on the device."""
+    def _seated(self, req: Request, span, cached: int, computed: int, bucket: int) -> None:
+        """Count an admission that seats ``req`` (its prefill computes
+        ``computed`` prompt rows in a ``bucket``, after ``cached`` rows from
+        the prefix cache): its queue wait ends where the admission began."""
+        req.t_admit = span.t0
+        SPANS.add("request.queued", req.t_submit, span.t0, id=req.rid)
+        span.counts.update(cached=cached, computed=computed, padded=bucket - computed)
+        self.admissions += 1
+        self.queue_wait_s += (span.t0 - req.t_submit) / 1e9
+        self.prefill_tokens += computed
+        self.prefill_padded_tokens += bucket - computed
+        self.prefill_cached_tokens += cached
+
+    def _seat(self, slot: int, req: Request, span) -> bool:
+        """Prefill ``req`` into ``slot`` and seat it; always seats."""
         from llama_nuts_and_bolts_tpu_torch.runtime.engine import prefill_bucket
 
         plen = len(req.prompt)
-        padded = torch.zeros((1, prefill_bucket(plen, self.seq_len)), dtype=torch.int32)
+        bucket = prefill_bucket(plen, self.seq_len)
+        self._seated(req, span, 0, plen, bucket)
+        self._set_sampling(slot, req)
+        first, lp = self._prefill_slot(slot, req, bucket)
+        self._occupy(slot, req, first, lp)
+        return True
+
+    def _prefill_slot(self, slot: int, req: Request, bucket: int):
+        """Prefill ``req`` into slot ``slot``'s rows of the shared cache (a
+        view, written in place) in a ``bucket`` of rows; returns its first
+        token and logprob info, on the device."""
+        plen = len(req.prompt)
+        padded = torch.zeros((1, bucket), dtype=torch.int32)
         padded[0, :plen] = torch.tensor(req.prompt, dtype=torch.int32)
         c = self.cache
         rows = slice(slot, slot + 1)
@@ -420,7 +478,8 @@ class ContinuousBatcher:
         self._pos[slot] = plen
         self._splice[slot] = True
         if self.speculate_k:
-            tok = int(first[0])
+            with SPANS.span("batcher.readback", parent=self._step.id):
+                tok = int(first[0])
             self._feed[slot] = tok
             self._first_dev[slot] = None
             if self._speculates(req):
@@ -466,15 +525,20 @@ class ContinuousBatcher:
             state = GenerationState.FINISHED_BY_REACHING_SEQ_LEN
         if state == GenerationState.IN_PROGRESS:
             req.out.put((state, tok))
+            put = time.perf_counter_ns()
         else:
-            self._finish(req, state, tok)
+            put = self._finish(req, state, tok)
             self._release_slot(slot)
+        if req.produced == 1:
+            SPANS.add("request.first_token", req.t_admit, put, id=req.rid)
 
-    def _finish(self, req: Request, state: GenerationState, tok: int = -1) -> None:
-        """Put a request's last entry on its queue; it leaves the live set."""
+    def _finish(self, req: Request, state: GenerationState, tok: int = -1) -> int:
+        """Put a request's last entry on its queue; it leaves the live set.
+        Returns the time of the put."""
         req.finished = True
         self._live.pop(req.rid, None)
         req.out.put((state, tok))
+        return time.perf_counter_ns()
 
     def _release_slot(self, slot: int) -> None:
         """Free the slot; it keeps stepping with a pad token (see the module
@@ -497,30 +561,37 @@ class ContinuousBatcher:
         return tuple(t.cpu().numpy() for t in lp) if wanted else None
 
     def _process_entry(self, entry) -> None:
+        """Read an in-flight entry's tokens back (``batcher.readback``: the
+        host waits for the card) and deliver them (``batcher.deliver``)."""
         if entry[0] == "admit":
             _tag, slot, req, first, lp, pos = entry
             if self.slots[slot] is not req:      # cancelled before its first token
                 return
-            tok = int(first)
-            self._feed[slot] = tok
-            if req.want_logprobs:
-                self._record_logprobs(slot, tok, self._host_lp(lp, True))
-            self._emit(slot, tok, pos)
-            return
-        _tag, toks, lp, force, epos, snapshot = entry
-        toks = toks.cpu().numpy()
-        lp = self._host_lp(lp, any(r is not None and r.want_logprobs for r in snapshot))
-        for j in range(toks.shape[0]):
-            for slot in range(self.n_slots):
-                # rows whose slot changed hands since dispatch belong to an
-                # ended request's garbage chain
-                if snapshot[slot] is None or snapshot[slot] is not self.slots[slot]:
-                    continue
-                tok = int(toks[j, slot])
+            with SPANS.span("batcher.readback", parent=self._step.id):
+                tok = int(first)
+                lp = self._host_lp(lp, req.want_logprobs)
+            with SPANS.span("batcher.deliver", parent=self._step.id):
                 self._feed[slot] = tok
                 if lp is not None:
-                    self._record_logprobs(slot, tok, tuple(a[j] for a in lp), row=slot)
-                self._emit(slot, tok, int(epos[j, slot]), force_finish=force[j][slot])
+                    self._record_logprobs(slot, tok, lp)
+                self._emit(slot, tok, pos)
+            return
+        _tag, toks, lp, force, epos, snapshot = entry
+        with SPANS.span("batcher.readback", parent=self._step.id):
+            toks = toks.cpu().numpy()
+            lp = self._host_lp(lp, any(r is not None and r.want_logprobs for r in snapshot))
+        with SPANS.span("batcher.deliver", parent=self._step.id):
+            for j in range(toks.shape[0]):
+                for slot in range(self.n_slots):
+                    # rows whose slot changed hands since dispatch belong to an
+                    # ended request's garbage chain
+                    if snapshot[slot] is None or snapshot[slot] is not self.slots[slot]:
+                        continue
+                    tok = int(toks[j, slot])
+                    self._feed[slot] = tok
+                    if lp is not None:
+                        self._record_logprobs(slot, tok, tuple(a[j] for a in lp), row=slot)
+                    self._emit(slot, tok, int(epos[j, slot]), force_finish=force[j][slot])
 
     def _quanta_in_flight(self) -> int:
         return sum(1 for e in self._inflight if e[0] == "q")
@@ -572,24 +643,33 @@ class ContinuousBatcher:
 
     def _dispatch(self) -> None:
         """Queue one quantum of ``step_quantum`` decode steps; nothing waits
-        for the device."""
+        for the device. The running step's span counts its steps and their
+        live rows."""
+        step = self._step
         k = self.step_quantum
-        toks = self._feed_tokens()
-        fed, epos, force = self._advance_quantum(k)
-        state = self._quantum_state()        # after the quantum's block growth
-        rows = list(range(self.n_slots))
-        out_toks, out_lp = [], []
-        for j in range(k):
-            positions = torch.from_numpy(fed[j].copy()).to(self.device)
-            tok, lp = self._sample(self._step_logits(toks, positions, state), rows, fed[j])
-            out_toks.append(tok)
-            out_lp.append(lp)
-            toks = tok[:, None]
+        live = sum(r is not None for r in self.slots)
+        with SPANS.span("batcher.prepare", parent=step.id):
+            toks = self._feed_tokens()
+            fed, epos, force = self._advance_quantum(k)
+            state = self._quantum_state()        # after the quantum's block growth
+        with SPANS.span("batcher.launch", parent=step.id):
+            rows = list(range(self.n_slots))
+            out_toks, out_lp = [], []
+            for j in range(k):
+                positions = torch.from_numpy(fed[j].copy()).to(self.device)
+                tok, lp = self._sample(self._step_logits(toks, positions, state), rows,
+                                       fed[j])
+                out_toks.append(tok)
+                out_lp.append(lp)
+                toks = tok[:, None]
+            lp = tuple(torch.stack(parts) for parts in zip(*out_lp))
+            out = torch.stack(out_toks)
         self.decode_steps += k
+        self.rows_stepped += live * k
+        step.counts["rows"] = live * k          # a step dispatches once
+        step.counts["steps"] = k
         self._last_tok = toks
-        lp = tuple(torch.stack(parts) for parts in zip(*out_lp))
-        self._inflight.append(("q", torch.stack(out_toks), lp, force, epos,
-                               list(self.slots)))
+        self._inflight.append(("q", out, lp, force, epos, list(self.slots)))
 
     def step(self) -> None:
         """Admit, then dispatch one quantum while up to ``PIPELINE_DEPTH``
@@ -624,16 +704,20 @@ class ContinuousBatcher:
         return record
 
     def _step_once(self) -> None:
-        if self.speculate_k:
-            self._step_speculative()
-            return
-        with self._lock:
-            self._sweep_cancelled()
-            self._admit()
-            if not any(r is not None for r in self.slots):
-                self._flush_inflight()
+        """One step under a ``batcher.step`` span, which counts the decode
+        steps it dispatched (``steps``) and their live rows (``rows``), if
+        it dispatched any."""
+        with SPANS.span("batcher.step") as self._step:
+            if self.speculate_k:
+                self._step_speculative()
                 return
-            self._plain_step_locked()
+            with self._lock:
+                self._sweep_cancelled()
+                self._admit()
+                if not any(r is not None for r in self.slots):
+                    self._flush_inflight()
+                    return
+                self._plain_step_locked()
 
     def _plain_step_locked(self) -> None:
         """Dispatch one quantum and deliver what :meth:`step` says; the
@@ -663,14 +747,16 @@ class ContinuousBatcher:
         the greedy argmax of every row ``[B, K+1]`` (the verification chain),
         each slot's row-0 sample (for slots that do not speculate) and its
         logprob info, all on the host."""
-        toks = torch.from_numpy(tokens.astype(np.int32)).to(self.device)
-        pos = torch.from_numpy(positions.astype(np.int32)).to(self.device)
-        logits = self._verify_logits(toks, pos)
-        sampled0, lp = self._sample(logits[:, 0], list(range(self.n_slots)), positions)
+        with SPANS.span("batcher.launch", parent=self._step.id):
+            toks = torch.from_numpy(tokens.astype(np.int32)).to(self.device)
+            pos = torch.from_numpy(positions.astype(np.int32)).to(self.device)
+            logits = self._verify_logits(toks, pos)
+            sampled0, lp = self._sample(logits[:, 0], list(range(self.n_slots)), positions)
+            preds = greedy(logits)
         self.verify_steps += 1
         wanted = any(r is not None and r.want_logprobs for r in self.slots)
-        return (greedy(logits).cpu().numpy(), sampled0.cpu().numpy(),
-                self._host_lp(lp, wanted))
+        with SPANS.span("batcher.readback", parent=self._step.id):
+            return preds.cpu().numpy(), sampled0.cpu().numpy(), self._host_lp(lp, wanted)
 
     def _accepted_chain(self, slot: int, drafts, preds, sampled0) -> List[int]:
         """The tokens slot ``slot`` emits after a verify step: the accepted
@@ -726,13 +812,19 @@ class ContinuousBatcher:
             # garbage wherever they land, so they land in the last K+1
             positions = np.minimum(self._pos, self.cache.max_seq - K - 1)
             preds, sampled0, lp = self._verify(step_tokens, positions)
+            self._deliver_chains(draft_lists, preds, sampled0, lp)
+
+    def _deliver_chains(self, draft_lists, preds, sampled0, lp, end_hook=None) -> None:
+        """Emit every slot's tokens after a verify step (``batcher.deliver``);
+        a free slot's position climbs by one."""
+        with SPANS.span("batcher.deliver", parent=self._step.id):
             for slot in range(self.n_slots):
                 p0 = int(self._pos[slot])
                 if self.slots[slot] is None:
                     self._pos[slot] = min(p0 + 1, self._pos_cap)
                     continue
                 chain = self._accepted_chain(slot, draft_lists[slot], preds, sampled0)
-                self._replay_chain(slot, chain, p0, lp)
+                self._replay_chain(slot, chain, p0, lp, end_hook=end_hook)
 
     # -------------------------------------------------------- serving glue
 

@@ -73,6 +73,7 @@ from llama_nuts_and_bolts_tpu_torch.ops.sampling import (
     exponential_noise,
     greedy,
 )
+from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
 
 MAX_STOP_IDS = 8
 # every kernel wrapper with a ``launches`` counter (K1..K8, K6's int8 mode)
@@ -206,11 +207,13 @@ class _SlotGraph:
         generator)."""
 
     def _capture(self) -> None:
+        """Warm up and capture; recorded as an ``engine.graph_capture`` span
+        that counts the ``bytes`` the graph keeps reserved."""
         s = self.slot
         # the capture empties the allocator's cache: so does the baseline
         torch.cuda.synchronize(s.device)
         torch.cuda.empty_cache()
-        t0, reserved = time.perf_counter(), torch.cuda.memory_reserved(s.device)
+        t0, reserved = time.perf_counter_ns(), torch.cuda.memory_reserved(s.device)
         stream = capture_stream(s.device)
         stream.wait_stream(torch.cuda.current_stream(s.device))
         with torch.cuda.stream(stream):
@@ -236,8 +239,10 @@ class _SlotGraph:
                 gc.enable()
         self.launches = tuple(delta)
         self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        self.capture_s = (t1 - t0) / 1e9
         self.capture_bytes = torch.cuda.memory_reserved(s.device) - reserved
+        SPANS.add("engine.graph_capture", t0, t1, bytes=self.capture_bytes)
 
     def replay(self) -> None:
         """Run the body: on a card the captured graph (captured at the first

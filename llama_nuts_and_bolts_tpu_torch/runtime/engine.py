@@ -34,6 +34,15 @@ a cache whose rows dp does not divide is refused (:meth:`new_cache`), where
 the JAX engine's ``shard_cache`` fails: so the sequential requests, a row
 each, are refused under dp > 1, and the batchers, whose slots dp divides,
 run as the JAX batchers do.
+
+Spans (``runtime/profiling.py``'s ``SPANS``), each naming as its parent an
+id the call draws: ``engine.prefill`` (the prefill and the first token's
+read, with ``prompt``, ``reused`` rows from the prefix cache and the
+bucket's ``padded`` rows), and per decode replay ``engine.decode.launch`` (set,
+replay, fetch; ``steps``) and ``engine.decode.wait`` (the host waits for the
+tokens); a graph's capture is ``engine.graph_capture``
+(``runtime/decode_graph.py``). ``graphs_built`` and ``graph_evictions``
+count the decode graphs made and dropped (the server's ``/metrics``).
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ from llama_nuts_and_bolts_tpu_torch.runtime.detokenizer import (
     token_batch_to_string,
     token_to_string,
 )
+from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
 from llama_nuts_and_bolts_tpu_torch.runtime.speculative import (
     DraftModelProposer,
     NgramProposer,
@@ -140,6 +150,8 @@ class InferenceEngine:
         # decode graphs (LRU, see _decode_chunk) and the slots they run over,
         # by (rows, cache bucket)
         self._chunk_fns: Dict[tuple, DecodeGraph] = {}
+        self.graphs_built = 0
+        self.graph_evictions = 0
         self._slots: Dict[Tuple[int, int], List[DecodeSlot]] = {}
         self._slots_made = 0
         self._slots_lock = threading.Lock()
@@ -362,11 +374,13 @@ class InferenceEngine:
                     best = prefix
         return best
 
-    def _run_prefill(self, tokens: Sequence[int], cache: KVCache,
-                     start_pos: int) -> Tuple[torch.Tensor, KVCache]:
+    def _run_prefill(self, tokens: Sequence[int], cache: KVCache, start_pos: int,
+                     counts: Optional[Dict[str, int]] = None
+                     ) -> Tuple[torch.Tensor, KVCache]:
         """Bucketed-padded prefill of ``tokens`` at ``start_pos``. With
         ``args.prefill_chunk=C`` and more than C tokens, all but the tail run
-        in exact C-token chunks first; only the tail is bucketed."""
+        in exact C-token chunks first; only the tail is bucketed. The
+        bucket's padding rows go into ``counts["padded"]``."""
         chunk = self.args.prefill_chunk
         if chunk > 0 and len(tokens) > chunk:
             done = 0
@@ -384,14 +398,18 @@ class InferenceEngine:
         if start_pos + bucket > cache_room or n > bucket:
             raise ValueError("prefill bucket exceeds cache length")
         padded = list(tokens) + [0] * (bucket - n)
+        if counts is not None:
+            counts["padded"] = bucket - n
         return self._forward([padded], start_pos, cache, logits_at=n - 1)
 
     def _prefill(self, prompt_tokens: Sequence[int], cache_len: Optional[int] = None,
-                 cache: Optional[KVCache] = None) -> Tuple[torch.Tensor, KVCache]:
+                 cache: Optional[KVCache] = None,
+                 counts: Optional[Dict[str, int]] = None) -> Tuple[torch.Tensor, KVCache]:
         """Bucketed-padded prefill; returns logits at the last prompt row.
         Reuses the longest cached prefix snapshot when one matches. The
         prefill writes into ``cache`` when one is given (a decode slot's),
-        else into a new ``cache_len`` buffer."""
+        else into a new ``cache_len`` buffer. ``counts`` receives the rows
+        ``reused`` from a snapshot and the bucket's ``padded`` rows."""
         prompt_len = len(prompt_tokens)
         if prompt_len >= self.seq_len:
             raise ValueError(
@@ -410,10 +428,12 @@ class InferenceEngine:
                      else cache.load_(snapshot))
             self.log("Prefix cache hit: %d of %d prompt tokens reused",
                      plen, prompt_len)
-            return self._run_prefill(suffix, cache, plen)
+            if counts is not None:
+                counts["reused"] = plen
+            return self._run_prefill(suffix, cache, plen, counts)
         self.log("Running prefill: prompt_len=%d", prompt_len)
         return self._run_prefill(list(prompt_tokens),
-                                 cache or self.new_cache(1, cache_len), 0)
+                                 cache or self.new_cache(1, cache_len), 0, counts)
 
     # ------------------------------------------------------------- decode
 
@@ -483,7 +503,9 @@ class InferenceEngine:
             victim = next((c for c in self._chunk_fns if "s" in c),
                           next(iter(self._chunk_fns)))
             self._chunk_fns.pop(victim)
+            self.graph_evictions += 1
         self._chunk_fns[key] = make()
+        self.graphs_built += 1
         held = {g.slot for g in self._chunk_fns.values()}
         with self._slots_lock:
             for slots in self._slots.values():
@@ -501,8 +523,9 @@ class InferenceEngine:
         full-context cache; sampled ones ignore it."""
         if max_new_tokens is not None and max_new_tokens <= 0:
             return
+        rid = SPANS.new_id()            # the parent of the call's spans
         if self.args.speculate_k > 0 and self.args.temperature == 0.0:
-            it = self._generate_tokens_speculative(prompt_tokens)
+            it = self._generate_tokens_speculative(prompt_tokens, rid)
             try:
                 n = 0
                 for state, tok in it:
@@ -516,11 +539,11 @@ class InferenceEngine:
             return
         cache_len = self.cache_bucket(len(prompt_tokens), max_new_tokens)
         yield from self._generate_tokens_plain(prompt_tokens, cache_len,
-                                               max_new_tokens)
+                                               max_new_tokens, rid)
 
     def _generate_tokens_plain(
         self, prompt_tokens: Sequence[int], cache_len: int,
-        max_new_tokens: Optional[int] = None,
+        max_new_tokens: Optional[int] = None, rid: Optional[int] = None,
     ) -> Iterator[Tuple[GenerationState, int]]:
         """Prefill into a leased decode slot, then decode by replaying its
         graphs: k-step chunks while a whole chunk fits below the horizon,
@@ -538,8 +561,11 @@ class InferenceEngine:
         sampled = self.args.temperature > 0.0
         gen = self._generator
         with self._lease(1, cache_len) as slot:
-            logits, _ = self._prefill(prompt_tokens, cache_len, cache=slot.cache)
-            next_token = self._select_token(logits[0, 0])
+            with SPANS.span("engine.prefill", parent=rid, prompt=len(prompt_tokens),
+                            reused=0) as span:
+                logits, _ = self._prefill(prompt_tokens, cache_len, cache=slot.cache,
+                                          counts=span.counts)
+                next_token = self._select_token(logits[0, 0])
             if sampled:
                 slot.temperature.fill_(self.args.temperature)
             step = chunk = None          # made when first needed
@@ -562,19 +588,22 @@ class InferenceEngine:
                 if chunk_k > 1 and cur_pos + chunk_k < horizon:
                     chunk = chunk or self._decode_chunk(chunk_k, sampled, cache_len, slot)
                     if pending is None:
-                        slot.set([next_token], [cur_pos])
-                        rng = gen.get_state() if sampled else None
-                        chunk.replay()
-                        pending = (chunk.fetch(), rng)
+                        with SPANS.span("engine.decode.launch", parent=rid, steps=chunk_k):
+                            slot.set([next_token], [cur_pos])
+                            rng = gen.get_state() if sampled else None
+                            chunk.replay()
+                            pending = (chunk.fetch(), rng)
                     run, rng_before = pending
                     pending = None
                     # queue the next chunk before reading this one, when the
                     # next iteration takes the chunked branch
                     if cur_pos + 2 * chunk_k < horizon:
-                        rng = gen.get_state() if sampled else None
-                        chunk.replay()
-                        pending = (chunk.fetch(), rng)
-                    chunk_tokens = [row[0] for row in chunk.tokens(run)]
+                        with SPANS.span("engine.decode.launch", parent=rid, steps=chunk_k):
+                            rng = gen.get_state() if sampled else None
+                            chunk.replay()
+                            pending = (chunk.fetch(), rng)
+                    with SPANS.span("engine.decode.wait", parent=rid):
+                        chunk_tokens = [row[0] for row in chunk.tokens(run)]
                     cur_pos += 1
                     for i, tok in enumerate(chunk_tokens):
                         next_token = tok
@@ -598,13 +627,16 @@ class InferenceEngine:
                     continue
 
                 step = step or self._decode_chunk(1, sampled, cache_len, slot)
-                slot.set([next_token], [cur_pos])
-                step.replay()
-                next_token = step.tokens(step.fetch())[0][0]
+                with SPANS.span("engine.decode.launch", parent=rid, steps=1):
+                    slot.set([next_token], [cur_pos])
+                    step.replay()
+                    fetched = step.fetch()
+                with SPANS.span("engine.decode.wait", parent=rid):
+                    next_token = step.tokens(fetched)[0][0]
                 cur_pos += 1
 
     def _generate_tokens_speculative(
-        self, prompt_tokens: Sequence[int]
+        self, prompt_tokens: Sequence[int], rid: Optional[int] = None,
     ) -> Iterator[Tuple[GenerationState, int]]:
         """Greedy decode with speculation (n-gram prompt lookup, or the draft
         model when the engine has one), over a leased full-context slot.
@@ -621,8 +653,11 @@ class InferenceEngine:
         vocab = self.model.vocab
         k = self.args.speculate_k
         with self._lease(1, self.seq_len) as slot:
-            logits, _ = self._prefill(prompt_tokens, self.seq_len, cache=slot.cache)
-            queue = [int(greedy(logits[0, 0]))]
+            with SPANS.span("engine.prefill", parent=rid, prompt=len(prompt_tokens),
+                            reused=0) as span:
+                logits, _ = self._prefill(prompt_tokens, self.seq_len, cache=slot.cache,
+                                          counts=span.counts)
+                queue = [int(greedy(logits[0, 0]))]
             if self.draft_model is not None:
                 proposer = DraftModelProposer(self.draft_model, list(prompt_tokens),
                                               self.seq_len)

@@ -31,7 +31,6 @@ they follow from the step records (``runtime/continuous.py``).
 from __future__ import annotations
 
 import math
-import queue
 from collections import deque
 from typing import List, Optional
 
@@ -54,7 +53,6 @@ from llama_nuts_and_bolts_tpu_torch.runtime.block_pool import (
     chain_block_hashes,
 )
 from llama_nuts_and_bolts_tpu_torch.runtime.continuous import ContinuousBatcher, Request
-from llama_nuts_and_bolts_tpu_torch.runtime.types import GenerationState
 
 
 class BlockAllocator:
@@ -169,12 +167,7 @@ class PagedBatcher(ContinuousBatcher):
     # ------------------------------------------------------------ internal
 
     def _next_waiting(self) -> Optional[Request]:
-        if self._stalled:
-            return self._stalled.popleft()
-        try:
-            return self.pending.get_nowait()
-        except queue.Empty:
-            return None
+        return self._stalled.popleft() if self._stalled else super()._next_waiting()
 
     def _release_slot(self, slot: int) -> None:
         self.allocator.free(self._slot_blocks[slot])
@@ -182,71 +175,70 @@ class PagedBatcher(ContinuousBatcher):
         self.tables[slot, :] = TRASH_BLOCK
         super()._release_slot(slot)
 
-    def _admit(self) -> None:
+    def _seat(self, slot: int, req: Request, span) -> bool:
+        """Probe the prefix cache, take the blocks, prefill the uncached
+        suffix and seat ``req``; False when the pool cannot back it yet (the
+        request waits at the FIFO's head, and the attempt's span says
+        ``stalled``)."""
         from llama_nuts_and_bolts_tpu_torch.runtime.engine import prefill_bucket
 
         bs = self.block_size
         params = self.engine.model.params
-        for slot in range(self.n_slots):
-            if self.slots[slot] is not None:
-                continue
-            req = self._next_waiting()
-            if req is None:
-                return
-            if req.cancelled:
-                self._finish(req, GenerationState.CANCELLED)
-                continue
-            plen = len(req.prompt)
-            total_needed = plen // bs + 1                  # prompt + next write
-            # prefix-cache probe: revive the longest run of resident full
-            # prompt blocks, keeping >= 1 suffix token for the logits row
-            shared: List[int] = []
-            hashes: List[int] = []
-            if self.prefix_cache:
-                hashes = chain_block_hashes(req.prompt, bs)
-                for h in hashes[:(plen - 1) // bs]:
-                    b = self.allocator.lookup(h)
-                    if b is None:
-                        break
-                    shared.append(b)
-            owned = self.allocator.alloc(total_needed - len(shared))
-            if owned is None:
-                # FIFO: wait for frees; nothing behind this request may jump it
-                if shared:
-                    self.allocator.release(shared)
-                self._stalled.appendleft(req)
-                return
-            blocks = shared + owned
-            shared_len = len(shared) * bs
-            self._slot_blocks[slot] = blocks
-            self.tables[slot, :] = TRASH_BLOCK
-            self.tables[slot, :len(blocks)] = blocks
-            # prefill length: the bucket rounded up to whole blocks
-            suffix = req.prompt[shared_len:]
-            bucket = prefill_bucket(len(suffix), self.seq_len)
-            bucket = min(-(-bucket // bs) * bs, self.max_blocks * bs)
-            padded = torch.zeros((1, bucket), dtype=torch.int32)
-            padded[0, :len(suffix)] = torch.tensor(suffix, dtype=torch.int32)
-            padded = padded.to(self.device)
-            # .copy(): the table row mutates under later bookkeeping
-            table_row = torch.from_numpy(self.tables[slot].copy()).to(self.device)
-            self._set_sampling(slot, req)
+        plen = len(req.prompt)
+        total_needed = plen // bs + 1                  # prompt + next write
+        # prefix-cache probe: revive the longest run of resident full
+        # prompt blocks, keeping >= 1 suffix token for the logits row
+        shared: List[int] = []
+        hashes: List[int] = []
+        if self.prefix_cache:
+            hashes = chain_block_hashes(req.prompt, bs)
+            for h in hashes[:(plen - 1) // bs]:
+                b = self.allocator.lookup(h)
+                if b is None:
+                    break
+                shared.append(b)
+        owned = self.allocator.alloc(total_needed - len(shared))
+        if owned is None:
+            # FIFO: wait for frees; nothing behind this request may jump it
             if shared:
-                logits, _ = paged_prefill_shared(params, self.cfg, padded, shared_len,
-                                                 len(suffix) - 1, self.pool, table_row,
-                                                 mesh=self.mesh)
-            else:
-                logits, _ = paged_prefill(params, self.cfg, padded, plen - 1, self.pool,
-                                          table_row, mesh=self.mesh)
-            # the sampled token's global position: a cache hit never changes
-            # a seeded stream
-            first, lp = self._sample(logits, [slot], [plen - 1])
-            if self.prefix_cache:
-                # full prompt blocks this request filled become shareable;
-                # decode-grown blocks never do (unhashed)
-                for bi in range(len(shared), plen // bs):
-                    self.allocator.register(hashes[bi], blocks[bi])
-            self._occupy(slot, req, first, lp)
+                self.allocator.release(shared)
+            self._stalled.appendleft(req)
+            self.admission_stalls += 1
+            span.counts["stalled"] = 1
+            return False
+        blocks = shared + owned
+        shared_len = len(shared) * bs
+        self._slot_blocks[slot] = blocks
+        self.tables[slot, :] = TRASH_BLOCK
+        self.tables[slot, :len(blocks)] = blocks
+        # prefill length: the bucket rounded up to whole blocks
+        suffix = req.prompt[shared_len:]
+        bucket = prefill_bucket(len(suffix), self.seq_len)
+        bucket = min(-(-bucket // bs) * bs, self.max_blocks * bs)
+        self._seated(req, span, shared_len, len(suffix), bucket)
+        padded = torch.zeros((1, bucket), dtype=torch.int32)
+        padded[0, :len(suffix)] = torch.tensor(suffix, dtype=torch.int32)
+        padded = padded.to(self.device)
+        # .copy(): the table row mutates under later bookkeeping
+        table_row = torch.from_numpy(self.tables[slot].copy()).to(self.device)
+        self._set_sampling(slot, req)
+        if shared:
+            logits, _ = paged_prefill_shared(params, self.cfg, padded, shared_len,
+                                             len(suffix) - 1, self.pool, table_row,
+                                             mesh=self.mesh)
+        else:
+            logits, _ = paged_prefill(params, self.cfg, padded, plen - 1, self.pool,
+                                      table_row, mesh=self.mesh)
+        # the sampled token's global position: a cache hit never changes
+        # a seeded stream
+        first, lp = self._sample(logits, [slot], [plen - 1])
+        if self.prefix_cache:
+            # full prompt blocks this request filled become shareable;
+            # decode-grown blocks never do (unhashed)
+            for bi in range(len(shared), plen // bs):
+                self.allocator.register(hashes[bi], blocks[bi])
+        self._occupy(slot, req, first, lp)
+        return True
 
     def _advance_quantum(self, k: int):
         """Advance every slot ``k`` positions and back each active slot's new
@@ -305,13 +297,7 @@ class PagedBatcher(ContinuousBatcher):
             blocks.extend(grown)
         return len(blocks) * bs - 1
 
-    def _step_once(self) -> None:
-        if self.speculate_k:
-            self._step_speculative_paged()
-            return
-        super()._step_once()
-
-    def _step_speculative_paged(self) -> None:
+    def _step_speculative(self) -> None:
         """One speculative iteration over the pool: every slot's feed token
         plus up to K n-gram drafts verify in one ``[B, K+1]`` forward. Before
         it, each speculating slot's positions pos..pos+K are backed with
@@ -366,10 +352,4 @@ class PagedBatcher(ContinuousBatcher):
                 backed = self._back_positions(slot, int(self._pos[slot]))
                 return backed < int(self._pos[slot])
 
-            for slot in range(self.n_slots):
-                p0 = int(self._pos[slot])
-                if self.slots[slot] is None:
-                    self._pos[slot] = min(p0 + 1, self._pos_cap)
-                    continue
-                chain = self._accepted_chain(slot, draft_lists[slot], preds, sampled0)
-                self._replay_chain(slot, chain, p0, lp, end_hook=end_hook)
+            self._deliver_chains(draft_lists, preds, sampled0, lp, end_hook=end_hook)

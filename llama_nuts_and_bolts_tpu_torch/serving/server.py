@@ -481,6 +481,12 @@ class LlamaHTTPServer:
             f"llama_inflight_requests {self._inflight}",
             "# TYPE llama_max_pending gauge",
             f"llama_max_pending {self.max_pending}",
+            # the engine's decode graphs: an eviction means a later request
+            # in that cache bucket captures its graph again
+            "# TYPE llama_decode_graphs_built_total counter",
+            f"llama_decode_graphs_built_total {self.engine.graphs_built}",
+            "# TYPE llama_decode_graph_evictions_total counter",
+            f"llama_decode_graph_evictions_total {self.engine.graph_evictions}",
         ]
         if self.batcher is not None:
             b = self.batcher
@@ -493,6 +499,22 @@ class LlamaHTTPServer:
                 f"llama_batch_pending {b.pending.qsize()}",
                 "# TYPE llama_batch_decode_steps_total counter",
                 f"llama_batch_decode_steps_total {b.decode_steps}",
+                # occupancy = rows / decode steps; padding waste; mean queue
+                # wait = wait seconds / admissions
+                "# TYPE llama_batch_rows_stepped_total counter",
+                f"llama_batch_rows_stepped_total {b.rows_stepped}",
+                "# TYPE llama_batch_prefill_tokens_total counter",
+                f"llama_batch_prefill_tokens_total {b.prefill_tokens}",
+                "# TYPE llama_batch_prefill_padded_tokens_total counter",
+                f"llama_batch_prefill_padded_tokens_total {b.prefill_padded_tokens}",
+                "# TYPE llama_batch_prefill_cached_tokens_total counter",
+                f"llama_batch_prefill_cached_tokens_total {b.prefill_cached_tokens}",
+                "# TYPE llama_batch_admissions_total counter",
+                f"llama_batch_admissions_total {b.admissions}",
+                "# TYPE llama_batch_admission_stalls_total counter",
+                f"llama_batch_admission_stalls_total {b.admission_stalls}",
+                "# TYPE llama_batch_queue_wait_seconds_total counter",
+                f"llama_batch_queue_wait_seconds_total {b.queue_wait_s:.6f}",
             ]
             if b.speculate_k:
                 # acceptance = accepted / drafted decides whether --speculate

@@ -8,6 +8,7 @@ cycle), where the argmax is decisive, so they must be equal."""
 
 import contextlib
 import dataclasses
+import time
 
 import ml_dtypes
 import numpy as np
@@ -300,3 +301,59 @@ def test_serve_thread_steps_until_stopped():
         cb.stop()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+# ------------------------------------------------------ spans and counters
+
+def counting_dispatch(cb):
+    """Wrap ``cb._dispatch``: the live rows of each dispatched step, as the
+    test counts them."""
+    live = []
+    dispatch = cb._dispatch
+
+    def counted():
+        live.append(sum(r is not None for r in cb.slots) * cb.step_quantum)
+        dispatch()
+
+    cb._dispatch = counted
+    return live
+
+
+def test_requests_get_distinct_ids_without_a_mesh():
+    cb = ContinuousBatcher(make_engine(), n_slots=2)
+    a, b = cb.submit(PROMPTS[0]), cb.submit(PROMPTS[2])
+    assert a.rid >= 0 and b.rid >= 0 and a.rid != b.rid
+
+
+@pytest.mark.parametrize("speculate_k,quantum", [(0, 1), (0, 3), (2, None)])
+def test_spans_and_counters_of_the_dense_batcher(speculate_k, quantum):
+    """Every request's spans, the steps' children inside their steps, and
+    the counters against the test's own count: live rows over the decode
+    steps, and prefill rows plus padding equal to the buckets."""
+    from llama_nuts_and_bolts_tpu_torch.runtime.engine import prefill_bucket
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
+    from tests.test_torch_profiling import check_batcher_spans
+
+    cb = ContinuousBatcher(make_engine(), n_slots=2, speculate_k=speculate_k,
+                           step_quantum=quantum)
+    live = counting_dispatch(cb)
+    t0 = time.perf_counter_ns()
+    reqs = [cb.submit(p, max_new_tokens=n) for p, n in zip(PROMPTS, (5, 14, 7, 1, 12))]
+    cb.run_until_idle()
+    for r in reqs:
+        drain(r)
+    spans = SPANS.between(t0, time.perf_counter_ns() + 1)
+    steps = check_batcher_spans(spans, reqs)
+    counts = [sp[5] or {"rows": 0, "steps": 0} for sp in steps]
+    assert cb.rows_stepped == sum(live) == sum(c["rows"] for c in counts)
+    assert cb.decode_steps == sum(c["steps"] for c in counts)
+    assert (cb.decode_steps > 0) == (speculate_k == 0)
+    buckets = sum(prefill_bucket(len(p), SEQ_LEN) for p in PROMPTS)
+    assert cb.prefill_tokens == sum(len(p) for p in PROMPTS)
+    assert cb.prefill_tokens + cb.prefill_padded_tokens == buckets
+    assert cb.prefill_cached_tokens == cb.admission_stalls == 0
+    assert cb.admissions == len(PROMPTS)
+    queued = [sp for sp in spans if sp[0] == "request.queued"]
+    assert cb.queue_wait_s == pytest.approx(sum(sp[2] - sp[1] for sp in queued) / 1e9)
+    admits = [sp for sp in spans if sp[0] == "batcher.admit"]
+    assert sum(sp[5]["padded"] for sp in admits) == cb.prefill_padded_tokens

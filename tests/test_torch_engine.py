@@ -228,3 +228,70 @@ def test_auto_takes_the_kernels_only_at_their_shape(G, head_dim):
             continue
         with pytest.raises(ValueError, match=f"head_dim {head_dim} and G = {G}$"):
             InferenceEngine(model, InferenceArgs(attn_impl=impl), device="cpu")
+
+
+# ------------------------------------------------------ spans and counters
+
+@pytest.mark.parametrize("args,prompt,prefix,want", [
+    ({}, [1, 2, 3, 4, 5], None, {"prompt": 5, "reused": 0, "padded": 11}),
+    ({}, [1, 2, 3, 4, 5], 4, {"prompt": 5, "reused": 4, "padded": 15}),
+    ({"prefill_chunk": 5}, list(range(1, 13)), None, {"prompt": 12, "reused": 0,
+                                                      "padded": 14}),
+    ({"decode_chunk": 4}, list(range(1, 19)), None, {"prompt": 18, "reused": 0,
+                                                     "padded": 14}),
+])
+def test_engine_spans_carry_the_prefill_padding(args, prompt, prefix, want):
+    """An ``engine.prefill`` span carries the rows of ``prefill_bucket``'s
+    padding (the tail's, after exact chunks; after a reused prefix); each
+    call draws an id of its own, the parent of its spans, which lie inside
+    the call, and its decode replays' ``steps`` come to the tokens after the
+    first."""
+    import time
+
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
+    from tests.test_torch_continuous import make_engine
+
+    eng = make_engine(**args)
+    if prefix:
+        eng.cache_prefix(prompt[:prefix])
+    calls = []
+    for _ in range(2):
+        t0 = time.perf_counter_ns()
+        assert len(list(eng.generate_tokens(prompt, max_new_tokens=9))) == 9
+        calls.append((t0, time.perf_counter_ns()))
+    spans = SPANS.between(calls[0][0], calls[1][1] + 1)
+    prefills = [sp for sp in spans if sp[0] == "engine.prefill"]
+    assert len(prefills) == 2 and prefills[0][4] != prefills[1][4]
+    for (t0, t1), prefill in zip(calls, prefills):
+        mine = [sp for sp in spans if sp[4] == prefill[4]]
+        assert all(t0 <= sp[1] <= sp[2] <= t1 for sp in mine)
+        assert prefill[5] == want
+        assert all(prefill[2] <= sp[1] for sp in mine if sp is not prefill)
+        launches = [sp for sp in mine if sp[0] == "engine.decode.launch"]
+        waits = [sp for sp in mine if sp[0] == "engine.decode.wait"]
+        assert sum(sp[5]["steps"] for sp in launches) >= 8 and waits
+        assert {sp[5]["steps"] for sp in launches} == {args.get("decode_chunk", 1)}
+
+
+def test_graphs_built_counts_each_new_graph_once():
+    """A second request in a new cache bucket builds one graph; a repeat in
+    the same bucket builds none; a new graph past a full LRU evicts one."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import init_random_params
+
+    ranks, vocab, _ = tokenizers()
+    cfg = ModelArgs(**dict(SPEC, max_sequence_length=1024))
+    eng = InferenceEngine(LoadedModel(params=init_random_params(cfg, seed=0, device="cpu"),
+                                      cfg=cfg, vocab=vocab, mergeable_ranks=ranks,
+                                      tensor_meta={}),
+                          InferenceArgs(sequence_length=1024), device="cpu")
+    prompts = [[1, 2, 3], list(range(1, 8)) * 43, list(range(1, 8)) * 86]
+    assert len({eng.cache_bucket(len(p), 6) for p in prompts}) == 3
+    list(eng.generate_tokens(prompts[0], max_new_tokens=6))
+    assert (eng.graphs_built, eng.graph_evictions) == (1, 0)
+    list(eng.generate_tokens(prompts[0], max_new_tokens=6))
+    assert eng.graphs_built == 1
+    list(eng.generate_tokens(prompts[1], max_new_tokens=6))
+    assert (eng.graphs_built, eng.graph_evictions) == (2, 0)
+    eng.MAX_CHUNK_EXECUTABLES = 2
+    list(eng.generate_tokens(prompts[2], max_new_tokens=6))
+    assert (eng.graphs_built, eng.graph_evictions) == (3, 1)

@@ -11,6 +11,7 @@
     through the prefix cache, pool starvation, cancellation, quanta, an int8
     pool and K6's path."""
 
+import time
 import types
 
 import ml_dtypes
@@ -578,3 +579,69 @@ def test_default_attention_rule():
     assert default_attn_impl(engine("cpu", "bf16")) == "plain"
     with pytest.raises(ValueError, match="attn_impl"):
         make_paged(attn_impl="pallas")
+
+
+# ------------------------------------------------------ spans and counters
+
+@pytest.mark.parametrize("speculate_k", [0, 2])
+def test_spans_and_counters_of_the_paged_batcher(speculate_k):
+    """Requests sharing a 20-token system prompt: the later ones revive its
+    two whole blocks, which ``prefill_cached_tokens`` counts; prefill rows
+    plus padding equal the block-rounded buckets the test computes; every
+    request's spans and the steps' children check out
+    (tests/test_torch_profiling.py), and ``rows_stepped`` is the test's own
+    count of live rows."""
+    from llama_nuts_and_bolts_tpu_torch.runtime.engine import prefill_bucket
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
+    from tests.test_torch_continuous import SEQ_LEN, counting_dispatch
+    from tests.test_torch_profiling import check_batcher_spans
+
+    system = [0, 1, 2, 3, 4, 5, 6] * 2 + [0, 1, 2, 3, 4, 5]
+    prompts = [system + [3, 4], system + [5, 6, 0], system + [1] * 9, PROMPTS[1]]
+    cb = make_paged(n_slots=2, speculate_k=speculate_k)
+    live = counting_dispatch(cb)
+    t0 = time.perf_counter_ns()
+    first = cb.submit(prompts[0], max_new_tokens=6)
+    cb.step()                                       # the system prompt is resident
+    reqs = [first] + [cb.submit(p, max_new_tokens=n) for p, n in zip(prompts[1:], (9, 4, 7))]
+    cb.run_until_idle()
+    for r in reqs:
+        drain(r)
+    spans = SPANS.between(t0, time.perf_counter_ns() + 1)
+    steps = check_batcher_spans(spans, reqs)
+    cached = [0, 16, 16, 0]                         # the system prompt's whole blocks
+    buckets = [min(-(-prefill_bucket(len(p) - c, SEQ_LEN) // BS) * BS, SEQ_LEN)
+               for p, c in zip(prompts, cached)]
+    assert cb.prefill_cached_tokens == sum(cached)
+    assert cb.prefill_tokens == sum(len(p) - c for p, c in zip(prompts, cached))
+    assert cb.prefill_tokens + cb.prefill_padded_tokens == sum(buckets)
+    counts = [sp[5] or {"rows": 0, "steps": 0} for sp in steps]
+    assert cb.rows_stepped == sum(live) == sum(c["rows"] for c in counts)
+    assert cb.decode_steps == sum(c["steps"] for c in counts)
+    admits = {sp[3]: sp[5] for sp in spans if sp[0] == "batcher.admit"}
+    for r, c, b, p in zip(reqs, cached, buckets, prompts):
+        assert admits[r.rid] == {"prompt": len(p), "cached": c, "computed": len(p) - c,
+                                 "padded": b - len(p) + c}
+    assert cb.admissions == 4 and cb.admission_stalls == 0
+
+
+def test_a_pool_starved_admission_stays_queued():
+    """Two blocks for two requests that need two each: the second waits
+    for the first's blocks. Its stalled attempts are counted and spanned
+    (``stalled``); its queue wait runs to the attempt that seats it."""
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
+    from tests.test_torch_profiling import check_batcher_spans
+
+    cb = make_paged(n_slots=2, n_blocks=3, prefix_cache=False)
+    t0 = time.perf_counter_ns()
+    reqs = [cb.submit([1] * 9, max_new_tokens=3), cb.submit([2] * 9, max_new_tokens=3)]
+    cb.run_until_idle()
+    for r in reqs:
+        drain(r)
+    spans = SPANS.between(t0, time.perf_counter_ns() + 1)
+    check_batcher_spans(spans, reqs)
+    stalled = [sp for sp in spans if sp[0] == "batcher.admit" and sp[3] == reqs[1].rid
+               and sp[5].get("stalled")]
+    assert cb.admission_stalls == len(stalled) > 0 and cb.admissions == 2
+    queued = next(sp for sp in spans if sp[0] == "request.queued" and sp[3] == reqs[1].rid)
+    assert queued[2] > max(sp[2] for sp in stalled)

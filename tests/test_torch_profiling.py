@@ -3,12 +3,17 @@
 logits, cache and lines against JAX's at ``attn_impl="plain"`` in both
 weight layouts, and bit for bit against the port's own ``forward`` (the
 same code, a layer at a time) on a bf16 or int8 cache and on quantized
-weights; ``StepTimer`` against JAX's; ``device_trace`` writes a trace; the
-CLI's ``--narrate`` prints one line a layer plus two."""
+weights; ``device_trace`` writes a trace, a batcher thread's spans in it; the
+CLI's ``--narrate`` prints one line a layer plus two; the span recorder
+(bounded, selected by time, nested, free of effects on the tokens) and
+:func:`check_batcher_spans`, which the batchers' tests run on their spans."""
 
 import json
 import os
 import re
+import threading
+import time
+from collections import defaultdict
 
 import numpy as np
 import pytest
@@ -27,7 +32,8 @@ from llama_nuts_and_bolts_tpu_torch.models.llama.convert import params_from_nump
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache, forward
 from llama_nuts_and_bolts_tpu_torch.quant import quantize_params, quantize_params_q4
 from llama_nuts_and_bolts_tpu_torch.runtime.profiling import (
-    StepTimer,
+    SPANS,
+    SpanRecorder,
     device_trace,
     narrated_forward,
 )
@@ -109,19 +115,6 @@ def test_narration_runs_the_served_code(weights, kv):
     assert len(lines) == 2 * (cfg.n_layers + 2)
 
 
-def test_step_timer_summary_matches_jax():
-    t, jt = StepTimer(), jprofiling.StepTimer()
-    for _ in range(10):
-        t.start()
-        t.stop()
-    s = t.summary()
-    assert s["count"] == 10
-    assert s["p50_s"] >= 0 and s["p95_s"] >= s["p50_s"] >= 0
-    assert StepTimer().summary() == {} == jt.summary()
-    jt.samples = list(t.samples)
-    assert jt.summary() == s
-
-
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     d = str(tmp_path / "trace")
     with device_trace(d) as prof:
@@ -146,3 +139,148 @@ def test_cli_narrate_prints_one_line_a_layer_and_two(capsys):
         r"output norm\+projection: logits\(1, 1, 512\))", out)}
     assert len(narrated) == 4 + 2
     assert "Finished \x1b[1mby reaching" in out
+
+
+# ------------------------------------------------------------------ spans
+
+STEP_CHILDREN = {"batcher.admit", "batcher.prepare", "batcher.launch", "batcher.readback",
+                 "batcher.deliver"}
+
+
+def check_batcher_spans(spans, reqs):
+    """The spans a batcher recorded while it served ``reqs``, every one
+    finished: each request has one ``request.queued`` and one
+    ``request.first_token`` under its id, meeting where its admission began;
+    every child of a step names a ``batcher.step``
+    as its parent and lies inside it. Returns the step spans."""
+    by_id = defaultdict(list)
+    for sp in spans:
+        by_id[sp[3]].append(sp)
+    for r in reqs:
+        assert r.finished and r.rid >= 0
+        mine = {sp[0]: sp for sp in by_id[r.rid] if sp[0].startswith("request")}
+        assert sorted(sp[0] for sp in by_id[r.rid] if sp[0].startswith("request")) == [
+            "request.first_token", "request.queued"], r.rid
+        queued, first = mine["request.queued"], mine["request.first_token"]
+        assert queued[1] == r.t_submit and queued[2] == first[1] == r.t_admit
+        assert queued[1] <= queued[2] <= first[2]
+        admits = [sp for sp in by_id[r.rid] if sp[0] == "batcher.admit"]
+        assert admits and admits[-1][1] == r.t_admit and "stalled" not in admits[-1][5]
+    steps = {sp[3]: sp for sp in spans if sp[0] == "batcher.step"}
+    children = [sp for sp in spans if sp[0] in STEP_CHILDREN]
+    assert steps and children
+    for sp in children:
+        parent = steps[sp[4]]
+        assert parent[1] <= sp[1] <= sp[2] <= parent[2], (sp, parent)
+    return list(steps.values())
+
+
+def test_the_span_ring_is_bounded():
+    rec = SpanRecorder(maxlen=8)
+    for i in range(20):
+        with rec.span("x", i=i):
+            pass
+    rec.add("y", 5, 6)
+    kept = rec.between(0, time.perf_counter_ns() + 1)
+    assert len(kept) == 8
+    assert [sp[5] for sp in kept[:-1]] == [{"i": i} for i in range(13, 20)]
+    assert kept[-1] == ("y", 5, 6, 20, None, None)
+
+
+def test_between_selects_spans_by_their_start():
+    rec = SpanRecorder()
+    for t0, t1 in ((10, 50), (20, 30), (40, 90), (100, 120)):
+        rec.add(f"s{t0}", t0, t1)
+    assert [sp[0] for sp in rec.between(20, 100)] == ["s20", "s40"]
+    assert [sp[0] for sp in rec.between(0, 11)] == ["s10"]
+    assert rec.between(121, 200) == []
+
+
+def test_spans_nest_and_carry_their_counts():
+    rec = SpanRecorder()
+    rid = rec.new_id()
+    t = time.perf_counter_ns()
+    with rec.span("outer", rows=1) as outer:
+        with rec.span("inner", id=rid, parent=outer.id):
+            pass
+        outer.counts["rows"] += 2
+    inner, whole = rec.between(t, time.perf_counter_ns() + 1)
+    assert inner[:1] == ("inner",) and inner[3:] == (rid, outer.id, None)
+    assert whole[0] == "outer" and whole[3] == outer.id != rid and whole[5] == {"rows": 3}
+    assert whole[1] == outer.t0 <= inner[1] <= inner[2] <= whole[2]
+    assert whole[4] is None
+
+
+def tiny_paged():
+    from tests.test_torch_continuous import make_engine
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+
+    return PagedBatcher(make_engine(), n_slots=2, block_size=8)
+
+
+PROMPTS = ([1, 2, 3], [0] * 20, [4, 5, 6] * 5)
+
+
+def test_tokens_are_bit_identical_under_a_profiler(tmp_path):
+    """A profiler turns every span into a ``record_function`` range as well;
+    the batcher's and the engine's tokens stay bit for bit the same."""
+    def run():
+        b = tiny_paged()
+        reqs = [b.submit(p, max_new_tokens=9, temperature=t, seed=5)
+                for p, t in zip(PROMPTS, (0.0, 1.3, 0.0))]
+        b.run_until_idle()
+        eng = b.engine
+        return ([list(r.tokens(timeout=30)) for r in reqs],
+                list(eng.generate_tokens(PROMPTS[2], 7)))
+
+    plain = run()
+    with device_trace(str(tmp_path / "trace")) as prof:
+        traced = run()
+    assert traced == plain
+    names = {e.key for e in prof.key_averages()}
+    assert {"batcher.step", "batcher.launch", "engine.prefill",
+            "engine.decode.launch"} <= names
+
+
+def test_only_device_trace_turns_spans_into_ranges():
+    """Under any other profiler (the benchmark's stretch) a span is no
+    range: a range's copy on the device's timeline would cover the card's
+    idle gaps. The spans are recorded either way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b = tiny_paged()
+    t0 = time.perf_counter_ns()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        b.submit(PROMPTS[0], max_new_tokens=4)
+        b.run_until_idle()
+        list(b.engine.generate_tokens(PROMPTS[1], 3))
+    names = {e.key for e in prof.key_averages()}
+    assert not {n for n in names if n.startswith(("batcher.", "engine.", "request"))}
+    spans = {sp[0] for sp in SPANS.between(t0, time.perf_counter_ns() + 1)}
+    assert {"batcher.step", "batcher.launch", "engine.prefill"} <= spans
+
+
+def test_device_trace_shows_a_batcher_threads_spans(tmp_path):
+    """A server's batcher steps on a thread that is already running when
+    the trace starts: its ``batcher.step`` ranges are in the trace, on its
+    own thread."""
+    b = tiny_paged()
+    thread = b.serve_forever_in_thread()
+    try:
+        b.submit(PROMPTS[0], max_new_tokens=2)
+        deadline = time.time() + 30
+        while b.has_work and time.time() < deadline:
+            time.sleep(0.01)
+        d = str(tmp_path / "trace")
+        with device_trace(d):
+            req = b.submit(PROMPTS[1], max_new_tokens=6)
+            list(req.tokens(timeout=30))
+    finally:
+        b.stop()
+        thread.join(30)
+    (path,) = [os.path.join(d, f) for f in os.listdir(d)]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events if e.get("name") == "batcher.step"]
+    assert steps and all(e.get("tid") != threading.get_native_id() for e in steps)
+    assert any(e.get("name") == "batcher.launch" for e in events)

@@ -116,6 +116,30 @@ def test_prefix_cache_hits_on_a_shared_system_prompt(paged_server):
     assert metric(text, "llama_kv_blocks_total") == 11
 
 
+def test_metrics_expose_the_batchers_counters(paged_server):
+    """Occupancy, prefill rows and padding, prefix-cache rows, admissions
+    and queue wait: /metrics reads the batcher's own counters, and a chat
+    with a shared system prompt moves them."""
+    srv, url = paged_server
+    names = ("rows_stepped", "prefill_tokens", "prefill_padded_tokens",
+             "prefill_cached_tokens", "admissions", "admission_stalls")
+    before = get(url + "/metrics")
+    post(url + "/v1/chat/completions", chat("first watch"))
+    post(url + "/v1/chat/completions", chat("third watch"))
+    text = get(url + "/metrics")
+    b = srv.batcher
+    for name in names:
+        assert metric(text, f"llama_batch_{name}_total") == getattr(b, name), name
+    assert metric(text, "llama_batch_queue_wait_seconds_total") == pytest.approx(
+        b.queue_wait_s, abs=1e-6)
+    grew = {n: metric(text, f"llama_batch_{n}_total")
+            - metric(before, f"llama_batch_{n}_total") for n in names}
+    assert grew["admissions"] == 2 and grew["prefill_cached_tokens"] >= 32
+    assert grew["rows_stepped"] >= metric(text, "llama_batch_decode_steps_total") \
+        - metric(before, "llama_batch_decode_steps_total") > 0
+    assert grew["prefill_tokens"] > 0 and grew["admission_stalls"] == 0
+
+
 def test_completions_logprobs_and_seeded_sampling(paged_server):
     _, url = paged_server
     status, body = post(url + "/v1/completions",
@@ -188,6 +212,34 @@ def test_serialized_server_seed_restores_the_generator():
             "choices"][0]["message"] == greedy["choices"][0]["message"]
     finally:
         batched.shutdown()
+
+
+def test_metrics_expose_the_engines_graph_counters():
+    """The serialized server decodes on the engine's graphs: /metrics reads
+    the graphs built and evicted; a repeat in a cache bucket builds none,
+    and a full LRU evicts a graph that the next request builds again."""
+    srv, url = start()
+
+    def counters():
+        text = get(url + "/metrics")
+        return (metric(text, "llama_decode_graphs_built_total"),
+                metric(text, "llama_decode_graph_evictions_total"))
+
+    try:
+        eng = srv.engine
+        warm = counters()
+        assert warm == (eng.graphs_built, eng.graph_evictions) and warm[0] > 0
+        post(url + "/v1/completions", {"prompt": "hello", "max_tokens": 6})
+        assert counters() == warm
+        eng.MAX_CHUNK_EXECUTABLES = 1
+        post(url + "/v1/completions", {"prompt": "hello", "max_tokens": 6,
+                                       "temperature": 1.0, "seed": 1})
+        post(url + "/v1/completions", {"prompt": "hello", "max_tokens": 6})
+        built, evicted = counters()
+        assert (built, evicted) == (eng.graphs_built, eng.graph_evictions)
+        assert built > warm[0] and evicted > warm[1]
+    finally:
+        srv.shutdown()
 
 
 @pytest.mark.parametrize("max_new", [1, 9, 500])
