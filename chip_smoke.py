@@ -423,6 +423,14 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
 
 
+def batcher_steps_run(batcher) -> int:
+    """The batched plain decode steps the card ran: every dispatched one,
+    and the one warm-up step of the batcher's step graph, which runs the
+    body once eagerly before the capture, so its launches count
+    (``runtime/decode_graph.py``)."""
+    return batcher.decode_steps + batcher._step_graph.warmup_steps
+
+
 def check_kernels():
     """Each kernel against its plain version at 8B attention widths: K1 with
     and without history and with a ragged q edge, K2 over a range of
@@ -2015,9 +2023,13 @@ def check_paged_model_path(tk, vocab):
         counts = read_counts()
         if got != seq:
             fail(f"cyclic model, {name}: {got}, sequential engine {seq}")
-        if counts[tag] != cfg.n_layers * batcher.decode_steps:
+        if counts[tag] != cfg.n_layers * batcher_steps_run(batcher):
             check_failed(f"cyclic model, {name}: {counts}, expected {tag} = "
-                         f"{cfg.n_layers} x {batcher.decode_steps} steps")
+                         f"{cfg.n_layers} x {batcher_steps_run(batcher)} steps (the "
+                         f"step graph's warm-up included)")
+        if batcher.graph_steps != batcher.decode_steps:
+            check_failed(f"cyclic model, {name}: {batcher.graph_steps} of "
+                         f"{batcher.decode_steps} steps replayed from the step graph")
         log(f"cyclic 2-layer model, {name}: {len(reqs)} requests on 2 slots, tokens equal "
             f"the sequential engine's; {batcher.decode_steps} steps, launches "
             f"{ {k: n for k, n in counts.items() if n} }")
@@ -2264,7 +2276,7 @@ def serving_path(tk, vocab, int8: bool):
     torch.cuda.reset_peak_memory_stats()
     clock.start()
     reset_counts()
-    steps0 = batcher.decode_steps
+    steps0, run0 = batcher.decode_steps, batcher_steps_run(batcher)
     tokens0 = srv.metrics["tokens_generated_total"]
     t_start = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(reqs)) as pool:
@@ -2276,6 +2288,7 @@ def serving_path(tk, vocab, int8: bool):
     counts = read_counts()
     clock.stop()
     steps = batcher.decode_steps - steps0
+    ran = batcher_steps_run(batcher) - run0
     peak = torch.cuda.max_memory_allocated()
     metrics = srv.render_metrics()
     hits = float(next(line.split()[1] for line in metrics.splitlines()
@@ -2301,10 +2314,10 @@ def serving_path(tk, vocab, int8: bool):
     if hits < 1:
         fail(f"serving, {kind}: /metrics shows {hits} prefix-cache hits")
     tag = "K6i8" if int8 else "K6"
-    want = {tag: cfg.n_layers * steps}
+    want = {tag: cfg.n_layers * ran}
     if {k: n for k, n in counts.items() if n} != want:
         check_failed(f"serving, {kind}: launches {counts} over {steps} batched decode "
-                     f"steps, expected {want}")
+                     f"steps and {ran - steps} warm-up, expected {want}")
     log(f"serving, {kind}: {len(reqs)} requests on {SERVE_SLOTS} slots in {wall:.2f}s, "
         f"{tokens} tokens, aggregate {tokens / wall:.2f} tok/s, {steps} batched decode "
         f"steps, launches { {k: n for k, n in counts.items() if n} } "
@@ -2946,7 +2959,8 @@ def spec_batchers(tk, vocab):
                                  f"sizes asked {sorted(set(asked))} (no clamping)")
             elif got != seq:
                 fail(f"{what}: {got}, sequential engine {seq}")
-            want = {"K6": cfg.n_layers * batcher.decode_steps} if name != "dense" else {}
+            want = ({"K6": cfg.n_layers * batcher_steps_run(batcher)} if name != "dense"
+                    else {})
             if {k: v for k, v in counts.items() if v} != {k: v for k, v in want.items() if v}:
                 check_failed(f"{what}: launches {counts}, expected {want}")
             stats = batcher.spec_stats_snapshot()
@@ -3030,6 +3044,7 @@ def spec_serving_path(tk, vocab):
              {"prompt": "Once upon a time", "max_tokens": 32, "logprobs": 2}, False)]
     reset_counts()
     steps0, tokens0 = batcher.decode_steps, srv.metrics["tokens_generated_total"]
+    run0 = batcher_steps_run(batcher)
     before = batcher.spec_stats_snapshot()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(reqs)) as pool:
@@ -3064,9 +3079,10 @@ def spec_serving_path(tk, vocab):
         check_failed(f"speculative serving: /metrics spec counters {metrics}")
     if not health or health.get("k") != SPEC_K or health.get("drafted") != drafted:
         check_failed(f"speculative serving: /health continuous.speculation {health}")
-    if {k: n for k, n in counts.items() if n} != ({"K6": cfg.n_layers * steps} if steps else {}):
+    ran = batcher_steps_run(batcher) - run0
+    if {k: n for k, n in counts.items() if n} != ({"K6": cfg.n_layers * ran} if ran else {}):
         check_failed(f"speculative serving: launches {counts} over {steps} plain batched "
-                     f"steps, expected K6 {cfg.n_layers} x {steps}")
+                     f"steps and {ran - steps} warm-up, expected K6 {cfg.n_layers} x {ran}")
     log(f"speculative serving: {len(reqs)} requests in {wall:.2f}s, {tokens} tokens, "
         f"aggregate {tokens / wall:.2f} tok/s, {batcher.verify_steps} batched verify steps, "
         f"{steps} plain steps (K6 {counts['K6']}); /metrics {metrics}; /health {health}")

@@ -16,25 +16,44 @@ decoding.
     top-p, seed); a row's token depends only on its seed, prompt and
     position, never on its batch neighbours (``ops/sampling.py``).
     Temperature 0 rows take the argmax.
-  * Pipelining: PyTorch queues a step's kernels and returns, so up to
-    ``PIPELINE_DEPTH`` quanta stay in flight; each feeds the previous step's
-    sampled tokens on the device, and the host reads a quantum's tokens back
-    (the only synchronisation) while the next ones run. Positions are the
-    host's: they advance when a step is dispatched, so a step never waits
-    for a read-back. Occupancy changes never flush: every entry carries a
-    slots snapshot, and delivery drops rows whose slot changed hands.
-  * ``step_quantum`` k runs k decode steps back to back per iteration; with
-    k > 1 admission and stops act every k tokens; the default is 1. The
-    steps run eagerly: a captured batched step needs the block tables and
-    slot positions in static buffers and a per-row generator drawn on the
-    device (ROADMAP queue 1), where the sequential engine's decode replays
-    graphs (``runtime/decode_graph.py``).
+  * The plain decode step is one replay of a CUDA graph
+    (``runtime/decode_graph.py::StepGraph``), captured at the batcher's
+    first dispatch on a card over static device buffers of the step's
+    inputs, allocated once at the batcher's fixed shape
+    (:class:`~llama_nuts_and_bolts_tpu_torch.runtime.decode_graph.StepBuffers`):
+    the feed ``[n_slots, 1]``, the positions ``[n_slots]`` and, for the
+    paged batcher, the block tables ``[n_slots, max_blocks]``. Free slots
+    step with a pad token, so the shape never changes. Each dispatch writes
+    them in place, in stream order: the previous step's sampled tokens,
+    just-admitted rows' first tokens spliced in on the device, the host's
+    positions and the tables as the quantum's block growth left them (host
+    values through pinned staging buffers behind events). The graph holds
+    the forward (``paged_decode_step``; here ``forward`` at S=1 over the
+    dense cache) and writes static ``[n_slots, vocab]`` fp32 logits;
+    sampling runs eagerly on them after each replay (``ops/sampling.py``),
+    so a sampled row's draws are its ``row_seed(seed, position)``'s. On the
+    CPU the same body runs eagerly on the same buffers. A capture that
+    fails raises: nothing falls back to an eager step. ``graph_steps``
+    counts the steps replayed from a captured graph.
+  * Pipelining: PyTorch queues a step's replay and sample and returns, so up
+    to ``PIPELINE_DEPTH`` quanta stay in flight; each feeds the previous
+    step's sampled tokens on the device. A quantum's tokens (an admission's
+    first token) are copied to pinned host memory behind an event when they
+    are queued, and the host reads them back (the only synchronisation,
+    which waits for those copies alone) while the next quanta run.
+    Positions are the host's: they advance when a step is dispatched, so a
+    step never waits for a read-back. Occupancy changes never flush: every
+    entry carries a slots snapshot, and delivery drops rows whose slot
+    changed hands.
+  * ``step_quantum`` k runs k decode steps back to back per iteration, k
+    replays of the one graph, each sampled before the next; with k > 1
+    admission and stops act every k tokens; the default is 1.
   * Speculation (``speculate_k`` K > 0): each greedy slot without logprobs
     drafts up to K tokens by n-gram prompt lookup, and every slot's feed
     token and drafts verify in one ``[B, K+1]`` forward at per-row
-    positions (the plain attention path, eager); a speculating slot emits
-    its accepted drafts and the model's own next token, the others their
-    row-0 sample. Admission is synchronous (the proposer needs the first
+    positions (the plain attention path, eager: no graph); a speculating
+    slot emits its accepted drafts and the model's own next token, the
+    others their row-0 sample. Admission is synchronous (the proposer needs the first
     token), the quantum is 1, and the dense cache holds K rows past the
     context, where rejected draft rows may land.
 
@@ -82,11 +101,12 @@ Spans and counters (``runtime/profiling.py``'s ``SPANS``): a request's
 and ``request.first_token`` (that start to its first token's put), under
 its id; each step's
 ``batcher.step`` with its children ``batcher.admit`` (one an admission
-attempt, under the request's id), ``batcher.prepare`` (feed splice, block
-growth, tables to the card), ``batcher.launch`` (the forwards and samples,
-queued), ``batcher.readback`` (the host waits for the card) and
-``batcher.deliver`` (the emit loop). The counters beside ``decode_steps`` (``rows_stepped``,
-``prefill_tokens``, ``prefill_padded_tokens``, ``prefill_cached_tokens``,
+attempt, under the request's id), ``batcher.prepare`` (block growth, the static
+inputs written), ``batcher.launch`` (the replays and samples, queued),
+``batcher.readback`` (the host waits for the card) and ``batcher.deliver``
+(the emit loop); a step's ``graphed`` counts its decode steps replayed from
+a captured graph. The counters beside ``decode_steps`` (``graph_steps``,
+``rows_stepped``, ``prefill_tokens``, ``prefill_padded_tokens``, ``prefill_cached_tokens``,
 ``admissions``, ``admission_stalls``, ``queue_wait_s``) are the server's
 ``/metrics``.
 """
@@ -109,6 +129,7 @@ from llama_nuts_and_bolts_tpu_torch.ops.sampling import (
     sample_tokens_batched,
     top_logprobs_batched,
 )
+from llama_nuts_and_bolts_tpu_torch.runtime.decode_graph import StepBuffers, StepGraph
 from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
 from llama_nuts_and_bolts_tpu_torch.runtime.speculative import (
     NgramProposer,
@@ -260,7 +281,8 @@ class ContinuousBatcher:
     and a dense ``[L, n_slots, KV, seq_len, D]`` cache.
 
     ``step()`` admits waiting requests into free slots (one prefill each),
-    then dispatches one quantum of batched decode steps for every slot.
+    then dispatches one quantum of batched decode steps for every slot, each
+    a replay of the batcher's step graph (see the module docstring).
     Under the engine's mesh rank 0 steps and the followers :meth:`follow`;
     ``control`` is the gloo group the step records travel on
     (``parallel/launch.py::new_control_group``, made by every rank
@@ -281,6 +303,7 @@ class ContinuousBatcher:
         # does not carry over to an [n_slots]-row step
         self._decode_impl = engine._auto_attn_impl(1, self.cache.max_seq)
         self._pos_cap = self.cache.max_seq - 1
+        self._init_step_graph()
 
     def _init_common(self, engine, n_slots: int, speculate_k: int,
                      step_quantum: Optional[int], control=None) -> None:
@@ -307,6 +330,7 @@ class ContinuousBatcher:
         self.spec_stats = {"spec_steps": 0, "drafted": 0, "accepted": 0}
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.decode_steps = 0           # batched plain decode steps dispatched
+        self.graph_steps = 0            # ... of them replayed from a captured graph
         self.verify_steps = 0           # batched speculative verify steps
         self.rows_stepped = 0           # live rows, summed over the decode steps
         self.prefill_tokens = 0         # prompt rows computed by admissions
@@ -322,9 +346,9 @@ class ContinuousBatcher:
         self._init_sampling_state(n_slots)
         self.pending: "queue.Queue[Request]" = queue.Queue()
         self._lock = threading.Lock()
-        # work in flight, oldest first:
-        #   ("q", tokens [k, B], logprob info, force, epos, slots snapshot)
-        #   ("admit", slot, req, first token, logprob info, position)
+        # work in flight, oldest first, each with its host copies (_to_host):
+        #   ("q", (tokens [k, B], logprob info?), force, epos, slots snapshot)
+        #   ("admit", slot, req, (first token [1], logprob info?), position)
         self._inflight: list = []
         # the last dispatched step's sampled tokens [B, 1], on the device:
         # the next step's feed; None = feed from the host
@@ -489,7 +513,9 @@ class ContinuousBatcher:
             self._emit(slot, tok, plen)
             return
         self._first_dev[slot] = first[0]
-        self._inflight.append(("admit", slot, req, first[0], lp, plen))
+        self._inflight.append(("admit", slot, req,
+                               self._to_host(first, *(lp if req.want_logprobs else ())),
+                               plen))
 
     @staticmethod
     def _speculates(req: Request) -> bool:
@@ -560,26 +586,46 @@ class ContinuousBatcher:
     def _host_lp(lp, wanted: bool):
         return tuple(t.cpu().numpy() for t in lp) if wanted else None
 
+    def _to_host(self, *tensors):
+        """Queue the copies of ``tensors`` to pinned host memory and an event
+        after them: :meth:`_from_host` then waits for these copies alone, not
+        for the steps queued later."""
+        host = tuple(t.to("cpu", non_blocking=True) for t in tensors)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return host, event
+
+    @staticmethod
+    def _from_host(handle):
+        """The numpy arrays of a :meth:`_to_host` handle, once copied."""
+        host, event = handle
+        if event is not None:
+            event.synchronize()
+        return [t.numpy() for t in host]
+
     def _process_entry(self, entry) -> None:
         """Read an in-flight entry's tokens back (``batcher.readback``: the
         host waits for the card) and deliver them (``batcher.deliver``)."""
         if entry[0] == "admit":
-            _tag, slot, req, first, lp, pos = entry
+            _tag, slot, req, fetched, pos = entry
             if self.slots[slot] is not req:      # cancelled before its first token
                 return
             with SPANS.span("batcher.readback", parent=self._step.id):
-                tok = int(first)
-                lp = self._host_lp(lp, req.want_logprobs)
+                first, *lp = self._from_host(fetched)
+                tok = int(first[0])
+                lp = tuple(lp) or None
             with SPANS.span("batcher.deliver", parent=self._step.id):
                 self._feed[slot] = tok
                 if lp is not None:
                     self._record_logprobs(slot, tok, lp)
                 self._emit(slot, tok, pos)
             return
-        _tag, toks, lp, force, epos, snapshot = entry
+        _tag, fetched, force, epos, snapshot = entry
         with SPANS.span("batcher.readback", parent=self._step.id):
-            toks = toks.cpu().numpy()
-            lp = self._host_lp(lp, any(r is not None and r.want_logprobs for r in snapshot))
+            toks, *lp = self._from_host(fetched)
+            lp = tuple(lp) or None
         with SPANS.span("batcher.deliver", parent=self._step.id):
             for j in range(toks.shape[0]):
                 for slot in range(self.n_slots):
@@ -615,61 +661,85 @@ class ContinuousBatcher:
             epos[j] = self._pos
         return fed, epos, [[False] * self.n_slots for _ in range(k)]
 
-    def _step_logits(self, toks: torch.Tensor, positions: torch.Tensor,
-                     quantum_state) -> torch.Tensor:
-        """One batched decode step: ``[B, vocab]`` fp32 logits."""
-        logits, _ = forward(self.engine.model.params, self.cfg, toks, positions,
-                            self.cache, attn_impl=self._decode_impl, mesh=self.mesh)
-        return logits[:, -1]
+    def _init_step_graph(self, max_blocks: int = 0) -> None:
+        """The static buffers of the plain decode step and its graph: one a
+        batcher, over its cache or pool, ``n_slots``, ``max_blocks`` and
+        attention path, captured at the first dispatch on a card."""
+        bufs = StepBuffers(self.device, self.n_slots, self.cfg.vocab_size, self.step_quantum,
+                           max_blocks, depth=self.PIPELINE_DEPTH + 1)
+        self._step_graph = StepGraph(self.engine, bufs, self._step_fn())
 
-    def _quantum_state(self):
-        """Per-quantum device inputs besides tokens and positions (the paged
-        batcher's block tables)."""
+    def _step_fn(self):
+        """The plain decode step as a function of the static buffers:
+        ``(feed, positions, tables)`` to ``[B, vocab]`` fp32 logits. It holds
+        the model, the cache and the mesh, not the batcher, which holds its
+        graph."""
+        params, cfg, cache = self.engine.model.params, self.cfg, self.cache
+        impl, mesh = self._decode_impl, self.mesh
+
+        def step(feed, positions, _tables):
+            logits, _ = forward(params, cfg, feed, positions, cache, attn_impl=impl,
+                                mesh=mesh)
+            return logits[:, -1]
+
+        return step
+
+    def _host_tables(self) -> Optional[np.ndarray]:
+        """The block tables the step reads (the paged batcher's)."""
         return None
 
-    def _feed_tokens(self) -> torch.Tensor:
-        """The next step's ``[B, 1]`` feed: the last step's tokens on the
-        device, with just-admitted rows' first tokens spliced in."""
-        if self._last_tok is None:
-            toks = torch.from_numpy(self._feed[:, None].copy()).to(self.device)
-        else:
-            toks = self._last_tok.clone()
+    def _load_feed(self, feed: torch.Tensor) -> None:
+        """Write the next step's ``[B, 1]`` feed in place: the last step's
+        tokens on the device (the host's feed is staged when no step is in
+        flight), with just-admitted rows' first tokens spliced in."""
+        if self._last_tok is not None:
+            feed.copy_(self._last_tok)
         for slot in np.nonzero(self._splice)[0]:
             fd = self._first_dev[slot]
-            toks[slot, 0] = fd if fd is not None else int(self._feed[slot])
+            feed[slot, 0] = fd if fd is not None else int(self._feed[slot])
             self._first_dev[slot] = None
         self._splice[:] = False
-        return toks
 
     def _dispatch(self) -> None:
-        """Queue one quantum of ``step_quantum`` decode steps; nothing waits
-        for the device. The running step's span counts its steps and their
-        live rows."""
+        """Queue one quantum of ``step_quantum`` decode steps, each a replay
+        of the step graph over the static buffers and a sample of its
+        logits; nothing waits for the device. The running step's span counts
+        its steps, their live rows and the steps replayed from a captured
+        graph (``graphed``)."""
         step = self._step
         k = self.step_quantum
         live = sum(r is not None for r in self.slots)
+        graph = self._step_graph
+        bufs = graph.slot
         with SPANS.span("batcher.prepare", parent=step.id):
-            toks = self._feed_tokens()
+            host_feed = self._feed if self._last_tok is None else None
             fed, epos, force = self._advance_quantum(k)
-            state = self._quantum_state()        # after the quantum's block growth
+            # the tables as the quantum's growth left them
+            bufs.stage(fed, self._host_tables(), host_feed)
+            self._load_feed(bufs.feed)
         with SPANS.span("batcher.launch", parent=step.id):
             rows = list(range(self.n_slots))
             out_toks, out_lp = [], []
             for j in range(k):
-                positions = torch.from_numpy(fed[j].copy()).to(self.device)
-                tok, lp = self._sample(self._step_logits(toks, positions, state), rows,
-                                       fed[j])
+                if j:
+                    bufs.feed.copy_(tok[:, None])
+                bufs.set_positions(j)
+                graph.replay()
+                tok, lp = self._sample(bufs.logits, rows, fed[j])
                 out_toks.append(tok)
                 out_lp.append(lp)
-                toks = tok[:, None]
-            lp = tuple(torch.stack(parts) for parts in zip(*out_lp))
-            out = torch.stack(out_toks)
+            wanted = any(r is not None and r.want_logprobs for r in self.slots)
+            lp = tuple(torch.stack(parts) for parts in zip(*out_lp)) if wanted else ()
+            fetched = self._to_host(torch.stack(out_toks), *lp)
+        graphed = k if graph.graph is not None else 0
         self.decode_steps += k
+        self.graph_steps += graphed
         self.rows_stepped += live * k
         step.counts["rows"] = live * k          # a step dispatches once
         step.counts["steps"] = k
-        self._last_tok = toks
-        self._inflight.append(("q", out, lp, force, epos, list(self.slots)))
+        step.counts["graphed"] = graphed
+        self._last_tok = tok[:, None]
+        self._inflight.append(("q", fetched, force, epos, list(self.slots)))
 
     def step(self) -> None:
         """Admit, then dispatch one quantum while up to ``PIPELINE_DEPTH``
@@ -705,8 +775,8 @@ class ContinuousBatcher:
 
     def _step_once(self) -> None:
         """One step under a ``batcher.step`` span, which counts the decode
-        steps it dispatched (``steps``) and their live rows (``rows``), if
-        it dispatched any."""
+        steps it dispatched (``steps``), those replayed from a captured graph
+        (``graphed``) and their live rows (``rows``), if it dispatched any."""
         with SPANS.span("batcher.step") as self._step:
             if self.speculate_k:
                 self._step_speculative()

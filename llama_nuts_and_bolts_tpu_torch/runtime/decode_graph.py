@@ -43,6 +43,17 @@ layers); a captured one replays them all with one call.
     :meth:`DecodeSlot.set`), and rejected rows past it stay unseen until
     the real tokens overwrite them. Warm-up, capture, counting and "a
     failed capture raises" are :class:`DecodeGraph`'s.
+  * :class:`StepGraph` is a continuous batcher's plain decode step
+    (``runtime/continuous.py``): its body is the batcher's step function
+    (``paged_decode_step``, or ``forward`` at S=1 over the dense cache) over
+    the static inputs of :class:`StepBuffers` -- feed ``[n_slots, 1]``,
+    positions ``[n_slots]`` and, for the paged pool, block tables
+    ``[n_slots, max_blocks]`` -- into static ``[n_slots, vocab]`` fp32
+    logits. The batcher writes the inputs in stream order before each
+    replay and samples the logits eagerly after it. Warm-up, capture,
+    counting and "a failed capture raises" are :class:`DecodeGraph`'s; its
+    warm-up is one run of the body, whose cache rows the replay after it
+    writes again.
 """
 
 from __future__ import annotations
@@ -50,8 +61,9 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from llama_nuts_and_bolts_tpu_torch.kernels.attention import flash_gqa_attention
@@ -172,19 +184,23 @@ class DecodeSlot:
 
 
 class _SlotGraph:
-    """A body over ``slot`` whose tokens land in ``out``: captured at the
-    first :meth:`replay` on a card (one warm-up run first), run eagerly on
-    the CPU. Subclasses give ``_warm_up`` and ``_body``."""
+    """A body over ``slot`` (a :class:`DecodeSlot` or :class:`StepBuffers`:
+    its ``device`` and graph ``pool``) whose tokens land in ``out`` (none
+    without ``out_shape``): captured at the first :meth:`replay` on a card
+    (one warm-up run first), run eagerly on the CPU. Subclasses give
+    ``_warm_up`` and ``_body``."""
 
-    def __init__(self, engine, slot: DecodeSlot, out_shape: Tuple[int, ...]) -> None:
+    def __init__(self, engine, slot, out_shape: Optional[Tuple[int, ...]]) -> None:
         # the model, not the engine: an engine holds its graphs, and a cycle
         # would leave a dropped engine's graphs to the cyclic collector,
         # which may run during another graph's capture
         self.model, self.slot, self.mesh = engine.model, slot, engine.mesh
         cuda = slot.device.type == "cuda"
-        self.out = torch.zeros(out_shape, dtype=torch.int32, device=slot.device)
-        self._host = [torch.zeros(out_shape, dtype=torch.int32, pin_memory=cuda)
-                      for _ in range(2)]
+        self.out, self._host = None, []
+        if out_shape is not None:
+            self.out = torch.zeros(out_shape, dtype=torch.int32, device=slot.device)
+            self._host = [torch.zeros(out_shape, dtype=torch.int32, pin_memory=cuda)
+                          for _ in range(2)]
         self._turn = 0
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
         self.launches: Tuple[int, ...] = ()     # counted per replay
@@ -388,4 +404,80 @@ class VerifyGraph(_SlotGraph):
 
     def _warm_up(self) -> None:
         # the rows the replay after it writes again; nothing else moves
+        self._body()
+
+
+class StepBuffers:
+    """The static device state of a batcher's plain decode step (see the
+    module docstring): ``feed [n_slots, 1]``, ``pos [n_slots]``, ``tables
+    [n_slots, max_blocks]`` (None for the dense cache) and ``logits
+    [n_slots, vocab]``, allocated once. :meth:`stage` takes a quantum's host
+    inputs through pinned memory, ``depth`` buffers in turn, each written
+    again only once an event says its last copy has run."""
+
+    def __init__(self, device: torch.device, n_slots: int, vocab: int, quantum: int,
+                 max_blocks: int = 0, depth: int = 3) -> None:
+        cuda = device.type == "cuda"
+        self.device = device
+        self.feed = torch.zeros((n_slots, 1), dtype=torch.int32, device=device)
+        self.pos = torch.zeros((n_slots,), dtype=torch.int32, device=device)
+        self.tables = (torch.zeros((n_slots, max_blocks), dtype=torch.int32, device=device)
+                       if max_blocks else None)
+        self.logits = torch.zeros((n_slots, vocab), dtype=torch.float32, device=device)
+        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        # the quantum's positions, a row a step, which set_positions copies
+        # into ``pos`` before the step's replay
+        self._positions = torch.zeros((quantum, n_slots), dtype=torch.int32, device=device)
+        # host staging: [feed | positions | tables]
+        width = n_slots * (1 + quantum + max_blocks)
+        self._staging = [torch.zeros(width, dtype=torch.int32, pin_memory=cuda)
+                         for _ in range(depth)]
+        self._staged: List[Optional[torch.cuda.Event]] = [
+            torch.cuda.Event() if cuda else None for _ in range(depth)]
+        self._turn = 0
+
+    def stage(self, positions: np.ndarray, tables: Optional[np.ndarray] = None,
+              feed: Optional[np.ndarray] = None) -> None:
+        """Queue the copies of a quantum's host inputs: its steps' positions
+        ``[quantum, n_slots]``, the block tables and, when the host holds
+        it, the feed ``[n_slots]``."""
+        i = self._turn
+        self._turn = (i + 1) % len(self._staging)
+        if self._staged[i] is not None:
+            self._staged[i].synchronize()       # the last copy out of this buffer
+        host, n = self._staging[i], self.pos.shape[0]
+        view, p1 = host.numpy(), n + self._positions.numel()
+        view[n:p1] = positions.reshape(-1)
+        self._positions.copy_(host[n:p1].view(self._positions.shape), non_blocking=True)
+        if tables is not None:
+            view[p1:] = tables.reshape(-1)
+            self.tables.copy_(host[p1:].view(self.tables.shape), non_blocking=True)
+        if feed is not None:
+            view[:n] = feed
+            self.feed.copy_(host[:n, None], non_blocking=True)
+        if self._staged[i] is not None:
+            self._staged[i].record()
+
+    def set_positions(self, step: int) -> None:
+        """The positions of the quantum's step ``step``, into ``pos``."""
+        self.pos.copy_(self._positions[step])
+
+
+class StepGraph(_SlotGraph):
+    """A batcher's plain decode step over ``bufs`` (see the module
+    docstring): ``step(feed, pos, tables)`` gives ``[n_slots, vocab]`` fp32
+    logits, copied into ``bufs.logits``. ``step`` holds the model, the cache
+    and the mesh, never the batcher, which holds the graph."""
+
+    def __init__(self, engine, bufs: StepBuffers,
+                 step: Callable[..., torch.Tensor]) -> None:
+        super().__init__(engine, bufs, None)
+        self.step = step
+
+    def _body(self) -> None:
+        b = self.slot
+        b.logits.copy_(self.step(b.feed, b.pos, b.tables))
+
+    def _warm_up(self) -> None:
+        # the cache rows the replay after it writes again; nothing else moves
         self._body()

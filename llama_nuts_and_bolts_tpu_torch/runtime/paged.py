@@ -9,7 +9,7 @@ Speculation composes with the pool: each verify step writes K+1 rows a
 slot, so the scheduler backs positions pos..pos+K with blocks before the
 step and clamps a slot's draft count to what the pool could back -- a dry
 pool gives fewer (or no) drafts, never a stall. A step where no slot drafts
-runs the plain paged step (K6 on a card).
+runs the plain paged step (its graph, K6 on a card).
 
 Scheduling policy (host side, O(slots) per step):
   * admission needs ``prompt_len // bs + 1`` blocks (prompt + the next write
@@ -107,6 +107,16 @@ def default_attn_impl(engine, block_size: int = DEFAULT_BLOCK_SIZE) -> str:
 class PagedBatcher(ContinuousBatcher):
     """Continuous batcher over a paged KV pool.
 
+    Its plain decode step is one replay of the step graph
+    (``runtime/continuous.py``'s module docstring): ``paged_decode_step``
+    over static feed ``[n_slots, 1]``, positions ``[n_slots]`` and block
+    tables ``[n_slots, max_blocks]``, which each dispatch writes in place
+    after the quantum's block growth, into static ``[n_slots, vocab]``
+    logits that the batcher samples eagerly. It is captured at the first
+    dispatch on a card, over this batcher's pool, ``n_slots``,
+    ``max_blocks`` and attention path; on the CPU the same body runs
+    eagerly. The speculative verify step stays eager.
+
     ``n_blocks`` sizes the pool (default: every slot at full context);
     ``attn_impl`` picks the decode attention: ``"flash"`` runs K6, which
     streams only the blocks a row owns; ``"plain"`` gathers them (the oracle,
@@ -148,6 +158,7 @@ class PagedBatcher(ContinuousBatcher):
         self._slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
         self._stalled: deque[Request] = deque()   # admission order, pool-starved
         self._pos_cap = self.max_blocks * block_size - 1
+        self._init_step_graph(self.max_blocks)
 
     def submit(self, prompt_tokens, **kwargs):
         """Refuse prompts the pool can NEVER hold: they would wait at the
@@ -267,16 +278,19 @@ class PagedBatcher(ContinuousBatcher):
                         self.tables[slot, bi] = grown[0]
         return fed, epos, force
 
-    def _quantum_state(self):
-        # the tables as the quantum's growth left them (.copy(): they mutate
-        # under later bookkeeping while the quantum may still run)
-        return torch.from_numpy(self.tables.copy()).to(self.device)
+    def _host_tables(self) -> np.ndarray:
+        return self.tables
 
-    def _step_logits(self, toks, positions, tables) -> torch.Tensor:
-        logits, _ = paged_decode_step(self.engine.model.params, self.cfg, toks,
-                                      positions, self.pool, tables, self.attn_impl,
-                                      mesh=self.mesh)
-        return logits
+    def _step_fn(self):
+        params, cfg, pool = self.engine.model.params, self.cfg, self.pool
+        impl, mesh = self.attn_impl, self.mesh
+
+        def step(feed, positions, tables):
+            logits, _ = paged_decode_step(params, cfg, feed, positions, pool, tables, impl,
+                                          mesh=mesh)
+            return logits
+
+        return step
 
     def _verify_logits(self, toks, positions) -> torch.Tensor:
         tables = torch.from_numpy(self.tables.copy()).to(self.device)

@@ -499,6 +499,9 @@ class LlamaHTTPServer:
                 f"llama_batch_pending {b.pending.qsize()}",
                 "# TYPE llama_batch_decode_steps_total counter",
                 f"llama_batch_decode_steps_total {b.decode_steps}",
+                # decode steps replayed from the batcher's captured step graph
+                "# TYPE llama_batch_graph_steps_total counter",
+                f"llama_batch_graph_steps_total {b.graph_steps}",
                 # occupancy = rows / decode steps; padding waste; mean queue
                 # wait = wait seconds / admissions
                 "# TYPE llama_batch_rows_stepped_total counter",

@@ -82,6 +82,24 @@ def make_engine(seq_len: int = SEQ_LEN, **args) -> InferenceEngine:
                            device="cpu")
 
 
+_RANDOM: list = []
+
+
+def random_engine(seq_len: int = SEQ_LEN, **args) -> InferenceEngine:
+    """An engine over random weights, where attention matters (the step
+    graph's checks), whose vocabulary stops nothing: requests run to their
+    caps."""
+    if not _RANDOM:
+        ranks, vocab, _ = tokenizers()
+        vocab.stop_token_ids.clear()
+        cfg = ModelArgs(**SPEC)
+        _RANDOM.append(LoadedModel(params=init_random_params(cfg, seed=11, device="cpu"),
+                                   cfg=cfg, vocab=vocab, mergeable_ranks=ranks,
+                                   tensor_meta={}))
+    return InferenceEngine(_RANDOM[0], InferenceArgs(sequence_length=seq_len, **args),
+                           device="cpu")
+
+
 def sequential(eng, prompt, max_new=None):
     return list(eng.generate_tokens(prompt, max_new_tokens=max_new))
 
@@ -347,6 +365,8 @@ def test_spans_and_counters_of_the_dense_batcher(speculate_k, quantum):
     counts = [sp[5] or {"rows": 0, "steps": 0} for sp in steps]
     assert cb.rows_stepped == sum(live) == sum(c["rows"] for c in counts)
     assert cb.decode_steps == sum(c["steps"] for c in counts)
+    # the CPU runs the step graph's body eagerly: no step is graphed
+    assert cb.graph_steps == 0 and all(c["graphed"] == 0 for c in counts if c["steps"])
     assert (cb.decode_steps > 0) == (speculate_k == 0)
     buckets = sum(prefill_bucket(len(p), SEQ_LEN) for p in PROMPTS)
     assert cb.prefill_tokens == sum(len(p) for p in PROMPTS)
@@ -357,3 +377,112 @@ def test_spans_and_counters_of_the_dense_batcher(speculate_k, quantum):
     assert cb.queue_wait_s == pytest.approx(sum(sp[2] - sp[1] for sp in queued) / 1e9)
     admits = [sp for sp in spans if sp[0] == "batcher.admit"]
     assert sum(sp[5]["padded"] for sp in admits) == cb.prefill_padded_tokens
+
+
+# ------------------------------------------------------------ step graph
+
+def step_graph_checks(cb, eager_step):
+    """Watch every plain decode step of ``cb``: the static feed, positions
+    and (paged) tables its graph's body ran on, the logits it left, and the
+    tokens sampled from them. ``eager_step(feed, positions, tables)`` is the
+    step called directly (``paged_decode_step``, or ``forward``). Returns
+    ``check()``, which holds the run to it after the requests are drained
+    (``streams``: each request's delivered tokens):
+
+      * the body's logits are bit-equal to the eager step's on fresh copies
+        of the same inputs;
+      * each step's positions are the host's, and a live row's feed token is
+        its request's token at that position (the prefill's first token, or
+        the previous step's);
+      * the static tables equal the host's after each dispatch;
+      * each step's tokens are the sampler's on the eager logits, with the
+        rows' seeds and settings, and each live row's token is the one its
+        request delivered next.
+
+    Returns the number of steps checked and the quanta whose block growth
+    forced a request to finish."""
+    from llama_nuts_and_bolts_tpu_torch.ops.sampling import sample_tokens_batched
+
+    graph = cb._step_graph
+    bufs = graph.slot
+    steps, fed_rows, tables_equal, forced = [], [], [], []
+    advance, replay, sample, dispatch = (cb._advance_quantum, graph.replay, cb._sample,
+                                         cb._dispatch)
+
+    def advanced(k):
+        fed, epos, force = advance(k)
+        fed_rows.extend(fed.copy())
+        forced.append(any(any(f) for f in force))
+        return fed, epos, force
+
+    def replayed():
+        inputs = [None if t is None else t.clone() for t in (bufs.feed, bufs.pos, bufs.tables)]
+        replay()
+        steps.append({"inputs": inputs, "logits": bufs.logits.clone(),
+                      "eager": eager_step(*[None if t is None else t.clone() for t in inputs]),
+                      "slots": list(cb.slots), "fed": fed_rows[len(steps)]})
+
+    def sampled(logits, rows, positions):
+        out = sample(logits, rows, positions)
+        if logits is bufs.logits:
+            steps[-1].update(tok=out[0].clone(), rows=list(rows),
+                             settings=([cb._seed[r] for r in rows], cb._temp[rows].copy(),
+                                       cb._topk[rows].copy(), cb._topp[rows].copy()))
+        return out
+
+    def dispatched():
+        dispatch()
+        if bufs.tables is not None:
+            tables_equal.append(np.array_equal(bufs.tables.numpy(), cb.tables))
+
+    cb._advance_quantum, graph.replay, cb._sample, cb._dispatch = (advanced, replayed, sampled,
+                                                                   dispatched)
+
+    def check(streams):
+        assert steps and all(tables_equal) and (bufs.tables is None) == (not tables_equal)
+        for st in steps:
+            feed, pos, tables = st["inputs"]
+            assert torch.equal(st["logits"], st["eager"])
+            assert np.array_equal(pos.numpy(), st["fed"])
+            seeds, temp, topk, topp = st["settings"]
+            assert torch.equal(st["tok"], sample_tokens_batched(
+                st["eager"], seeds, st["fed"], temp, topk, topp))
+            for slot, req in enumerate(st["slots"]):
+                if req is None:
+                    continue
+                i = int(st["fed"][slot]) - len(req.prompt)
+                stream = streams[req.rid]
+                if i < len(stream):
+                    assert int(feed[slot, 0]) == stream[i], (slot, i)
+                if i + 1 < len(stream):
+                    assert int(st["tok"][slot]) == stream[i + 1], (slot, i)
+        return len(steps), sum(forced)
+
+    return check
+
+
+@pytest.mark.parametrize("quantum", [1, 2])
+def test_the_plain_step_runs_on_the_static_buffers(quantum):
+    """The dense batcher's step graph (its body on the CPU) against
+    ``forward`` called directly, over random weights, with requests joining
+    mid-flight and leaving, greedy and sampled rows mixed
+    (:func:`step_graph_checks`); no step is graphed on the CPU."""
+    cb = ContinuousBatcher(random_engine(), n_slots=3, step_quantum=quantum)
+    params, cfg, cache = cb.engine.model.params, cb.cfg, cb.cache
+
+    def eager(feed, positions, _tables):
+        return forward(params, cfg, feed, positions, cache,
+                       attn_impl=cb._decode_impl)[0][:, -1]
+
+    check = step_graph_checks(cb, eager)
+    reqs = [cb.submit(PROMPTS[1], max_new_tokens=30),
+            cb.submit(PROMPTS[0], max_new_tokens=6, temperature=1.2, seed=42)]
+    for _ in range(4):
+        cb.step()
+    reqs += [cb.submit(PROMPTS[3], max_new_tokens=20, temperature=0.9, top_k=40, seed=7),
+             cb.submit(PROMPTS[2], max_new_tokens=9)]
+    cb.run_until_idle()
+    streams = {r.rid: toks(drain(r)) for r in reqs}
+    assert [len(streams[r.rid]) for r in reqs] == [30, 6, 20, 9]
+    n, _ = check(streams)
+    assert n == cb.decode_steps and cb.graph_steps == 0

@@ -614,10 +614,15 @@ def test_k6_refuses_block_sizes_it_cannot_copy(cuda):
 # ------------------------------------------------------------ decode graphs
 
 
-def tiny_engine(device, fused=True, mesh=None, **args):
-    """A 2-layer model at the kernels' shape (head_dim 128, G = 4), random
-    bf16 weights in the fused layout (``fused=False``: the split one, which
-    a ``mesh`` takes, as this rank's shards), byte-level vocab of 512."""
+def tiny_engine(device, fused=True, mesh=None, cycle=0, kv_heads=1, **args):
+    """A 2-layer model at the kernels' shape (head_dim 128, G = 4; one KV
+    head, ``kv_heads`` for a mesh to cut), random bf16 weights in the fused
+    layout (``fused=False``: the split one, which a ``mesh`` takes, as this
+    rank's shards), byte-level vocab of 512.
+    ``cycle`` > 0 (split layout): the constructed-cyclic model, whose
+    greedy tokens walk ``0 .. cycle-1`` whatever the attention (``wo`` and
+    ``w_down`` zeroed, head rows that follow the cycle), so any two correct
+    runs give the same tokens."""
     from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
     from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel
     from llama_nuts_and_bolts_tpu_torch.models.llama.model import init_random_params
@@ -631,9 +636,17 @@ def tiny_engine(device, fused=True, mesh=None, **args):
         mergeable_ranks=ranks, special_tokens=special, bos_id=special["<|begin_of_text|>"],
         eos_id=special["<|end_of_text|>"],
         stop_token_ids=[special["<|eom_id|>"], special["<|eot_id|>"]]))
-    cfg = ModelArgs(dim=512, n_layers=2, n_heads=4, n_kv_heads=1, vocab_size=512,
-                    multiple_of=32, norm_eps=1e-5, max_sequence_length=512)
+    cfg = ModelArgs(dim=512 * kv_heads, n_layers=2, n_heads=4 * kv_heads, n_kv_heads=kv_heads,
+                    vocab_size=512, multiple_of=32, norm_eps=1e-5, max_sequence_length=512)
     params = init_random_params(cfg, seed=0, device=device, fused=fused)
+    if cycle:
+        import dataclasses
+
+        layers = dict(params.layers, wo=torch.zeros_like(params.layers["wo"]),
+                      w_down=torch.zeros_like(params.layers["w_down"]))
+        out = torch.zeros_like(params.output)
+        out[:cycle] = params.tok_embeddings[(torch.arange(cycle) - 1) % cycle]
+        params = dataclasses.replace(params, layers=layers, output=out)
     if mesh is not None:
         from llama_nuts_and_bolts_tpu_torch.parallel import shard_params
 
@@ -777,6 +790,162 @@ def test_batched_generation_replays_one_graph_at_two_rows(cuda):
     (graph,) = engine._chunk_fns.values()
     assert graph.slot.batch == 2 and graph.replays == 11
     assert flash_decode_attention.launches == L * (11 + 1)
+
+
+# ------------------------------------------------ the batchers' step graph
+
+
+def checked_replays(batcher):
+    """Wrap the batcher's step graph: after each replay, the eager step on
+    fresh copies of the static inputs; per replay, whether the logits are
+    bit-equal. And per dispatch, whether the static tables equal the
+    host's."""
+    import numpy as np
+
+    graph = batcher._step_graph
+    bufs, step = graph.slot, batcher._step_fn()
+    equal, tables = [], []
+    replay, dispatch = graph.replay, batcher._dispatch
+
+    def replayed():
+        replay()
+        ref = step(bufs.feed.clone(), bufs.pos.clone(), bufs.tables.clone())
+        equal.append(torch.equal(bufs.logits, ref))
+
+    def dispatched():
+        dispatch()
+        tables.append(np.array_equal(bufs.tables.cpu().numpy(), batcher.tables))
+
+    graph.replay, batcher._dispatch = replayed, dispatched
+    return equal, tables
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantum", [1, 2])
+def test_replayed_batcher_step_equals_the_eager_step(cuda, quantum):
+    """Every replay of the paged batcher's step graph (K6) against the
+    eager ``paged_decode_step`` on fresh copies of the same feed, positions
+    and tables: bit-equal logits over a run where requests join mid-flight,
+    leave and grow blocks across block boundaries; the static tables equal
+    the host's after each dispatch, and every step replays the graph."""
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+
+    b = PagedBatcher(tiny_engine(cuda, fused=False), n_slots=3, step_quantum=quantum)
+    assert b.attn_impl == "flash"
+    equal, tables = checked_replays(b)
+    reqs = [b.submit(PROMPT_IDS, max_new_tokens=50), b.submit([7, 8, 9], max_new_tokens=9)]
+    for _ in range(5):
+        b.step()
+    reqs += [b.submit(list(range(100, 131)), max_new_tokens=40),
+             b.submit([5] * 33, max_new_tokens=12)]
+    b.run_until_idle()
+    torch.cuda.synchronize()
+    assert [len(list(r.tokens(timeout=60))) for r in reqs] == [50, 9, 40, 12]
+    assert len(equal) == b.decode_steps > 40 and all(equal)
+    assert tables and all(tables)
+    assert b.graph_steps == b.decode_steps and b._step_graph.warmup_steps == 1
+
+
+@pytest.mark.gpu
+def test_the_batcher_captures_once_and_replays_k6_a_layer_a_step(cuda):
+    """One capture during the warm-up request (one ``engine.graph_capture``
+    span), none while serving after it; every plain step replays the graph,
+    and K6 runs once a layer for each replayed step."""
+    import time
+
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
+
+    b = PagedBatcher(tiny_engine(cuda, fused=False), n_slots=2)
+
+    def captures(t0):
+        return [sp for sp in SPANS.between(t0, time.perf_counter_ns() + 1)
+                if sp[0] == "engine.graph_capture"]
+
+    t0 = time.perf_counter_ns()
+    warm = b.submit(PROMPT_IDS, max_new_tokens=3)
+    b.run_until_idle()
+    assert len(list(warm.tokens(timeout=60))) == 3
+    torch.cuda.synchronize()
+    graph = b._step_graph.graph
+    assert graph is not None and len(captures(t0)) == 1
+    t1, steps0 = time.perf_counter_ns(), b.decode_steps
+    paged_flash_decode.launches = 0
+    reqs = [b.submit(PROMPT_IDS, max_new_tokens=30), b.submit([3, 4], max_new_tokens=17)]
+    b.run_until_idle()
+    torch.cuda.synchronize()
+    assert all(list(r.tokens(timeout=60)) for r in reqs)
+    assert not captures(t1) and b._step_graph.graph is graph
+    assert b._step_graph.warmup_steps == 1 and b.graph_steps == b.decode_steps
+    assert paged_flash_decode.launches == b.engine.model.cfg.n_layers * (
+        b.decode_steps - steps0) > 0
+
+
+@pytest.mark.gpu
+def test_a_failed_batcher_capture_raises_without_an_eager_fallback(cuda, monkeypatch):
+    """K6 refusing to be captured makes the batcher's first dispatch raise:
+    no decode step runs eagerly in the graph's place."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import paged as paged_mod
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+
+    k6 = paged_mod.tp_paged_flash_decode
+
+    def refuses_capture(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("planted: K6 refuses to be captured")
+        return k6(*args, **kwargs)
+
+    monkeypatch.setattr(paged_mod, "tp_paged_flash_decode", refuses_capture)
+    b = PagedBatcher(tiny_engine(cuda, fused=False), n_slots=2)
+    req = b.submit(PROMPT_IDS, max_new_tokens=8)
+    with pytest.raises(RuntimeError, match="planted"):
+        b.step()
+    assert b.decode_steps == b.graph_steps == 0 and req.out.empty()
+    assert not torch.cuda.is_current_stream_capturing()
+
+
+CYCLE = 7           # the cyclic model's cycle (tiny_engine's ``cycle``)
+TP_SCRIPT = [("submit", PROMPT_IDS, {"max_new_tokens": 30}),
+             ("submit", [3, 4, 5], {"max_new_tokens": 12}), ("step", 4),
+             ("submit", list(range(60, 100)), {"max_new_tokens": 25}), ("idle",)]
+
+
+@pytest.mark.gpu
+def test_tp2_batcher_replays_its_step_graph(cuda, tmp_path):
+    """Two NCCL ranks on two cards, each a paged batcher over its shards of
+    the cyclic model: each rank captures its step graph (the all-reduces and
+    the logits all-gather inside) once and replays it for every plain step,
+    and rank 0's streams equal one card's without a mesh (two KV heads, one
+    a rank)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import torch.multiprocessing as mp
+
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import free_port
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+    from tests.tp_workers import cuda_batcher_rank, run_script
+
+    b = PagedBatcher(tiny_engine(cuda, fused=False, cycle=CYCLE, kv_heads=2), n_slots=2)
+    want = run_script(b, TP_SCRIPT)
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=cuda_batcher_rank, args=(r, 2, port, str(tmp_path), "cuda"))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    errors = [e.read_text() for e in tmp_path.glob("*.err")]
+    assert not errors, errors[0]
+    assert [p.exitcode for p in procs] == [0, 0]
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    assert ranks[0]["streams"] == want
+    for r in ranks:
+        assert r["graph_steps"] == r["decode_steps"] == ranks[0]["decode_steps"] > 0
+        assert r["warmup_steps"] == 1
 
 
 def scripted_drafts(monkeypatch, pattern):
@@ -1119,7 +1288,10 @@ def test_paged_batcher_on_a_one_rank_nccl_mesh_runs_k6(cuda, one_rank_group, kv)
         reqs = [b.submit(PROMPT_IDS, max_new_tokens=12), b.submit([7, 8, 9], max_new_tokens=9)]
         b.run_until_idle()
         b.stop()
-        assert counter.launches - before == engine.model.cfg.n_layers * b.decode_steps
+        # every replayed step, and the step graph's one warm-up run
+        assert counter.launches - before == engine.model.cfg.n_layers * (
+            b.decode_steps + b._step_graph.warmup_steps)
+        assert b.graph_steps == b.decode_steps
         out.append([[t for _, t in r.tokens(timeout=60)] for r in reqs])
     assert out[0] == out[1]
 

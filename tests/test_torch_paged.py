@@ -618,6 +618,8 @@ def test_spans_and_counters_of_the_paged_batcher(speculate_k):
     counts = [sp[5] or {"rows": 0, "steps": 0} for sp in steps]
     assert cb.rows_stepped == sum(live) == sum(c["rows"] for c in counts)
     assert cb.decode_steps == sum(c["steps"] for c in counts)
+    # the CPU runs the step graph's body eagerly: no step is graphed
+    assert cb.graph_steps == 0 and all(c["graphed"] == 0 for c in counts if c["steps"])
     admits = {sp[3]: sp[5] for sp in spans if sp[0] == "batcher.admit"}
     for r, c, b, p in zip(reqs, cached, buckets, prompts):
         assert admits[r.rid] == {"prompt": len(p), "cached": c, "computed": len(p) - c,
@@ -645,3 +647,40 @@ def test_a_pool_starved_admission_stays_queued():
     assert cb.admission_stalls == len(stalled) > 0 and cb.admissions == 2
     queued = next(sp for sp in spans if sp[0] == "request.queued" and sp[3] == reqs[1].rid)
     assert queued[2] > max(sp[2] for sp in stalled)
+
+
+# ------------------------------------------------------------ step graph
+
+@pytest.mark.parametrize("quantum", [1, 2])
+def test_the_plain_paged_step_runs_on_the_static_buffers(quantum):
+    """The paged batcher's step graph (its body on the CPU) against
+    ``paged_decode_step`` called directly, over random weights
+    (tests/test_torch_continuous.py's ``step_graph_checks``): requests join
+    mid-flight and leave, greedy and sampled rows mix, rows grow blocks
+    across block boundaries, and a pool of 9 blocks runs dry, forcing a
+    request to finish; the static tables equal the host's after each
+    dispatch; no step is graphed on the CPU."""
+    from tests.test_torch_continuous import random_engine, step_graph_checks
+
+    cb = PagedBatcher(random_engine(), n_slots=3, n_blocks=10, block_size=BS,
+                      prefix_cache=False, step_quantum=quantum)
+    params, cfg, pool = cb.engine.model.params, cb.cfg, cb.pool
+
+    def eager(feed, positions, tables):
+        return paged.paged_decode_step(params, cfg, feed, positions, pool, tables,
+                                       cb.attn_impl)[0]
+
+    check = step_graph_checks(cb, eager)
+    reqs = [cb.submit(PROMPTS[1], max_new_tokens=40),
+            cb.submit(PROMPTS[0], max_new_tokens=6, temperature=1.2, seed=42)]
+    for _ in range(4):
+        cb.step()
+    reqs += [cb.submit(PROMPTS[3], max_new_tokens=30, temperature=0.9, top_k=40, seed=7),
+             cb.submit(PROMPTS[2], max_new_tokens=9)]
+    cb.run_until_idle()
+    streams = {r.rid: toks(drain(r)) for r in reqs}
+    n, forced = check(streams)
+    assert n == cb.decode_steps and cb.graph_steps == 0
+    short = [len(streams[r.rid]) < r.max_new_tokens for r in reqs]
+    assert forced > 0 and any(short)
+    assert cb.allocator.available == cb.allocator.n_blocks - 1

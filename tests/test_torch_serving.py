@@ -117,12 +117,13 @@ def test_prefix_cache_hits_on_a_shared_system_prompt(paged_server):
 
 
 def test_metrics_expose_the_batchers_counters(paged_server):
-    """Occupancy, prefill rows and padding, prefix-cache rows, admissions
-    and queue wait: /metrics reads the batcher's own counters, and a chat
-    with a shared system prompt moves them."""
+    """Occupancy, prefill rows and padding, prefix-cache rows, admissions,
+    queue wait and graphed steps (none on the CPU): /metrics reads the
+    batcher's own counters, and a chat with a shared system prompt moves
+    them."""
     srv, url = paged_server
     names = ("rows_stepped", "prefill_tokens", "prefill_padded_tokens",
-             "prefill_cached_tokens", "admissions", "admission_stalls")
+             "prefill_cached_tokens", "admissions", "admission_stalls", "graph_steps")
     before = get(url + "/metrics")
     post(url + "/v1/chat/completions", chat("first watch"))
     post(url + "/v1/chat/completions", chat("third watch"))
@@ -138,6 +139,7 @@ def test_metrics_expose_the_batchers_counters(paged_server):
     assert grew["rows_stepped"] >= metric(text, "llama_batch_decode_steps_total") \
         - metric(before, "llama_batch_decode_steps_total") > 0
     assert grew["prefill_tokens"] > 0 and grew["admission_stalls"] == 0
+    assert metric(text, "llama_batch_graph_steps_total") == 0
 
 
 def test_completions_logprobs_and_seeded_sampling(paged_server):

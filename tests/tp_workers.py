@@ -264,6 +264,41 @@ def run_script(b, script) -> List[list]:
     return [[(st.name, t) for st, t in r.tokens(timeout=30)] for r in reqs]
 
 
+def cuda_batcher_rank(rank: int, world: int, port: int, tmp: str,
+                      device: str = "cuda") -> None:
+    """One NCCL rank of ``test_torch_gpu.py``'s tp batcher test, on card
+    ``rank`` (a gloo rank with ``device="cpu"``, a rehearsal): a paged
+    batcher over this rank's shards of the cyclic tiny model with two KV
+    heads; rank 0 runs ``TP_SCRIPT`` and stops, the others follow. Saves
+    rank 0's streams and every rank's step counts to ``rank<r>.pt``, or
+    the failure to ``rank<r>.err``."""
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import rank_group
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+    from tests.test_torch_gpu import CYCLE, TP_SCRIPT, tiny_engine
+
+    out = Path(tmp)
+    try:
+        with rank_group(rank, world, port, device) as (dev, mesh, control):
+            b = PagedBatcher(tiny_engine(dev, fused=False, mesh=mesh, cycle=CYCLE, kv_heads=2),
+                             n_slots=2, control=control)
+            streams = None
+            if rank == 0:
+                streams = run_script(b, TP_SCRIPT)
+                b.stop()
+            else:
+                b.follow()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            torch.save({"streams": streams, "decode_steps": b.decode_steps,
+                        "graph_steps": b.graph_steps,
+                        "warmup_steps": b._step_graph.warmup_steps},
+                       out / f"rank{rank}.pt")
+            del b
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        os._exit(1)
+
+
 def _seq_server_job(mesh, payload):
     """The sequential server path on this rank's shards: rank 0 serves over
     HTTP on an ephemeral port -- a streamed request whose client goes away
