@@ -5,7 +5,23 @@ and metrics. Everything particular to one of them lives in a file of its
 own, found by its name:
 
   * a configuration: ``portbench/configs/<config>.json`` (the file
-    ``BENCHMARK.json`` names), in the port's ``params.json`` keys;
+    ``BENCHMARK.json`` names), in the keys its family reads; its
+    ``"family"`` names the model family, ``"llama"`` where it names none;
+  * a model family: ``portbench/families/<family>.py``, which gives
+
+      - ``dims(cfg)``: the shapes the harness and the family's readers
+        use, with at least ``vocab`` (the traffic draws its ids below it);
+      - ``make_weights(dims, seed, device)``: every weight, made from the
+        seed on the device, as one dict of tensors;
+      - ``Reference(weights, cfg, precision="fp32"|"fp8")``, whose
+        ``.logits(seqs, first_rows)`` gives float32 logits: the plain
+        reference that decides ``correct``, and (``"fp8"``) its control;
+        plain ``torch`` in a file that imports nothing of the port;
+      - ``program(weights, cfg_path, context, device, fused)``: the port's
+        ``LoadedModel`` over those weights, for the entries to serve;
+
+    a family's work counts live beside its own per-layer readers
+    (``portbench/yardstick.py`` holds the Llama block's);
   * a traffic mix: ``portbench/mixes/<traffic>.json``, read by the one
     generator (``portbench/traffic.py``); it names its entry, the program's
     object it drives: ``portbench/entries/<entry>.py``, whose ``ENTRY`` is
@@ -16,7 +32,12 @@ own, found by its name:
     nothing to read.
 
 A later change adds a cell, a configuration, a mix or a metric by adding
-files and entries; no file here changes.
+files and entries; no file here changes. A configuration of another
+architecture enters as added files too: its configuration file naming its
+``family``, ``portbench/families/<family>.py``, a mix that names an
+existing entry (or a new entry file), ``portbench/limits/<cell>.json``,
+the family's per-layer readers under ``portbench/metrics/``, and the
+cell's entries in ``BENCHMARK.json``, the one file that changes.
 """
 
 from __future__ import annotations
@@ -39,12 +60,27 @@ class Metric:
     moves: Optional[str] = None
 
 
+@dataclass(frozen=True)
+class Family:
+    """A model family's four parts (``portbench/families/<name>.py``)."""
+
+    name: str
+    dims: Callable
+    weights: Callable             # the family's ``make_weights``
+    Reference: type
+    program: Callable
+
+
+FAMILY_PARTS = ("dims", "make_weights", "Reference", "program")
+
+
 @dataclass
 class Cell:
     name: str
     chips: int
     config: Dict
     config_path: Path
+    family: Family
     mix: Dict
     limits: Dict
     end_to_end: List[Metric]
@@ -86,8 +122,9 @@ class Bench:
             if name in m.workloads:
                 layer.append(m)
         limits_path = self.bench_dir / "limits" / f"{name}.json"
-        return Cell(name=name, chips=w["chips"], config=json.loads(config_path.read_text()),
-                    config_path=config_path,
+        config = json.loads(config_path.read_text())
+        return Cell(name=name, chips=w["chips"], config=config, config_path=config_path,
+                    family=self.family(config.get("family", "llama")),
                     mix=json.loads((self.bench_dir / "mixes" / f"{w['traffic']}.json")
                                    .read_text()),
                     limits=json.loads(limits_path.read_text()),
@@ -108,3 +145,15 @@ class Bench:
     def entry(self, name: str) -> Callable:
         """The ``ENTRY`` class of ``portbench/entries/<name>.py``."""
         return self._load("entries", name).ENTRY
+
+    def family(self, name: str) -> Family:
+        """The model family of ``portbench/families/<name>.py``."""
+        path = self.bench_dir / "families" / f"{name}.py"
+        if not path.is_file():
+            raise FileNotFoundError(f"no model family {name!r}: {path} does not exist")
+        module = self._load("families", name)
+        missing = [p for p in FAMILY_PARTS if not hasattr(module, p)]
+        if missing:
+            raise AttributeError(f"the model family {name!r} ({path}) lacks {missing}")
+        return Family(name, module.dims, module.make_weights, module.Reference,
+                      module.program)

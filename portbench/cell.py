@@ -19,8 +19,7 @@ from portbench.endtoend import attempted, compute
 from portbench.stats import covered
 from portbench.trace import Stretch
 from portbench.traffic import generate
-from portbench.weights import checksum, make_weights
-from portbench.yardstick import Dims
+from portbench.weights import checksum
 
 # the gap a run reads when it finished no request to compare
 NOTHING_SERVED = 1e9
@@ -44,14 +43,16 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
     and the peak memory is read (the process's checks). ``control`` puts
     the control in the program's place for the comparison (calibration
     only): ``correct`` is then the control's verdict, and the program's
-    own gap is kept beside it as ``program_gap``."""
+    own gap is kept beside it as ``program_gap``. The cell's model family
+    gives its shapes, weights, program and reference."""
     cell = bench.cell(name)
-    dims = Dims.from_config(cell.config)
+    family = cell.family
+    dims = family.dims(cell.config)
     mix = cell.mix
     traffic = generate(mix, seed, seconds, dims.vocab)
-    weights = make_weights(dims, seed, device)
+    weights = family.weights(dims, seed, device)
     fingerprint = checksum(weights)
-    entry = bench.entry(mix["entry"])(mix, dims, cell.config_path, device)
+    entry = bench.entry(mix["entry"])(mix, family, dims, cell.config_path, device)
     entry.setup(weights, traffic)
     if entry.copies_weights:
         weights = None                   # made again for the reference
@@ -79,14 +80,15 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
     t_ref = time.perf_counter()
     reqs = correct.sample(rec.served, mix["sample"], seed)
     if weights is None:
-        weights = make_weights(dims, seed, device)
+        weights = family.weights(dims, seed, device)
         if checksum(weights) != fingerprint:
             raise RuntimeError("the weights made again from the seed differ")
     if reqs:
         if control:
-            gap, program_gap = correct.control_gap(weights, cell.config, reqs)
+            gap, program_gap = correct.control_gap(family.Reference, weights, cell.config,
+                                                   reqs)
         else:
-            gap = correct.served_gap(weights, cell.config, reqs)
+            gap = correct.served_gap(family.Reference, weights, cell.config, reqs)
     else:
         gap = program_gap = NOTHING_SERVED
     n_tok = sum(len(s.tokens) for s in reqs)

@@ -3,13 +3,14 @@ plain reference.
 
 Once the window has closed and the program's state is freed, a sample of
 the requests the program finished, drawn from the seed and always holding
-the longest, is run through the reference (``portbench/reference.py``)
-once: each prompt with its served tokens. At every served token the
-reference's float32 logits give the gap by which that token's logit lies
-below the reference's best; the widest gap over every compared token is
-held to the cell's limit (``portbench/limits/<cell>.json``). Greedy tokens
-on random weights part from the reference only at near ties, by about the
-bf16 path's rounding; a wrong cache row, position or token is far off.
+the longest, is run through the plain reference of the cell's model family
+(``Bench.family``; the Llama block's is ``reference.py`` here) once: each
+prompt with its served tokens. At every served token the reference's
+float32 logits give the gap by which that token's logit lies below the
+reference's best; the widest gap over every compared token is held to the
+cell's limit (``portbench/limits/<cell>.json``). Greedy tokens on random
+weights part from the reference only at near ties, by about the bf16
+path's rounding; a wrong cache row, position or token is far off.
 
 The control (``control_gap``) is the reference in float8 put in the
 program's place: at the same positions, the gap of the token that float8
@@ -24,7 +25,6 @@ import numpy as np
 import torch
 
 from portbench.record import Served
-from portbench.reference import Reference
 
 SAMPLE_SALT = 0x5EED
 
@@ -58,14 +58,15 @@ def _gaps(ref_rows: List[torch.Tensor], chosen: List[torch.Tensor]) -> float:
     return widest
 
 
-def served_gap(weights: Dict, cfg: Dict, reqs: Sequence[Served]) -> float:
-    """The widest gap of a served token below the reference's best."""
+def served_gap(Reference: type, weights: Dict, cfg: Dict, reqs: Sequence[Served]) -> float:
+    """The widest gap of a served token below ``Reference``'s best."""
     seqs, first = _sequences(reqs)
     ref = Reference(weights, cfg).logits(seqs, first)
     return _gaps(ref, [torch.tensor(s.tokens, dtype=torch.long) for s in reqs])
 
 
-def control_gap(weights: Dict, cfg: Dict, reqs: Sequence[Served]) -> Tuple[float, float]:
+def control_gap(Reference: type, weights: Dict, cfg: Dict,
+                reqs: Sequence[Served]) -> Tuple[float, float]:
     """The control's reading beside the program's on the same requests:
     (the widest gap of float8's first choice, the program's widest gap)."""
     seqs, first = _sequences(reqs)

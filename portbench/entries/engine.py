@@ -8,7 +8,7 @@ from __future__ import annotations
 import time
 from typing import List, Optional
 
-from portbench.entries import Entry, port_model, sync
+from portbench.entries import Entry, sync
 from portbench.record import Record, Served
 from portbench.trace import Stretch
 from portbench.traffic import Traffic
@@ -21,8 +21,8 @@ class EngineEntry(Entry):
         from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
 
         mix = self.mix
-        self.model = port_model(weights, self.cfg_path, mix["context"], self.device,
-                                fused=True)
+        self.model = self.family.program(weights, self.cfg_path, mix["context"],
+                                         self.device, fused=True)
         self.engine = InferenceEngine(
             self.model, InferenceArgs(sequence_length=mix["context"]), device=self.device)
         self._warm(traffic)

@@ -13,7 +13,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from portbench.entries import DRAIN_S, Entry, Stamped, port_model, sync
+from portbench.entries import DRAIN_S, Entry, Stamped, sync
 from portbench.record import Record, Served, Span
 from portbench.trace import Stretch
 from portbench.traffic import Traffic
@@ -26,8 +26,8 @@ class PagedEntry(Entry):
 
         self._in_progress = GenerationState.IN_PROGRESS
         mix = self.mix
-        self.model = port_model(weights, self.cfg_path, mix["context"], self.device,
-                                fused=False)
+        self.model = self.family.program(weights, self.cfg_path, mix["context"],
+                                         self.device, fused=False)
         self.engine = InferenceEngine(
             self.model, InferenceArgs(sequence_length=mix["context"]), device=self.device)
         self.new_batcher(traffic)

@@ -11,10 +11,9 @@ comes from the prefill.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from portbench import yardstick as ys
-from portbench.yardstick import Dims
 
 
 @dataclass
@@ -77,7 +76,7 @@ class Trace:
 @dataclass
 class Record:
     entry: str                       # "engine" or "paged_batcher"
-    dims: Dims
+    dims: Any                        # the cell's family's ``dims(cfg)``
     mix: Dict
     window: Tuple[float, float]
     served: List[Served]

@@ -37,8 +37,6 @@ def main(argv=None) -> int:
     from portbench.endtoend import compute
     from portbench.stats import percentile
     from portbench.traffic import generate
-    from portbench.weights import make_weights
-    from portbench.yardstick import Dims
 
     if not torch.cuda.is_available():
         print("sweep: no CUDA device", file=sys.stderr)
@@ -49,7 +47,8 @@ def main(argv=None) -> int:
     if cell.mix["entry"] != "paged_batcher":
         print("sweep: the cell's mix is not an open loop", file=sys.stderr)
         return 2
-    dims = Dims.from_config(cell.config)
+    family = cell.family
+    dims = family.dims(cell.config)
     rates = [float(r) for r in args.rates.split(",")]
     entry = None
     for rate in rates:
@@ -57,8 +56,8 @@ def main(argv=None) -> int:
         mix["arrivals"]["rate_per_s"] = rate
         traffic = generate(mix, args.seed, args.seconds, dims.vocab)
         if entry is None:
-            weights = make_weights(dims, args.seed, dev)
-            entry = bench.entry("paged_batcher")(mix, dims, cell.config_path, dev)
+            weights = family.weights(dims, args.seed, dev)
+            entry = bench.entry("paged_batcher")(mix, family, dims, cell.config_path, dev)
             entry.setup(weights, traffic)
         else:
             entry.mix = mix

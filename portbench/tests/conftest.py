@@ -5,10 +5,16 @@ tiny files, so that a run goes through every part of the harness on the
 CPU in seconds."""
 
 import json
+import os
 import shutil
+import time
 from pathlib import Path
 
 import pytest
+import torch
+
+from portbench.bench import Bench
+from portbench.cell import run_cell
 
 BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
@@ -44,11 +50,17 @@ TINY_MIXES = {
 TINY_LIMITS = {"logit_gap": {"limit": 0.05}, "tokens_compared": {"limit": 48}}
 
 
+def run(root, cell, trace=False, seed=2**31 + 5, seconds=2.0):
+    """One whole run of ``cell`` in the checkout at ``root``, on the CPU."""
+    return run_cell(Bench(root), cell, seed, seconds, trace, torch.device("cpu"),
+                    time.perf_counter())
+
+
 def make_root(tmp: Path) -> Path:
     """A checkout root with the real benchmark's data and three tiny cells."""
     root = tmp / "checkout"
     bench = root / "portbench"
-    for sub in ("configs", "mixes", "limits", "metrics", "entries"):
+    for sub in ("configs", "mixes", "limits", "metrics", "entries", "families"):
         shutil.copytree(BENCH / sub, bench / sub,
                         ignore=shutil.ignore_patterns("__pycache__"))
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -74,3 +86,15 @@ def make_root(tmp: Path) -> Path:
 @pytest.fixture
 def tiny_root(tmp_path):
     return make_root(tmp_path)
+
+
+@pytest.fixture(scope="session", autouse=True)
+def cores_shared_among_workers():
+    """Each of pytest-xdist's workers takes its share of the cores: with
+    every worker on all of them, the runs' windows (wall-clock seconds)
+    served a few tokens or none, and their checks failed."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(threads)

@@ -4,20 +4,12 @@ entry runs through its window and reports its metrics, and ``correct``
 holds on sound runs."""
 
 import json
-import time
 
 import pytest
-import torch
 
 from portbench.bench import Bench
-from portbench.cell import run_cell
-
-SEED = 2**31 + 5
-CPU = torch.device("cpu")
-
-
-def run(root, cell, trace=False, seed=SEED, seconds=2.0):
-    return run_cell(Bench(root), cell, seed, seconds, trace, CPU, time.perf_counter())
+from portbench.tests.conftest import run
+from portbench.tests.test_portbench_spans import CPU_READ, SPAN_METRICS
 
 
 def test_a_new_config_mix_entry_and_metric_are_found_by_name(tiny_root):
@@ -83,17 +75,14 @@ def test_a_sound_run_reports_its_metrics_and_is_correct(tiny_root, cell, e2e):
     json.dumps(r, allow_nan=False)
 
 
-@pytest.mark.parametrize("cell, expect", [
-    ("tiny.chat", {"decode_ms.chat", "step_mfu.chat", "prefill_mfu.chat", "idle_share.chat"}),
-    ("tiny.serve", {"step_ms.serve", "prefix_hit_share.serve", "step_mfu.serve",
-                    "step_idle_share.serve"}),
-])
-def test_a_traced_run_reports_what_the_cpu_can_read(tiny_root, cell, expect):
-    # the rooflines need the card's kernels: on the CPU their readers find
-    # nothing and the line leaves them out
+@pytest.mark.parametrize("cell", ["tiny.chat", "tiny.serve"])
+def test_a_traced_run_reports_what_the_cpu_can_read(tiny_root, cell):
+    # the rooflines need the card's kernels and graph_step_share the card's
+    # step graph: on the CPU their readers find nothing and the line leaves
+    # them out; every other reader, the program's spans' too, reads
     r = run(tiny_root, cell, trace=True)
     assert r["correct"] is True
-    assert set(r["metrics"]) == expect
+    assert set(r["metrics"]) == CPU_READ[cell] | SPAN_METRICS[cell]
     assert r["device"]["window_s"] > 0 and "breakdown" in r
 
 

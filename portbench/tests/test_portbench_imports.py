@@ -1,19 +1,23 @@
 """The benchmark measures the port alone: no module it runs imports JAX,
 Flax or the JAX package (top-level names compared whole, since the port's
-name begins with the JAX package's), and the plain reference imports
-nothing of the port either."""
+name begins with the JAX package's), and the plain reference, each model
+family's, imports nothing of the port either."""
 
 import ast
+import inspect
 import sys
+from pathlib import Path
 
 import pytest
 
 from portbench import run
-from portbench.tests.conftest import BENCH
+from portbench.bench import Bench
+from portbench.tests.conftest import BENCH, ROOT
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "llama_nuts_and_bolts_tpu")
 PORT = "llama_nuts_and_bolts_tpu_torch"
 SOURCES = sorted(p for p in BENCH.rglob("*.py") if "tests" not in p.parts)
+FAMILIES = sorted(p.stem for p in (BENCH / "families").glob("*.py"))
 
 
 def imported(path):
@@ -44,6 +48,13 @@ def test_no_harness_module_imports_jax(path):
 def test_the_reference_imports_nothing_of_the_program():
     for name in ("reference.py", "correct.py", "yardstick.py", "stats.py", "traffic.py"):
         assert PORT not in set(imported(BENCH / name)), name
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_a_familys_reference_imports_nothing_of_the_program(family):
+    source = Path(inspect.getsourcefile(Bench(ROOT).family(family).Reference))
+    assert source.is_relative_to(BENCH)
+    assert PORT not in set(imported(source)), source
 
 
 def test_the_names_are_compared_whole(monkeypatch):

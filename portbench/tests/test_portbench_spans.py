@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 
 from portbench.bench import Bench
-from portbench.tests.test_portbench_harness import run
+from portbench.tests.conftest import run
 
 SEED = 2**31 + 11
 SECONDS = 5.0            # whole requests in the window on a loaded CPU too
