@@ -423,6 +423,18 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
 
 
+def admission_launches(batcher, flash0: int = 0, admitted0: int = 0) -> dict:
+    """K1's launches a paged batcher's admissions made since it counted
+    ``flash0`` prefills on K1 and ``admitted0`` admissions: one a layer for
+    each prefill that attended on K1. On a card every admission of a batcher
+    on ``"flash"`` prefills on K1, which this checks."""
+    flash, admitted = batcher.prefill_flash - flash0, batcher.admissions - admitted0
+    want = admitted if batcher.attn_impl == "flash" else 0
+    if flash != want:
+        check_failed(f"{flash} of {admitted} admissions prefilled on K1, expected {want}")
+    return {"K1": batcher.cfg.n_layers * flash} if flash else {}
+
+
 def batcher_steps_run(batcher) -> int:
     """The batched plain decode steps the card ran: every dispatched one,
     and the one warm-up step of the batcher's step graph, which runs the
@@ -2277,6 +2289,7 @@ def serving_path(tk, vocab, int8: bool):
     clock.start()
     reset_counts()
     steps0, run0 = batcher.decode_steps, batcher_steps_run(batcher)
+    flash0, admitted0 = batcher.prefill_flash, batcher.admissions
     tokens0 = srv.metrics["tokens_generated_total"]
     t_start = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(reqs)) as pool:
@@ -2314,10 +2327,11 @@ def serving_path(tk, vocab, int8: bool):
     if hits < 1:
         fail(f"serving, {kind}: /metrics shows {hits} prefix-cache hits")
     tag = "K6i8" if int8 else "K6"
-    want = {tag: cfg.n_layers * ran}
+    want = {tag: cfg.n_layers * ran, **admission_launches(batcher, flash0, admitted0)}
     if {k: n for k, n in counts.items() if n} != want:
         check_failed(f"serving, {kind}: launches {counts} over {steps} batched decode "
-                     f"steps and {ran - steps} warm-up, expected {want}")
+                     f"steps and {ran - steps} warm-up and the admissions' prefills, "
+                     f"expected {want}")
     log(f"serving, {kind}: {len(reqs)} requests on {SERVE_SLOTS} slots in {wall:.2f}s, "
         f"{tokens} tokens, aggregate {tokens / wall:.2f} tok/s, {steps} batched decode "
         f"steps, launches { {k: n for k, n in counts.items() if n} } "
@@ -2959,8 +2973,8 @@ def spec_batchers(tk, vocab):
                                  f"sizes asked {sorted(set(asked))} (no clamping)")
             elif got != seq:
                 fail(f"{what}: {got}, sequential engine {seq}")
-            want = ({"K6": cfg.n_layers * batcher_steps_run(batcher)} if name != "dense"
-                    else {})
+            want = ({"K6": cfg.n_layers * batcher_steps_run(batcher),
+                     **admission_launches(batcher)} if name != "dense" else {})
             if {k: v for k, v in counts.items() if v} != {k: v for k, v in want.items() if v}:
                 check_failed(f"{what}: launches {counts}, expected {want}")
             stats = batcher.spec_stats_snapshot()
@@ -3045,6 +3059,7 @@ def spec_serving_path(tk, vocab):
     reset_counts()
     steps0, tokens0 = batcher.decode_steps, srv.metrics["tokens_generated_total"]
     run0 = batcher_steps_run(batcher)
+    flash0, admitted0 = batcher.prefill_flash, batcher.admissions
     before = batcher.spec_stats_snapshot()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(reqs)) as pool:
@@ -3080,9 +3095,12 @@ def spec_serving_path(tk, vocab):
     if not health or health.get("k") != SPEC_K or health.get("drafted") != drafted:
         check_failed(f"speculative serving: /health continuous.speculation {health}")
     ran = batcher_steps_run(batcher) - run0
-    if {k: n for k, n in counts.items() if n} != ({"K6": cfg.n_layers * ran} if ran else {}):
+    want = {**({"K6": cfg.n_layers * ran} if ran else {}),
+            **admission_launches(batcher, flash0, admitted0)}
+    if {k: n for k, n in counts.items() if n} != want:
         check_failed(f"speculative serving: launches {counts} over {steps} plain batched "
-                     f"steps and {ran - steps} warm-up, expected K6 {cfg.n_layers} x {ran}")
+                     f"steps and {ran - steps} warm-up and the admissions' prefills, "
+                     f"expected {want}")
     log(f"speculative serving: {len(reqs)} requests in {wall:.2f}s, {tokens} tokens, "
         f"aggregate {tokens / wall:.2f} tok/s, {batcher.verify_steps} batched verify steps, "
         f"{steps} plain steps (K6 {counts['K6']}); /metrics {metrics}; /health {health}")

@@ -18,6 +18,10 @@ slots x context.
   * Prefill never reads the pool: a fresh request's prompt attends its
     just-projected k/v with a causal mask. An int8 pool attends the rows
     quantized and dequantized, as the dense int8 cache's prefill does.
+    ``attn_impl="plain"`` runs the fp32 oracle (``ops/attention.py``);
+    ``"flash"`` runs K1 (``kernels/attention.py``, its tiled plain version
+    on the CPU) on the contiguous rows, from ``start_pos = shared_len`` over
+    the gathered prefix for a prefix-cache hit.
   * Decode attention: ``attn_impl="plain"`` gathers each row's blocks into a
     dense copy (the JAX package's ``"xla"`` oracle); ``"flash"`` (JAX's
     ``"pallas"``) runs K6 (``kernels/paged_attention.py``), which walks the
@@ -54,7 +58,10 @@ from llama_nuts_and_bolts_tpu_torch.models.llama.model import (
 )
 from llama_nuts_and_bolts_tpu_torch.models.llama.rope import apply_rope
 from llama_nuts_and_bolts_tpu_torch.ops import gqa_attention, linear, rms_norm, swiglu_act
-from llama_nuts_and_bolts_tpu_torch.parallel.kernel_shard import tp_paged_flash_decode
+from llama_nuts_and_bolts_tpu_torch.parallel.kernel_shard import (
+    tp_flash_gqa_attention,
+    tp_paged_flash_decode,
+)
 
 TRASH_BLOCK = 0
 DEFAULT_BLOCK_SIZE = 32
@@ -221,6 +228,15 @@ def _write_prompt_rows(pool: PagedKVPool, li: int, k, v, blocks):
     return _dequant(kq, ks), _dequant(vq, vs)
 
 
+def _prompt_attention(q, k, v, start_pos: int, mask, attn_impl: str, mesh):
+    """A prompt's attention: K1 from ``start_pos`` (on this rank's heads
+    under a mesh) for ``"flash"``, else the fp32 oracle under ``mask``."""
+    if attn_impl == "flash":
+        return tp_flash_gqa_attention(mesh, q.contiguous(), k.contiguous(), v.contiguous(),
+                                      start_pos)
+    return gqa_attention(q, k, v, mask)
+
+
 def paged_prefill(
     params: LlamaParams,
     cfg: ModelArgs,
@@ -229,10 +245,13 @@ def paged_prefill(
     pool: PagedKVPool,
     table_row: torch.Tensor,    # int32 [max_blocks]: this request's blocks
     mesh=None,                  # tensor-parallel DeviceMesh: params/pool are shards
+    attn_impl: str = "plain",   # "plain" | "flash"
 ) -> Tuple[torch.Tensor, PagedKVPool]:
     """Prefill a fresh request (positions 0..S-1) into its pool blocks.
     Never reads the pool. Returns (logits ``[1, vocab]`` at ``logits_at``,
-    the pool, written in place)."""
+    the pool, written in place). ``"flash"`` attends on K1 (on this rank's
+    heads under a mesh, ``tp_flash_gqa_attention``)."""
+    _check_impl(attn_impl)
     B, S = tokens.shape
     if B != 1:
         raise ValueError("paged_prefill handles one request at a time")
@@ -243,13 +262,14 @@ def paged_prefill(
                          f"block size {pool.block_size}")
     x = params.tok_embeddings[tokens.long()]
     cos, sin = params.rope_cos[:S], params.rope_sin[:S]
-    mask = _causal_mask(S, x.device)[None]
+    mask = _causal_mask(S, x.device)[None] if attn_impl == "plain" else None
     for li in range(cfg.n_layers):
         w = {name: t[li] for name, t in params.layers.items()}
         q, k, v = _project(x, w, cfg, cos, sin)
         k, v = _write_prompt_rows(pool, li, k.transpose(1, 2), v.transpose(1, 2),
                                   table_row)
-        x = _finish_block(x, gqa_attention(q, k, v, mask), w, cfg, mesh)
+        att = _prompt_attention(q, k, v, 0, mask, attn_impl, mesh)
+        x = _finish_block(x, att, w, cfg, mesh)
     return _logits_row(params, cfg, x, logits_at, mesh), pool
 
 
@@ -262,13 +282,18 @@ def paged_prefill_shared(
     pool: PagedKVPool,
     table_row: torch.Tensor,    # int32 [max_blocks]: shared + owned blocks
     mesh=None,                  # tensor-parallel DeviceMesh: params/pool are shards
+    attn_impl: str = "plain",   # "plain" | "flash"
 ) -> Tuple[torch.Tensor, PagedKVPool]:
     """Suffix-only prefill for a prefix-cache hit: the first ``shared_len``
     positions already live in the table row's first blocks (written by an
     earlier request with the same prefix). Only the suffix is projected; its
     rows land from block ``shared_len // bs`` on, and attention sees the
     gathered shared prefix (``t < shared_len``) plus the causal suffix.
-    Shared blocks are never written."""
+    Shared blocks are never written. ``"plain"`` gathers every table entry
+    and masks the slots past ``shared_len``; ``"flash"`` gathers only the
+    shared blocks and runs K1 from ``start_pos = shared_len`` over the
+    prefix followed by the suffix rows, the same keys and mask."""
+    _check_impl(attn_impl)
     B, S = tokens.shape
     if B != 1:
         raise ValueError("paged_prefill_shared handles one request at a time")
@@ -289,17 +314,22 @@ def paged_prefill_shared(
     padded = torch.cat([table_row, torch.full((M,), TRASH_BLOCK, dtype=table_row.dtype,
                                               device=dev)])
     chunk_blocks = padded[shared_len // bs:shared_len // bs + M]
-    # key axis = [M * bs pool slots] ++ [S suffix rows]
-    t_pool = torch.arange(M * bs, device=dev)[None, :].expand(S, M * bs)
-    prefix_mask = torch.where(t_pool < shared_len, 0.0, float("-inf"))
-    mask = torch.cat([prefix_mask, _causal_mask(S, dev)], dim=1).float()[None]
-    idx = table_row.long()
+    mask = None
+    if attn_impl == "flash":
+        # key axis = [shared_len prefix rows] ++ [S suffix rows]
+        idx = table_row[:shared_len // bs].long()
+    else:
+        # key axis = [M * bs pool slots] ++ [S suffix rows]
+        t_pool = torch.arange(M * bs, device=dev)[None, :].expand(S, M * bs)
+        prefix_mask = torch.where(t_pool < shared_len, 0.0, float("-inf"))
+        mask = torch.cat([prefix_mask, _causal_mask(S, dev)], dim=1).float()[None]
+        idx = table_row.long()
 
     def gather_prefix(buf, scale=None):
-        g = buf[idx]                                       # [M, KV, bs, D]
+        g = buf[idx]                                       # [n, KV, bs, D]
         if scale is not None:
             g = _dequant(g, scale[idx])
-        return g.transpose(0, 1).reshape(1, KV, M * bs, D)
+        return g.transpose(0, 1).reshape(1, KV, idx.shape[0] * bs, D)
 
     for li in range(cfg.n_layers):
         w = {name: t[li] for name, t in params.layers.items()}
@@ -311,7 +341,8 @@ def paged_prefill_shared(
             pv = gather_prefix(pool.v[li], pool.v_scale[li])
         else:
             pk, pv = gather_prefix(pool.k[li]), gather_prefix(pool.v[li])
-        att = gqa_attention(q, torch.cat([pk, k], dim=2), torch.cat([pv, v], dim=2), mask)
+        att = _prompt_attention(q, torch.cat([pk, k], dim=2), torch.cat([pv, v], dim=2),
+                                shared_len, mask, attn_impl, mesh)
         x = _finish_block(x, att, w, cfg, mesh)
     return _logits_row(params, cfg, x, logits_at, mesh), pool
 

@@ -105,10 +105,11 @@ attempt, under the request's id), ``batcher.prepare`` (block growth, the static
 inputs written), ``batcher.launch`` (the replays and samples, queued),
 ``batcher.readback`` (the host waits for the card) and ``batcher.deliver``
 (the emit loop); a step's ``graphed`` counts its decode steps replayed from
-a captured graph. The counters beside ``decode_steps`` (``graph_steps``,
+a captured graph, and an admission's ``flash`` whether its prefill attended
+on K1. The counters beside ``decode_steps`` (``graph_steps``,
 ``rows_stepped``, ``prefill_tokens``, ``prefill_padded_tokens``, ``prefill_cached_tokens``,
-``admissions``, ``admission_stalls``, ``queue_wait_s``) are the server's
-``/metrics``.
+``prefill_flash``, ``admissions``, ``admission_stalls``, ``queue_wait_s``) are the
+server's ``/metrics``.
 """
 
 from __future__ import annotations
@@ -336,6 +337,7 @@ class ContinuousBatcher:
         self.prefill_tokens = 0         # prompt rows computed by admissions
         self.prefill_padded_tokens = 0  # their buckets' padding rows
         self.prefill_cached_tokens = 0  # prompt rows the prefix cache gave
+        self.prefill_flash = 0          # admission prefills that attended on K1
         self.admissions = 0
         self.admission_stalls = 0       # admission attempts the pool turned back
         self.queue_wait_s = 0.0         # submit to admission, summed
@@ -450,14 +452,18 @@ class ContinuousBatcher:
             if not seated:
                 return
 
-    def _seated(self, req: Request, span, cached: int, computed: int, bucket: int) -> None:
+    def _seated(self, req: Request, span, cached: int, computed: int, bucket: int,
+                flash: bool = False) -> None:
         """Count an admission that seats ``req`` (its prefill computes
         ``computed`` prompt rows in a ``bucket``, after ``cached`` rows from
-        the prefix cache): its queue wait ends where the admission began."""
+        the prefix cache, attending on K1 when ``flash``): its queue wait
+        ends where the admission began."""
         req.t_admit = span.t0
         SPANS.add("request.queued", req.t_submit, span.t0, id=req.rid)
-        span.counts.update(cached=cached, computed=computed, padded=bucket - computed)
+        span.counts.update(cached=cached, computed=computed, padded=bucket - computed,
+                           flash=int(flash))
         self.admissions += 1
+        self.prefill_flash += int(flash)
         self.queue_wait_s += (span.t0 - req.t_submit) / 1e9
         self.prefill_tokens += computed
         self.prefill_padded_tokens += bucket - computed

@@ -37,6 +37,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from llama_nuts_and_bolts_tpu_torch.kernels.attention import HEAD_DIM
 from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import paged_kernel_takes
 from llama_nuts_and_bolts_tpu_torch.parallel.mesh import tp_size
 from llama_nuts_and_bolts_tpu_torch.models.llama.paged import (
@@ -118,12 +119,15 @@ class PagedBatcher(ContinuousBatcher):
     eagerly. The speculative verify step stays eager.
 
     ``n_blocks`` sizes the pool (default: every slot at full context);
-    ``attn_impl`` picks the decode attention: ``"flash"`` runs K6, which
-    streams only the blocks a row owns; ``"plain"`` gathers them (the oracle,
-    and the CPU's path). The default is :func:`default_attn_impl`: on a card
+    ``attn_impl`` picks the attention: ``"flash"`` runs K6 in the decode
+    step, which streams only the blocks a row owns, and K1 in the admission
+    prefill; ``"plain"`` gathers the blocks and prefills on the fp32 oracle
+    (the CPU's path). The default is :func:`default_attn_impl`: on a card
     a bf16 pool takes ``"flash"`` and an int8 pool ``"plain"`` unless the
-    engine forces one (``"flash"`` on an int8 pool runs K6's int8 mode); on
-    the CPU, ``"plain"``."""
+    engine forces one (``"flash"`` on an int8 pool runs K6's int8 mode, and
+    K1 on the prompt's dequantized rows); on the CPU, ``"plain"``. K1 takes
+    head_dim 128 only, where K6's plain version takes any width, so a CPU
+    batcher forced to ``"flash"`` on a narrower model prefills plainly."""
 
     def __init__(self, engine, n_slots: int = 8,
                  n_blocks: Optional[int] = None,
@@ -144,6 +148,7 @@ class PagedBatcher(ContinuousBatcher):
         self._init_common(engine, n_slots, speculate_k, step_quantum, control)
         kv_is_int8 = engine.args.kv_cache_dtype == "int8"
         self.attn_impl = attn_impl
+        self._prefill_impl = attn_impl if self.cfg.head_dim == HEAD_DIM else "plain"
         self.block_size = block_size
         self.max_blocks = math.ceil(self.seq_len / block_size)
         if n_blocks is None:
@@ -226,7 +231,8 @@ class PagedBatcher(ContinuousBatcher):
         suffix = req.prompt[shared_len:]
         bucket = prefill_bucket(len(suffix), self.seq_len)
         bucket = min(-(-bucket // bs) * bs, self.max_blocks * bs)
-        self._seated(req, span, shared_len, len(suffix), bucket)
+        impl = self._prefill_impl
+        self._seated(req, span, shared_len, len(suffix), bucket, flash=impl == "flash")
         padded = torch.zeros((1, bucket), dtype=torch.int32)
         padded[0, :len(suffix)] = torch.tensor(suffix, dtype=torch.int32)
         padded = padded.to(self.device)
@@ -236,10 +242,10 @@ class PagedBatcher(ContinuousBatcher):
         if shared:
             logits, _ = paged_prefill_shared(params, self.cfg, padded, shared_len,
                                              len(suffix) - 1, self.pool, table_row,
-                                             mesh=self.mesh)
+                                             mesh=self.mesh, attn_impl=impl)
         else:
             logits, _ = paged_prefill(params, self.cfg, padded, plen - 1, self.pool,
-                                      table_row, mesh=self.mesh)
+                                      table_row, mesh=self.mesh, attn_impl=impl)
         # the sampled token's global position: a cache hit never changes
         # a seeded stream
         first, lp = self._sample(logits, [slot], [plen - 1])

@@ -512,6 +512,9 @@ class LlamaHTTPServer:
                 f"llama_batch_prefill_padded_tokens_total {b.prefill_padded_tokens}",
                 "# TYPE llama_batch_prefill_cached_tokens_total counter",
                 f"llama_batch_prefill_cached_tokens_total {b.prefill_cached_tokens}",
+                # admission prefills whose attention ran on K1
+                "# TYPE llama_batch_prefill_flash_total counter",
+                f"llama_batch_prefill_flash_total {b.prefill_flash}",
                 "# TYPE llama_batch_admissions_total counter",
                 f"llama_batch_admissions_total {b.admissions}",
                 "# TYPE llama_batch_admission_stalls_total counter",

@@ -904,6 +904,171 @@ def test_a_failed_batcher_capture_raises_without_an_eager_fallback(cuda, monkeyp
     assert not torch.cuda.is_current_stream_capturing()
 
 
+# ------------------------------------------------- the paged prefill on K1
+
+# phi-3-medium's attention (40 / 10 heads, head_dim 128, rope_theta 1e4) on
+# two layers, ffn and vocabulary cut: the serve cell's prefill shapes
+PHI3_2L = dict(dim=5120, n_layers=2, n_heads=40, n_kv_heads=10, vocab_size=512,
+               multiple_of=256, norm_eps=1e-5, rope_theta=10000.0, max_sequence_length=2048)
+# K1 against the fp32 oracle, relative L2 of the logits row on 2 layers
+# (chip_smoke.py's LOGITS_REL_L2: the paths round p at different places)
+PREFILL_REL_L2 = 3e-2
+_PHI3: list = []
+
+
+def phi3_model(device):
+    from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
+    from llama_nuts_and_bolts_tpu_torch.models.llama.model import init_random_params
+
+    if not _PHI3:
+        cfg = ModelArgs(**PHI3_2L)
+        _PHI3.append((cfg, init_random_params(cfg, seed=22, device=device)))
+    return _PHI3[0]
+
+
+def rel_l2(got, ref):
+    return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+
+def phi3_prefills(device, tokens, n, shared=None, planted=False):
+    """``paged_prefill`` of ``tokens`` (``n`` real rows) on the plain path
+    and on K1 into fresh pools, or with ``shared`` (a resident prefix's
+    tokens) ``paged_prefill_shared`` of the suffix after it; ``planted``
+    runs K1 one pool block (32 positions) early, so each row misses its 32
+    latest keys. The logits rows, the pools and K1's launches."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import paged
+
+    cfg, params = phi3_model(device)
+    table = torch.arange(1, 65, dtype=torch.int32, device=device)
+    out = {}
+    for impl in ("plain", "flash"):
+        pool = paged.PagedKVPool.create(cfg, 65, 32, device=device)
+        if shared is not None:
+            paged.paged_prefill(params, cfg, shared, shared.shape[1] - 1, pool, table)
+        before = flash_gqa_attention.launches
+        k1 = paged.tp_flash_gqa_attention
+        if planted:
+            paged.tp_flash_gqa_attention = lambda m, q, k, v, p: k1(m, q, k, v, p - 32)
+        try:
+            if shared is None:
+                logits, _ = paged.paged_prefill(params, cfg, tokens, n - 1, pool, table,
+                                                attn_impl=impl)
+            else:
+                logits, _ = paged.paged_prefill_shared(params, cfg, tokens, shared.shape[1],
+                                                       n - 1, pool, table, attn_impl=impl)
+        finally:
+            paged.tp_flash_gqa_attention = k1
+        torch.cuda.synchronize()
+        out[impl] = (logits, pool, flash_gqa_attention.launches - before)
+    return out
+
+
+def prompt_ids(device, n, bucket, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.zeros((1, bucket), dtype=torch.int32, device=device)
+    tokens[0, :n] = torch.randint(0, 512, (n,), generator=gen, device=device)
+    return tokens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bucket", [32, 1024, 2048])
+def test_paged_prefill_on_k1_matches_plain_at_phi3_heads(cuda, bucket):
+    """A fresh prompt in a 32-, 1024- and 2048-row bucket at phi-3's heads:
+    K1 (one launch a layer, one key tile or sixteen) against the plain fp32
+    attention: the logits row within the limit, the first layer's pool rows
+    bit-equal (projected before any attention)."""
+    n = bucket - 5
+    runs = phi3_prefills(cuda, prompt_ids(cuda, n, bucket, bucket), n)
+    (want, want_pool, plain_k1), (got, got_pool, k1) = runs["plain"], runs["flash"]
+    cfg, _ = phi3_model(cuda)
+    assert (plain_k1, k1) == (0, cfg.n_layers)
+    assert rel_l2(got, want) <= PREFILL_REL_L2, rel_l2(got, want)
+    assert torch.equal(got_pool.k[0], want_pool.k[0])
+    assert torch.equal(got_pool.v[0], want_pool.v[0])
+
+
+@pytest.mark.gpu
+def test_paged_prefill_shared_on_k1_matches_plain_at_phi3_heads(cuda):
+    """A prefix-cache hit: 1024 resident prefix rows, a 512-row suffix
+    bucket (500 real rows); K1 from ``start_pos`` 1024 over the gathered
+    prefix and the suffix against the plain path's masked gather, and K1
+    started one block early, which must fail the limit."""
+    shared = prompt_ids(cuda, 1024, 1024, 7)
+    suffix = prompt_ids(cuda, 500, 512, 8)
+    runs = phi3_prefills(cuda, suffix, 500, shared=shared)
+    (want, _, _), (got, _, k1) = runs["plain"], runs["flash"]
+    cfg, _ = phi3_model(cuda)
+    assert k1 == cfg.n_layers
+    assert rel_l2(got, want) <= PREFILL_REL_L2, rel_l2(got, want)
+    late = phi3_prefills(cuda, suffix, 500, shared=shared, planted=True)["flash"][0]
+    assert rel_l2(late, want) > PREFILL_REL_L2, rel_l2(late, want)
+
+
+@pytest.mark.gpu
+def test_the_paged_batcher_prefills_on_k1(cuda):
+    """The paged batcher on a card (``auto``: K6 in the steps) runs each
+    admission's prefill on K1, one launch a layer, fresh prompts and a
+    prefix-cache hit alike, and counts it: ``flash`` on each seated
+    ``batcher.admit`` span, ``prefill_flash`` beside the admissions."""
+    import time
+
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
+
+    b = PagedBatcher(tiny_engine(cuda, fused=False), n_slots=2)
+    assert b.attn_impl == "flash"
+    t0, before = time.perf_counter_ns(), flash_gqa_attention.launches
+    reqs = [b.submit(PROMPT_IDS * 4, max_new_tokens=5)]
+    b.step()                                        # its blocks are resident
+    reqs += [b.submit(PROMPT_IDS * 4 + [3, 4, 5], max_new_tokens=5),
+             b.submit([7, 8, 9], max_new_tokens=5)]
+    b.run_until_idle()
+    torch.cuda.synchronize()
+    assert all(len(list(r.tokens(timeout=60))) == 5 for r in reqs)
+    admits = [sp[5] for sp in SPANS.between(t0, time.perf_counter_ns() + 1)
+              if sp[0] == "batcher.admit" and "computed" in sp[5]]
+    assert [c["flash"] for c in admits] == [1, 1, 1] and b.prefill_flash == 3
+    assert b.allocator.stats["prefix_hits"] == 2
+    assert flash_gqa_attention.launches - before == 3 * b.engine.model.cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_tp2_paged_prefill_runs_k1_on_a_ranks_heads(cuda, tmp_path):
+    """Two gloo ranks on the one card, each with its half of the heads (4
+    / 1 of 8 / 2): ``paged_prefill`` and ``paged_prefill_shared`` on K1
+    through ``tp_flash_gqa_attention`` against the whole model's plain
+    prefill, within the limit; K1 launched once a layer a call on each
+    rank."""
+    import torch.multiprocessing as mp
+
+    from llama_nuts_and_bolts_tpu_torch.models.llama import paged
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import free_port
+    from tests.tp_workers import cuda_shared_prefill_rank, tp_prefill_case, tp_prefills
+
+    cfg, params, prompt, suffix, table = tp_prefill_case(cuda)
+    want = tp_prefills(params, cfg, paged.PagedKVPool.create(cfg, 17, 32, device=cuda),
+                       prompt, suffix, table)
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=cuda_shared_prefill_rank, args=(r, 2, port, str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    errors = [e.read_text() for e in tmp_path.glob("*.err")]
+    assert not errors, errors[0]
+    assert [p.exitcode for p in procs] == [0, 0]
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert got["launches"] == 2 * cfg.n_layers
+        for g, w in zip(got["logits"], want):
+            assert rel_l2(g.to(cuda), w) <= PREFILL_REL_L2, rel_l2(g.to(cuda), w)
+
+
 CYCLE = 7           # the cyclic model's cycle (tiny_engine's ``cycle``)
 TP_SCRIPT = [("submit", PROMPT_IDS, {"max_new_tokens": 30}),
              ("submit", [3, 4, 5], {"max_new_tokens": 12}), ("step", 4),

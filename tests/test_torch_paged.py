@@ -9,7 +9,10 @@
   * ``PagedBatcher`` against the port's sequential engine on the
     constructed-cyclic model (tests/test_torch_continuous.py): exact streams
     through the prefix cache, pool starvation, cancellation, quanta, an int8
-    pool and K6's path."""
+    pool and K6's path;
+  * the admission prefill on K1 (``attn_impl="flash"``, its tiled plain
+    version on the CPU) against the plain path at head_dim 128, in the
+    model functions and through a batcher."""
 
 import time
 import types
@@ -460,6 +463,10 @@ def test_paged_refusals(weights):
         paged.paged_decode_step(params, CFG, torch.zeros((1, 1), dtype=torch.int32),
                                 torch.zeros(1, dtype=torch.int32), pool,
                                 torch.zeros((1, 4), dtype=torch.int32), "pallas")
+    for fn, args in ((paged.paged_prefill, (3,)), (paged.paged_prefill_shared, (8, 3))):
+        with pytest.raises(ValueError, match="attn_impl"):
+            fn(params, CFG, torch.zeros((1, 8), dtype=torch.int32), *args, pool,
+               torch.zeros(4, dtype=torch.int32), attn_impl="pallas")
     with pytest.raises(ValueError, match="trash"):
         paged.PagedKVPool.create(CFG, 1, BS, device="cpu")
 
@@ -623,7 +630,7 @@ def test_spans_and_counters_of_the_paged_batcher(speculate_k):
     admits = {sp[3]: sp[5] for sp in spans if sp[0] == "batcher.admit"}
     for r, c, b, p in zip(reqs, cached, buckets, prompts):
         assert admits[r.rid] == {"prompt": len(p), "cached": c, "computed": len(p) - c,
-                                 "padded": b - len(p) + c}
+                                 "padded": b - len(p) + c, "flash": 0}
     assert cb.admissions == 4 and cb.admission_stalls == 0
 
 
@@ -684,3 +691,176 @@ def test_the_plain_paged_step_runs_on_the_static_buffers(quantum):
     short = [len(streams[r.rid]) < r.max_new_tokens for r in reqs]
     assert forced > 0 and any(short)
     assert cb.allocator.available == cb.allocator.n_blocks - 1
+
+
+# ------------------------------------------------ the admission prefill on K1
+
+# head_dim 128 and G = 4: the shape K1 takes
+K1_SPEC = dict(dim=512, n_layers=2, n_heads=4, n_kv_heads=1, vocab_size=512,
+               multiple_of=32, norm_eps=1e-5, max_sequence_length=256)
+K1_BS = 32
+K1_TABLE = [3, 7, 2, 9, 11, 4, 5, 6]
+
+
+@pytest.fixture(scope="module")
+def k1_model():
+    from llama_nuts_and_bolts_tpu_torch.models.llama import init_random_params
+
+    cfg = ModelArgs(**K1_SPEC)
+    return cfg, init_random_params(cfg, seed=5, device="cpu")
+
+
+def k1_pool(cfg, kv):
+    return paged.PagedKVPool.create(cfg, 12, K1_BS, torch.int8 if kv == "int8" else
+                                    torch.bfloat16, device="cpu")
+
+
+def assert_prefill_paths_agree(got, want, pool_got, pool_want):
+    """Logits within the bf16 drift bar the K1-versus-plain model tests use
+    (tests/test_torch_model.py); layer 0 of the pool bit-equal (its rows are
+    projected before any attention), the later layers' rows within the same
+    bar (they follow the earlier layers' attention), nothing else written."""
+    compare_tensor(got.numpy(), want.numpy(), "bfloat16", tolerance_multiplier=5.0)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        a, b = getattr(pool_got, name), getattr(pool_want, name)
+        if a is None:
+            continue
+        assert torch.equal(a[0], b[0]), name
+        written = [t.reshape(t.shape[0], t.shape[1], -1).ne(0).any(-1) for t in (a, b)]
+        assert torch.equal(*written), name
+    for name in ("k", "v"):
+        compare_tensor(pool_values(pool_got, name, port_np), pool_values(pool_want, name, port_np),
+                       "bfloat16", tolerance_multiplier=5.0)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("bucket", [32, 64, 256])
+def test_paged_prefill_on_k1_matches_plain(k1_model, bucket, kv):
+    """A fresh prompt of ``bucket - 3`` tokens padded to its bucket: K1 from
+    position 0 over the bucket's rows (an int8 pool's dequantized ones)
+    against the fp32 oracle, one key tile or several."""
+    cfg, params = k1_model
+    n = bucket - 3
+    tokens = torch.zeros((1, bucket), dtype=torch.int32)
+    tokens[0, :n] = torch.from_numpy(np.random.default_rng(bucket).integers(0, 512, n))
+    table = torch.tensor(K1_TABLE, dtype=torch.int32)
+    want_pool, got_pool = k1_pool(cfg, kv), k1_pool(cfg, kv)
+    want, _ = paged.paged_prefill(params, cfg, tokens, n - 1, want_pool, table)
+    got, _ = paged.paged_prefill(params, cfg, tokens, n - 1, got_pool, table,
+                                 attn_impl="flash")
+    assert_prefill_paths_agree(got, want, got_pool, want_pool)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_prefill_shared_on_k1_matches_plain(k1_model, kv):
+    """A prefix-cache hit: a 64-key prefix resident in the table row's first
+    two blocks, a 64-row suffix bucket (60 real rows). K1 from ``start_pos``
+    64 over the gathered prefix and the suffix against the oracle's masked
+    gather of every table entry, and against K1's prefill of the whole
+    prompt (a hit changes the summation order only)."""
+    cfg, params = k1_model
+    rng = np.random.default_rng(64)
+    prefix = torch.from_numpy(rng.integers(0, 512, (1, 64)).astype(np.int32))
+    suffix = torch.zeros((1, 64), dtype=torch.int32)
+    suffix[0, :60] = torch.from_numpy(rng.integers(0, 512, 60).astype(np.int32))
+    table = torch.tensor(K1_TABLE, dtype=torch.int32)
+    want_pool = k1_pool(cfg, kv)
+    paged.paged_prefill(params, cfg, prefix, 63, want_pool, table)
+    got_pool = paged.PagedKVPool(*(x.clone() for x in want_pool.buffers()))
+    want, _ = paged.paged_prefill_shared(params, cfg, suffix, 64, 59, want_pool, table)
+    got, _ = paged.paged_prefill_shared(params, cfg, suffix, 64, 59, got_pool, table,
+                                        attn_impl="flash")
+    assert_prefill_paths_agree(got, want, got_pool, want_pool)
+    whole = torch.zeros((1, 128), dtype=torch.int32)
+    whole[0, :124] = torch.cat([prefix, suffix[:, :60]], dim=1)
+    fresh, _ = paged.paged_prefill(params, cfg, whole, 123, k1_pool(cfg, kv), table,
+                                   attn_impl="flash")
+    compare_tensor(got.numpy(), fresh.numpy(), "bfloat16", tolerance_multiplier=5.0)
+
+
+def k1_engine():
+    from llama_nuts_and_bolts_tpu_torch.models.llama import init_random_params
+    from llama_nuts_and_bolts_tpu_torch.models.llama.loader import LoadedModel
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from tests.test_torch_engine import tokenizers
+
+    ranks, vocab, _ = tokenizers()
+    vocab.stop_token_ids.clear()                     # requests run to their caps
+    cfg = ModelArgs(**K1_SPEC)
+    model = LoadedModel(params=init_random_params(cfg, seed=9, device="cpu"), cfg=cfg,
+                        vocab=vocab, mergeable_ranks=ranks, tensor_meta={})
+    return InferenceEngine(model, InferenceArgs(sequence_length=256), device="cpu")
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_a_batcher_forced_to_flash_prefills_on_k1(kv):
+    """Random weights at head_dim 128, where attention decides the tokens:
+    a batcher forced to ``"flash"`` (K1 in the admissions, K6 in the steps)
+    streams the greedy tokens of one on ``"plain"``, through fresh prompts
+    and prefix-cache hits on a 70-token system prompt; each seated
+    admission's ``batcher.admit`` span counts ``flash``, and
+    ``prefill_flash`` counts them."""
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
+
+    rng = np.random.default_rng(70)
+    system = rng.integers(0, 256, 70).tolist()
+    prompts = [system + [1, 2], system + rng.integers(0, 256, 40).tolist(),
+               rng.integers(0, 256, 100).tolist(), [5, 6, 7]]
+    engine = k1_engine()
+    if kv == "int8":
+        engine.args.kv_cache_dtype = "int8"
+    streams, counts = {}, {}
+    for impl in ("plain", "flash"):
+        cb = PagedBatcher(engine, n_slots=2, block_size=K1_BS, attn_impl=impl)
+        assert cb.pool.quantized == (kv == "int8")
+        t0 = time.perf_counter_ns()
+        first = cb.submit(prompts[0], max_new_tokens=6)
+        cb.step()                                   # the system prompt is resident
+        reqs = [first] + [cb.submit(p, max_new_tokens=8) for p in prompts[1:]]
+        cb.run_until_idle()
+        streams[impl] = [toks(drain(r)) for r in reqs]
+        admits = {sp[3]: sp[5] for sp in SPANS.between(t0, time.perf_counter_ns() + 1)
+                  if sp[0] == "batcher.admit"}
+        counts[impl] = [admits[r.rid]["flash"] for r in reqs]
+        assert cb.prefill_flash == sum(counts[impl]) and cb.admissions == len(reqs)
+        assert cb.allocator.stats["prefix_hits"] == 2    # the second's two blocks
+    assert streams["flash"] == streams["plain"]
+    assert all(len(s) in (6, 8) for s in streams["flash"])
+    assert counts == {"plain": [0] * 4, "flash": [1] * 4}
+
+
+def test_a_narrower_model_forced_to_flash_prefills_plainly():
+    """K1 takes head_dim 128 only: on the tests' head_dim-16 model a batcher
+    forced to ``"flash"`` runs K6's plain version in its steps and the plain
+    prefill, and its admissions count no ``flash``."""
+    cb = make_paged(attn_impl="flash")
+    req = cb.submit(PROMPTS[1], max_new_tokens=4)
+    cb.run_until_idle()
+    assert toks(drain(req)) == toks(sequential(cb.engine, PROMPTS[1], 4))
+    assert cb.attn_impl == "flash" and cb.prefill_flash == 0 and cb.admissions == 1
+
+
+def test_tp2_paged_prefill_on_k1_matches_the_whole_model():
+    """Two gloo ranks, each with half the heads (4 / 1 of 8 / 2):
+    ``paged_prefill`` and a prefix-cache hit's ``paged_prefill_shared`` on
+    K1 through ``tp_flash_gqa_attention`` (its plain version) against the
+    whole model's plain prefill (``tests/tp_workers.py``'s tp prefill case,
+    the card test's)."""
+    import tempfile
+    from pathlib import Path
+
+    from tests.tp_workers import TP_PREFILL, TP_SHARED, spawn, tp_prefill_case, tp_prefills
+
+    cfg, params, prompt, suffix, table = tp_prefill_case("cpu")
+    want = tp_prefills(params, cfg, paged.PagedKVPool.create(cfg, 17, 32, device="cpu"),
+                       prompt, suffix, table)
+    calls = [("prefill", dict(tokens=prompt, logits_at=TP_PREFILL - 1, table_row=table,
+                              attn_impl="flash")),
+             ("shared", dict(tokens=suffix, shared_len=TP_SHARED, logits_at=suffix.shape[1] - 4,
+                             table_row=table, attn_impl="flash"))]
+    case = dict(params=params, cfg=cfg, n_blocks=17, bs=32, dtype=torch.bfloat16, calls=calls)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn({"paged": {"k1": case}}, 2, Path(tmp))
+    for r in ranks:
+        for got, w in zip(r["paged"]["k1"], want):
+            compare_tensor(got.numpy(), w.numpy(), "bfloat16", tolerance_multiplier=5.0)

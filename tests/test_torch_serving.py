@@ -118,12 +118,13 @@ def test_prefix_cache_hits_on_a_shared_system_prompt(paged_server):
 
 def test_metrics_expose_the_batchers_counters(paged_server):
     """Occupancy, prefill rows and padding, prefix-cache rows, admissions,
-    queue wait and graphed steps (none on the CPU): /metrics reads the
-    batcher's own counters, and a chat with a shared system prompt moves
-    them."""
+    queue wait, graphed steps and prefills on K1 (none of either on the
+    CPU): /metrics reads the batcher's own counters, and a chat with a
+    shared system prompt moves them."""
     srv, url = paged_server
     names = ("rows_stepped", "prefill_tokens", "prefill_padded_tokens",
-             "prefill_cached_tokens", "admissions", "admission_stalls", "graph_steps")
+             "prefill_cached_tokens", "admissions", "admission_stalls", "graph_steps",
+             "prefill_flash")
     before = get(url + "/metrics")
     post(url + "/v1/chat/completions", chat("first watch"))
     post(url + "/v1/chat/completions", chat("third watch"))
@@ -140,6 +141,7 @@ def test_metrics_expose_the_batchers_counters(paged_server):
         - metric(before, "llama_batch_decode_steps_total") > 0
     assert grew["prefill_tokens"] > 0 and grew["admission_stalls"] == 0
     assert metric(text, "llama_batch_graph_steps_total") == 0
+    assert metric(text, "llama_batch_prefill_flash_total") == 0
 
 
 def test_completions_logprobs_and_seeded_sampling(paged_server):

@@ -299,6 +299,80 @@ def cuda_batcher_rank(rank: int, world: int, port: int, tmp: str,
         os._exit(1)
 
 
+TP_PREFILL, TP_SHARED = 200, 128    # real rows of the 256-row bucket; the hit's prefix
+
+
+def tp_prefill_case(device):
+    """``test_torch_gpu.py``'s tp prefill case: a 2-layer model at the
+    kernels' shape with two KV heads (8 / 2 heads, head_dim 128, random
+    bf16 weights, split layout), a 256-row bucket of 200 real rows, a 64-row
+    suffix bucket that hits the prompt's first 128 rows, and the table row
+    of both: ``(cfg, params, prompt, suffix, table)``."""
+    from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
+    from llama_nuts_and_bolts_tpu_torch.models.llama.model import init_random_params
+
+    cfg = ModelArgs(dim=1024, n_layers=2, n_heads=8, n_kv_heads=2, vocab_size=512,
+                    multiple_of=32, norm_eps=1e-5, max_sequence_length=512)
+    gen = torch.Generator(device="cpu").manual_seed(256)
+    prompt = torch.zeros((1, 256), dtype=torch.int32)
+    prompt[0, :TP_PREFILL] = torch.randint(0, 512, (TP_PREFILL,), generator=gen)
+    suffix = torch.randint(0, 512, (1, 64), generator=gen, dtype=torch.int32)
+    table = torch.arange(1, 17, dtype=torch.int32)
+    return (cfg, init_random_params(cfg, seed=0, device=device), prompt.to(device),
+            suffix.to(device), table.to(device))
+
+
+def tp_prefills(params, cfg, pool, prompt, suffix, table, mesh=None, attn_impl="plain"):
+    """The tp prefill case's two calls in turn: ``paged_prefill`` of the
+    prompt, then ``paged_prefill_shared`` of the suffix after its first
+    ``TP_SHARED`` rows; their logits rows."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import paged
+
+    kw = dict(mesh=mesh, attn_impl=attn_impl)
+    return [paged.paged_prefill(params, cfg, prompt, TP_PREFILL - 1, pool, table, **kw)[0],
+            paged.paged_prefill_shared(params, cfg, suffix, TP_SHARED, suffix.shape[1] - 4,
+                                       pool, table, **kw)[0]]
+
+
+def cuda_shared_prefill_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """One gloo rank of ``test_torch_gpu.py``'s tp prefill test, on card 0
+    beside the others (no engine: it refuses gloo on a card): this rank's
+    shards of :func:`tp_prefill_case`'s model and of a pool, its two calls
+    on K1. Saves the logits rows and K1's launches to ``rank<r>.pt``, or
+    the failure to ``rank<r>.err``."""
+    from llama_nuts_and_bolts_tpu_torch.kernels.attention import flash_gqa_attention
+    from llama_nuts_and_bolts_tpu_torch.models.llama import paged
+    from llama_nuts_and_bolts_tpu_torch.parallel import (
+        initialize_multihost,
+        make_mesh,
+        shard_params,
+        shard_pool,
+    )
+    from llama_nuts_and_bolts_tpu_torch.parallel.launch import leave_group
+
+    out = Path(tmp)
+    try:
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+        try:
+            mesh = make_mesh(tp=world)
+            cfg, params, prompt, suffix, table = tp_prefill_case(device)
+            pool = shard_pool(paged.PagedKVPool.create(cfg, 17, 32, device=device), mesh)
+            before = flash_gqa_attention.launches
+            logits = tp_prefills(shard_params(params, mesh), cfg, pool, prompt, suffix, table,
+                                 mesh=mesh, attn_impl="flash")
+            torch.cuda.synchronize()
+            torch.save({"logits": [x.cpu() for x in logits],
+                        "launches": flash_gqa_attention.launches - before},
+                       out / f"rank{rank}.pt")
+        finally:
+            leave_group()
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        os._exit(1)
+
+
 def _seq_server_job(mesh, payload):
     """The sequential server path on this rank's shards: rank 0 serves over
     HTTP on an ephemeral port -- a streamed request whose client goes away
