@@ -487,7 +487,7 @@ def check_kernels():
 def int8_cache(shape, gen):
     """A random int8 cache written as the model writes it: rows quantized
     per (position, head), bf16 scales."""
-    from llama_nuts_and_bolts_tpu_torch.models.llama.model import quantize_kv_rows
+    from llama_nuts_and_bolts_tpu_torch.ops import quantize_kv_rows
 
     return quantize_kv_rows(torch.randn(shape, generator=gen, device="cuda"))
 

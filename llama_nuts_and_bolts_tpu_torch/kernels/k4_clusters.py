@@ -49,7 +49,7 @@ from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
     k4_cluster_takes,
 )
 from llama_nuts_and_bolts_tpu_torch.kernels.k2_breakdown import cycled_ms
-from llama_nuts_and_bolts_tpu_torch.models.llama.model import quantize_kv_rows
+from llama_nuts_and_bolts_tpu_torch.ops import quantize_kv_rows
 
 H, KV, D = 32, 8, 128
 SHAPES = {"A": (256, 103), "B": (4096, 3000)}     # (T, position), B = 1

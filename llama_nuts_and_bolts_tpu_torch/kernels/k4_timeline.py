@@ -35,7 +35,7 @@ from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
     decode_block_k,
     k4_cluster,
 )
-from llama_nuts_and_bolts_tpu_torch.models.llama.model import quantize_kv_rows
+from llama_nuts_and_bolts_tpu_torch.ops import quantize_kv_rows
 
 H, KV, D = 32, 8, 128
 SLOTS = 32                                   # stamps a rank, in the copy's buffer

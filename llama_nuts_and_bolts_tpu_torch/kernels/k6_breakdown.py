@@ -38,7 +38,7 @@ from llama_nuts_and_bolts_tpu_torch.kernels import paged_attention as pa
 from llama_nuts_and_bolts_tpu_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, nvcc
 from llama_nuts_and_bolts_tpu_torch.kernels.k2_breakdown import cycled_ms
 from llama_nuts_and_bolts_tpu_torch.kernels.k6_splits import BS, D, H, KV, L, M, N_BLOCKS, SHAPES
-from llama_nuts_and_bolts_tpu_torch.models.llama.model import quantize_kv_rows
+from llama_nuts_and_bolts_tpu_torch.ops import quantize_kv_rows
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 # (text of csrc/paged_attention.cu, its replacement) per stripped build

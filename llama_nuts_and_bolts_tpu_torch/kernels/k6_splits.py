@@ -49,7 +49,7 @@ from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
     paged_flash_decode_plain,
     paged_split,
 )
-from llama_nuts_and_bolts_tpu_torch.models.llama.model import quantize_kv_rows
+from llama_nuts_and_bolts_tpu_torch.ops import quantize_kv_rows
 
 H, KV, D, BS = 32, 8, 128, 32
 L, N_BLOCKS, M = 32, 257, 64          # the server smoke's pool: 1 trash + 4 x 64 blocks

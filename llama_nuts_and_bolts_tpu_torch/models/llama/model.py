@@ -10,13 +10,18 @@ Port of ``llama_nuts_and_bolts_tpu/models/llama/model.py``:
     takes the place of the JAX package's donated scan carry, so a step's
     cache traffic is the S new rows, never a copy of the buffer;
   * the cache is bf16, or int8 with a bf16 scale per (position, head)
-    (``quantize_kv_rows``), quantized once as it is written;
+    (``ops.quantize_kv_rows``), quantized once as it is written;
   * cache slot ``t`` is visible to query row ``s`` iff ``t <= start_pos + s``;
     ``start_pos`` may be an int32 ``[B]`` tensor, every batch row at its own
     position (continuous batching): RoPE rows gathered per row, a per-row
     mask, and the cache written at per-row offsets, in place;
   * bf16 activations, fp32 accumulation, fp32 norm statistics and softmax,
-    fp32 logits.
+    fp32 logits;
+  * :func:`decoder_block` is the port's one transformer layer: what a cache
+    decides -- where a layer's new K/V rows go and which attention reads
+    them -- is the forward's attention object, ``BlockInputs.attend``
+    (:class:`_DenseAttention` here, the paged pool's in ``paged.py``), and
+    :func:`run_blocks` the one loop over the layers.
 
 ``attn_impl="plain"`` (the JAX ``"xla"`` path) runs ``ops.gqa_attention``
 with the additive mask, on the dequantized layer for an int8 cache.
@@ -63,12 +68,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from llama_nuts_and_bolts_tpu_torch.device import exact_div, resolve_device
+from llama_nuts_and_bolts_tpu_torch.device import resolve_device
 from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
 from llama_nuts_and_bolts_tpu_torch.kernels.attention import flash_gqa_attention
 from llama_nuts_and_bolts_tpu_torch.kernels.decode_attention import (
@@ -81,9 +86,11 @@ from llama_nuts_and_bolts_tpu_torch.models.llama.rope import (
 from llama_nuts_and_bolts_tpu_torch.ops import (
     attention_mask,
     attention_mask_per_row,
+    dequantize_kv_rows,
     gqa_attention,
     linear,
     linear_t,
+    quantize_kv_rows,
     rms_norm,
     swiglu_act,
 )
@@ -182,39 +189,83 @@ class KVCache:
         return self.k.dtype == torch.int8
 
 
-def quantize_kv_rows(rows: torch.Tensor):
-    """Per-(..., position) symmetric int8 over the head dim: (int8 rows,
-    bf16 scales with the last axis dropped). Rows are divided by the fp32
-    scale, which is stored rounded to bf16, as in the JAX package."""
-    r32 = rows.float()
-    s = exact_div(r32.abs().amax(dim=-1).clamp_min(1e-8), 127.0)
-    q = torch.round(r32 / s[..., None]).clamp(-127, 127).to(torch.int8)
-    return q, s.to(torch.bfloat16)
-
-
 @dataclass
 class BlockInputs:
     """What every decoder block of one forward shares: the rows' RoPE
-    tables, the additive mask (plain path) or the positions (decode
-    kernels), and where the new rows go in the cache. Under a
-    sequence-parallel prefill ``S`` counts this rank's rows and ``S_all``
-    the prompt's, whose K/V every rank writes."""
+    tables, the mesh, and ``attend(li, q, k, v)``, the forward's attention
+    object, built once before the layers: it writes layer ``li``'s new K/V
+    rows into its cache and returns the attention output ``[B, S, H, D]``.
+    Building it is host work that reads nothing back from the card."""
 
     cfg: ModelArgs
+    cos: torch.Tensor
+    sin: torch.Tensor
+    attend: Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+    mesh: Any = None                    # (dp, sp, tp) DeviceMesh (parallel/)
+
+
+@dataclass
+class _DenseAttention:
+    """The dense cache's attention for one forward: writes the new rows
+    into ``cache`` at their positions, in place (quantized for an int8
+    cache), then attends on the ring, K2 / K4, K1 or the plain path. Under a
+    sequence-parallel prefill the rank's rows are all-gathered over sp
+    first: ``S_all`` counts the prompt's rows, whose K/V every rank writes."""
+
     cache: KVCache
     start_pos: Any                      # int, or int32 [B] tensor
     q_start: Any                        # global position of the rank's first row
-    S: int                              # the rows of x
     S_all: int                          # the prompt's rows (S without seq_parallel)
     attn_impl: str
-    cos: torch.Tensor
-    sin: torch.Tensor
     mask: Optional[torch.Tensor]
     positions: Optional[torch.Tensor]   # int32 [B]: the decode kernels' rows
     rows_at: Optional[torch.Tensor]     # [B, S_all] write positions (per-row start_pos)
     batch_at: Optional[torch.Tensor]    # [B, 1] batch index (per-row start_pos)
-    mesh: Any = None                    # (dp, sp, tp) DeviceMesh (parallel/)
+    mesh: Any = None
     seq_parallel: bool = False          # tokens are the rank's S/sp prompt rows
+
+    def __call__(self, li: int, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+        cache, mesh = self.cache, self.mesh
+        quantized = cache.quantized
+        flash = self.attn_impl in ("flash", "flash_folded")
+        k_new, v_new = k, v                 # this rank's rows
+        if self.seq_parallel:
+            k, v = gather_seq(k, mesh), gather_seq(v, mesh)      # [B, S_all, KV, D]
+        if quantized:
+            kq, ks = quantize_kv_rows(k)
+            vq, vs = quantize_kv_rows(v)
+            _write(cache.k, li, kq, self)
+            _write(cache.v, li, vq, self)
+            _write(cache.k_scale, li, ks, self)
+            _write(cache.v_scale, li, vs, self)
+        else:
+            _write(cache.k, li, k, self)
+            _write(cache.v, li, v, self)
+
+        if self.attn_impl == "ring":
+            # the current segment's bf16 rows, as they were before the cache
+            # quantized them
+            return ring_gqa_attention(mesh, q, k_new.transpose(1, 2).contiguous(),
+                                      v_new.transpose(1, 2).contiguous(), self.start_pos)
+        if flash and self.S_all == 1:
+            fold = quantized or self.attn_impl == "flash_folded"
+            kw = dict(k_scale=cache.k_scale, v_scale=cache.v_scale, layer=li,
+                      fold_heads=fold, int8_mxu=quantized)
+            if mesh is not None:
+                return tp_flash_decode_attention(mesh, q, cache.k, cache.v, self.positions,
+                                                 **kw)
+            return flash_decode_attention(q, cache.k, cache.v, self.positions, **kw)
+        if flash and mesh is not None:
+            return tp_flash_gqa_attention(mesh, q, cache.k[li], cache.v[li], self.q_start)
+        if flash:
+            return flash_gqa_attention(q, cache.k[li], cache.v[li], self.start_pos)
+        if quantized:
+            # the plain path dequantizes the layer in bf16 before the einsum
+            return gqa_attention(q, dequantize_kv_rows(cache.k[li], cache.k_scale[li]),
+                                 dequantize_kv_rows(cache.v[li], cache.v_scale[li]),
+                                 self.mask)
+        return gqa_attention(q, cache.k[li], cache.v[li], self.mask)
 
 
 def _check_shards(params: LlamaParams, cfg: ModelArgs, cache: KVCache, mesh,
@@ -242,7 +293,8 @@ def prepare_forward(params: LlamaParams, cfg: ModelArgs, tokens: torch.Tensor,
                     start_pos, cache: KVCache, attn_impl: str = "plain",
                     mesh=None, seq_parallel: bool = False) -> Tuple[torch.Tensor, BlockInputs]:
     """Check a forward's arguments, look up the token embeddings and build
-    the :class:`BlockInputs` of its blocks: ``(x [B, S, dim] bf16, inputs)``."""
+    the :class:`BlockInputs` of its blocks, their attention the dense
+    cache's: ``(x [B, S, dim] bf16, inputs)``."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     B, S = tokens.shape
@@ -302,11 +354,11 @@ def prepare_forward(params: LlamaParams, cfg: ModelArgs, tokens: torch.Tensor,
         mask = attention_mask(S, T, q_start, dev)[None] if masked else None
         positions = (torch.full((B,), start_pos, dtype=torch.int32, device=dev)
                      if flash and S_all == 1 else None)
-    return x, BlockInputs(cfg=cfg, cache=cache, start_pos=start_pos, q_start=q_start,
-                          S=S, S_all=S_all, attn_impl=attn_impl, cos=cos, sin=sin,
-                          mask=mask, positions=positions, rows_at=rows_at,
-                          batch_at=batch_at, mesh=mesh,
-                          seq_parallel=seq_parallel and mesh is not None)
+    attend = _DenseAttention(cache=cache, start_pos=start_pos, q_start=q_start, S_all=S_all,
+                             attn_impl=attn_impl, mask=mask, positions=positions,
+                             rows_at=rows_at, batch_at=batch_at, mesh=mesh,
+                             seq_parallel=seq_parallel and mesh is not None)
+    return x, BlockInputs(cfg=cfg, cos=cos, sin=sin, attend=attend, mesh=mesh)
 
 
 def layer_weights(params: LlamaParams, li: int) -> Dict[str, Any]:
@@ -314,15 +366,15 @@ def layer_weights(params: LlamaParams, li: int) -> Dict[str, Any]:
     return {name: t[li] for name, t in params.layers.items()}
 
 
-def _write(buf: torch.Tensor, li: int, rows: torch.Tensor, inp: BlockInputs) -> None:
+def _write(buf: torch.Tensor, li: int, rows: torch.Tensor, at: _DenseAttention) -> None:
     """``rows [B, S_all, KV(, D)]`` into ``buf [L, B, KV, T(, D)]`` at the
     rows' positions, in place: only the new rows are written."""
-    if inp.rows_at is not None:
+    if at.rows_at is not None:
         # the advanced indices (batch, position) are split by the KV slice,
         # so their [B, S] dims lead: the target is [B, S, KV(, D)] as rows
-        buf[li][inp.batch_at, :, inp.rows_at] = rows.to(buf.dtype)
+        buf[li][at.batch_at, :, at.rows_at] = rows.to(buf.dtype)
     else:
-        buf[li, :, :, inp.start_pos:inp.start_pos + inp.S_all] = rows.transpose(1, 2)
+        buf[li, :, :, at.start_pos:at.start_pos + at.S_all] = rows.transpose(1, 2)
 
 
 def _row_linear(x: torch.Tensor, w, mesh) -> torch.Tensor:
@@ -341,19 +393,16 @@ def _row_linear(x: torch.Tensor, w, mesh) -> torch.Tensor:
 def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
                   inp: BlockInputs) -> torch.Tensor:
     """Transformer block ``li`` on ``x [B, S, dim]`` with layer weights ``w``
-    (:func:`layer_weights`): attention (the new K/V rows written into the
-    cache in place), then the SwiGLU feed-forward, each with its residual.
-    Under ``inp.mesh`` the heads and FFN width are this rank's and each
-    half ends in an all-reduce; a sequence-parallel prefill all-gathers the
-    new K/V rows over sp before it writes them. It reads nothing back to
-    the host, so a captured decode step runs it."""
-    cfg, cache, mesh = inp.cfg, inp.cache, inp.mesh
-    B, S = x.shape[0], inp.S
+    (:func:`layer_weights`): attention (``inp.attend`` writes the new K/V
+    rows into its cache in place and attends), then the SwiGLU
+    feed-forward, each with its residual. Under ``inp.mesh`` the heads and
+    FFN width are this rank's and each half ends in an all-reduce. It reads
+    nothing back to the host, so a captured decode step runs it."""
+    cfg, mesh = inp.cfg, inp.mesh
+    B, S = x.shape[:2]
     tp = tp_size(mesh)
     H, KV, D = cfg.n_heads // tp, cfg.kv_heads // tp, cfg.head_dim
-    quantized = cache.quantized
     fused = "wqkv" in w
-    flash = inp.attn_impl in ("flash", "flash_folded")
     h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
     if fused:
         qkv = linear_t(h, w["wqkv"])
@@ -366,44 +415,7 @@ def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
         v = linear(h, w["wv"]).reshape(B, S, KV, D)
     q = apply_rope(q, inp.cos, inp.sin)
     k = apply_rope(k, inp.cos, inp.sin)
-    k_new, v_new = k, v                 # this rank's rows
-    if inp.seq_parallel:
-        k, v = gather_seq(k, mesh), gather_seq(v, mesh)          # [B, S_all, KV, D]
-    if quantized:
-        kq, ks = quantize_kv_rows(k)
-        vq, vs = quantize_kv_rows(v)
-        _write(cache.k, li, kq, inp)
-        _write(cache.v, li, vq, inp)
-        _write(cache.k_scale, li, ks, inp)
-        _write(cache.v_scale, li, vs, inp)
-    else:
-        _write(cache.k, li, k, inp)
-        _write(cache.v, li, v, inp)
-
-    if inp.attn_impl == "ring":
-        # the current segment's bf16 rows, as they were before the cache
-        # quantized them
-        att = ring_gqa_attention(mesh, q, k_new.transpose(1, 2).contiguous(),
-                                 v_new.transpose(1, 2).contiguous(), inp.start_pos)
-    elif flash and inp.S_all == 1:
-        fold = quantized or inp.attn_impl == "flash_folded"
-        kw = dict(k_scale=cache.k_scale, v_scale=cache.v_scale, layer=li,
-                  fold_heads=fold, int8_mxu=quantized)
-        if mesh is not None:
-            att = tp_flash_decode_attention(mesh, q, cache.k, cache.v, inp.positions, **kw)
-        else:
-            att = flash_decode_attention(q, cache.k, cache.v, inp.positions, **kw)
-    elif flash and mesh is not None:
-        att = tp_flash_gqa_attention(mesh, q, cache.k[li], cache.v[li], inp.q_start)
-    elif flash:
-        att = flash_gqa_attention(q, cache.k[li], cache.v[li], inp.start_pos)
-    elif quantized:
-        # the plain path dequantizes the layer in bf16 before the einsum
-        ck = cache.k[li].to(torch.bfloat16) * cache.k_scale[li][..., None]
-        cv = cache.v[li].to(torch.bfloat16) * cache.v_scale[li][..., None]
-        att = gqa_attention(q, ck, cv, inp.mask)
-    else:
-        att = gqa_attention(q, cache.k[li], cache.v[li], inp.mask)
+    att = inp.attend(li, q, k, v)
 
     if fused:
         x = x + linear_t(att.reshape(B, S, H * D), w["wo"])
@@ -417,6 +429,14 @@ def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
     h2 = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
     act = swiglu_act(h2, w["w_gate"], w["w_up"])
     return x + _row_linear(act, w["w_down"], mesh)
+
+
+def run_blocks(params: LlamaParams, x: torch.Tensor, inp: BlockInputs) -> torch.Tensor:
+    """Every layer's :func:`decoder_block` in turn on ``x [B, S, dim]``:
+    the layer loop of ``forward`` and of the paged functions."""
+    for li in range(inp.cfg.n_layers):
+        x = decoder_block(layer_weights(params, li), li, x, inp)
+    return x
 
 
 def output_head(params: LlamaParams, cfg: ModelArgs, x: torch.Tensor,
@@ -470,9 +490,8 @@ def forward(
     a layer at a time. Under ``mesh`` see the module docstring."""
     x, inp = prepare_forward(params, cfg, tokens, start_pos, cache, attn_impl, mesh,
                              seq_parallel)
-    for li in range(cfg.n_layers):
-        x = decoder_block(layer_weights(params, li), li, x, inp)
-    return output_head(params, cfg, x, logits_at, mesh, inp.seq_parallel), cache
+    x = run_blocks(params, x, inp)
+    return output_head(params, cfg, x, logits_at, mesh, inp.attend.seq_parallel), cache
 
 
 # --------------------------------------------------------------------------

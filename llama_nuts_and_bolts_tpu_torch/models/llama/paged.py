@@ -7,7 +7,7 @@ slots x context.
 
   * The pool is ``[L, n_blocks, KV, bs, D]``, bf16, or int8 with bf16 scale
     pools ``[L, n_blocks, KV, bs]`` (rows quantized per position and head by
-    ``quantize_kv_rows``, the dense int8 cache's bytes).
+    ``ops.quantize_kv_rows``, the dense int8 cache's bytes).
   * Table entries past a request's blocks point at block 0, the TRASH block:
     padded prefill chunks and free slots' steps write there, and the mask
     ``t <= pos`` keeps it out of every real result. Duplicate
@@ -29,13 +29,17 @@ slots x context.
   * The speculative verify step (``paged_decode_step_spec``) runs S = k+1
     rows a slot at per-row positions, always on the gather path, as in the
     JAX package (K6 is S=1-shaped).
+  * The layers are ``model.py``'s (``run_blocks``, ``decoder_block``):
+    what is paged is only where a layer's new K/V rows go and which
+    attention reads them, the attention object each function builds once
+    (``_PagedPrompt`` for a prompt, ``_PagedStep`` for a batched step).
   * Under a tensor-parallel ``mesh`` (``parallel/``) the params and the pool
     are this rank's shards (``shard_params``, ``shard_pool``): the heads and
-    KV heads are the local ones, read off the shards' shapes; decode
-    attention runs K6 through ``tp_paged_flash_decode``; ``wo`` and
-    ``w_down`` end in ``model.py``'s all-reduce (``_row_linear``) and the
-    head in its vocab all-gather (``output_head``), so every rank holds the
-    whole logits row. The block tables and positions are every rank's.
+    KV heads are the local ones; decode attention runs K6 through
+    ``tp_paged_flash_decode``; ``wo`` and ``w_down`` end in ``model.py``'s
+    all-reduce and the head in its vocab all-gather (``output_head``), so
+    every rank holds the whole logits row. The block tables and positions
+    are every rank's.
 
 Split-layout weights only (``w["wq"]``...), as in the JAX package.
 """
@@ -43,21 +47,24 @@ Split-layout weights only (``w["wq"]``...), as in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from llama_nuts_and_bolts_tpu_torch.device import resolve_device
 from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import (
+    BlockInputs,
     LlamaParams,
     _check_shards,
-    _row_linear,
     output_head,
+    run_blocks,
+)
+from llama_nuts_and_bolts_tpu_torch.ops import (
+    dequantize_kv_rows,
+    gqa_attention,
     quantize_kv_rows,
 )
-from llama_nuts_and_bolts_tpu_torch.models.llama.rope import apply_rope
-from llama_nuts_and_bolts_tpu_torch.ops import gqa_attention, linear, rms_norm, swiglu_act
 from llama_nuts_and_bolts_tpu_torch.parallel.kernel_shard import (
     tp_flash_gqa_attention,
     tp_paged_flash_decode,
@@ -142,69 +149,31 @@ def _write_chunks(pool_layer: torch.Tensor, rows: torch.Tensor,
     pool_layer[table_row[:n].long()] = chunks.to(pool_layer.dtype)
 
 
-def _dequant(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """``bf16(int8) * bf16(scale)`` per element, in bf16."""
-    return t.to(torch.bfloat16) * s[..., None].to(torch.bfloat16)
-
-
-def _dense_from_gathered(q, k, v, positions, ks=None, vs=None):
-    """Dense GQA over per-row gathered blocks ``k/v [B, M, KV, bs, D]`` (+
-    int8 scales ``[B, M, KV, bs]``): row ``b`` sees the slots holding
-    positions ``<= positions[b]``."""
+def _gathered_attention(q, pool_k, pool_v, tables, positions, pool_ks=None,
+                        pool_vs=None):
+    """The plain paged-attention path over one layer's pool ``[n_blocks, KV,
+    bs, D]`` (+ int8 scales ``[n_blocks, KV, bs]``): each row's blocks
+    gathered into a dense copy, then dense GQA; row ``b``'s query ``s``
+    sees the slots holding positions ``<= positions[b] + s``."""
+    idx = tables.long()
+    k, v = pool_k[idx], pool_v[idx]                        # [B, M, KV, bs, D]
+    if pool_ks is not None:
+        k, v = dequantize_kv_rows(k, pool_ks[idx]), dequantize_kv_rows(v, pool_vs[idx])
     B, M, KV, bs, D = k.shape
-    S = q.shape[1]
-    if ks is not None:
-        k, v = _dequant(k, ks), _dequant(v, vs)
     k = k.transpose(1, 2).reshape(B, KV, M * bs, D)
     v = v.transpose(1, 2).reshape(B, KV, M * bs, D)
     dev = q.device
     t = torch.arange(M * bs, device=dev)[None, None, :]
-    s_row = torch.arange(S, device=dev)[None, :, None]
+    s_row = torch.arange(q.shape[1], device=dev)[None, :, None]
     visible = t <= positions.long()[:, None, None] + s_row
     mask = torch.where(visible, 0.0, float("-inf")).to(torch.float32)
     return gqa_attention(q, k, v, mask)
-
-
-def _gathered_attention(q, pool_k, pool_v, tables, positions, pool_ks=None,
-                        pool_vs=None):
-    """The plain paged-attention path over one layer's pool ``[n_blocks, KV,
-    bs, D]``: gather each row's blocks, then dense GQA."""
-    idx = tables.long()
-    ks = vs = None
-    if pool_ks is not None:
-        ks, vs = pool_ks[idx], pool_vs[idx]
-    return _dense_from_gathered(q, pool_k[idx], pool_v[idx], positions, ks, vs)
 
 
 def _check_impl(attn_impl: str) -> None:
     if attn_impl not in PAGED_ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {PAGED_ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
-
-
-def _project(x, w, cfg: ModelArgs, cos, sin):
-    """RMSNorm, q/k/v projections and RoPE: ``q [B,S,H,D]``, ``k/v [B,S,KV,D]``,
-    H and KV the weights' (a rank's under a mesh)."""
-    B, S = x.shape[:2]
-    D = cfg.head_dim
-    h = rms_norm(x, w["attn_norm"], cfg.norm_eps)
-    q = linear(h, w["wq"]).reshape(B, S, -1, D)
-    k = linear(h, w["wk"]).reshape(B, S, -1, D)
-    v = linear(h, w["wv"]).reshape(B, S, -1, D)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
-
-
-def _finish_block(x, att, w, cfg: ModelArgs, mesh):
-    """``wo`` and the SwiGLU feed-forward with their residuals; under a mesh
-    each row-split product ends in the all-reduce."""
-    B, S = x.shape[:2]
-    x = x + _row_linear(att.reshape(B, S, -1), w["wo"], mesh)
-    h2 = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
-    return x + _row_linear(swiglu_act(h2, w["w_gate"], w["w_up"]), w["w_down"], mesh)
-
-
-def _logits_row(params: LlamaParams, cfg: ModelArgs, x, logits_at: int, mesh):
-    return output_head(params, cfg, x, logits_at, mesh)[:, 0]        # [1, vocab]
 
 
 def _causal_mask(S: int, device) -> torch.Tensor:
@@ -217,24 +186,84 @@ def _write_prompt_rows(pool: PagedKVPool, li: int, k, v, blocks):
     """Write a prompt's k/v ``[1, KV, S, D]`` into layer ``li``'s blocks; returns
     the rows attention reads: bf16 as projected, or for an int8 pool the
     quantized rows dequantized (the error the dense int8 cache's prefill sees)."""
-    if not pool.quantized:
-        _write_chunks(pool.k[li], k, blocks)
-        _write_chunks(pool.v[li], v, blocks)
-        return k, v
-    kq, ks = quantize_kv_rows(k)                        # [1, KV, S, D], [1, KV, S]
-    vq, vs = quantize_kv_rows(v)
-    for buf, rows in ((pool.k, kq), (pool.v, vq), (pool.k_scale, ks), (pool.v_scale, vs)):
-        _write_chunks(buf[li], rows, blocks)
-    return _dequant(kq, ks), _dequant(vq, vs)
+    rows = (k, v)
+    if pool.quantized:
+        (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)   # [1,KV,S(,D)]
+        rows = (kq, vq, ks, vs)
+        k, v = dequantize_kv_rows(kq, ks), dequantize_kv_rows(vq, vs)
+    for buf, r in zip(pool.buffers(), rows):
+        _write_chunks(buf[li], r, blocks)
+    return k, v
 
 
-def _prompt_attention(q, k, v, start_pos: int, mask, attn_impl: str, mesh):
-    """A prompt's attention: K1 from ``start_pos`` (on this rank's heads
-    under a mesh) for ``"flash"``, else the fp32 oracle under ``mask``."""
-    if attn_impl == "flash":
-        return tp_flash_gqa_attention(mesh, q.contiguous(), k.contiguous(), v.contiguous(),
-                                      start_pos)
-    return gqa_attention(q, k, v, mask)
+@dataclass
+class _PagedPrompt:
+    """One request's prompt attention for a prefill: writes a layer's new
+    rows into the chunks' ``blocks``, then attends over them, after the
+    ``prefix`` table entries' rows, gathered, on a prefix-cache hit:
+    ``"flash"`` runs K1 from ``shared_len`` (on this rank's heads under a
+    mesh), ``"plain"`` the fp32 oracle under ``mask``."""
+
+    pool: PagedKVPool
+    blocks: torch.Tensor                # chunk i's block: blocks[i]
+    shared_len: int
+    prefix: Optional[torch.Tensor]      # the table entries gathered before the rows
+    mask: Optional[torch.Tensor]
+    attn_impl: str
+    mesh: Any = None
+
+    def _gather(self, buf, scale, li: int) -> torch.Tensor:
+        g = buf[li][self.prefix]                           # [n, KV, bs, D]
+        if scale is not None:
+            g = dequantize_kv_rows(g, scale[li][self.prefix])
+        n, KV, bs, D = g.shape
+        return g.transpose(0, 1).reshape(1, KV, n * bs, D)
+
+    def __call__(self, li: int, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+        pool = self.pool
+        k, v = _write_prompt_rows(pool, li, k.transpose(1, 2), v.transpose(1, 2),
+                                  self.blocks)
+        if self.prefix is not None:
+            k = torch.cat([self._gather(pool.k, pool.k_scale, li), k], dim=2)
+            v = torch.cat([self._gather(pool.v, pool.v_scale, li), v], dim=2)
+        if self.attn_impl == "flash":
+            return tp_flash_gqa_attention(self.mesh, q.contiguous(), k.contiguous(),
+                                          v.contiguous(), self.shared_len)
+        return gqa_attention(q, k, v, self.mask)
+
+
+@dataclass
+class _PagedStep:
+    """A batched step's attention over the block tables: writes each row's
+    new K/V at its ``(block, offset)`` (``[B*S]``, row-major), then attends
+    on K6 (``"flash"``, one row a slot) or over each slot's gathered blocks."""
+
+    pool: PagedKVPool
+    tables: torch.Tensor                # int32 [B, max_blocks]
+    positions: torch.Tensor             # int32 [B]: each slot's first row
+    blocks: torch.Tensor
+    offsets: torch.Tensor
+    attn_impl: str
+    mesh: Any = None
+
+    def __call__(self, li: int, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+        pool = self.pool
+        rows = (k, v)                                      # [B, S, KV(, D)]
+        if pool.quantized:
+            (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+            rows = (kq, vq, ks, vs)
+        for buf, r in zip(pool.buffers(), rows):
+            _write_rows(buf[li], r.flatten(0, 1), self.blocks, self.offsets)
+        if self.attn_impl == "flash":
+            # K6 reads the layer's blocks straight from the stacked pool
+            return tp_paged_flash_decode(self.mesh, q, pool.k, pool.v, self.tables,
+                                         self.positions, layer=li, pool_ks=pool.k_scale,
+                                         pool_vs=pool.v_scale)
+        layer = [buf[li] for buf in pool.buffers()]        # k, v(, k_scale, v_scale)
+        return _gathered_attention(q, layer[0], layer[1], self.tables, self.positions,
+                                   *layer[2:])
 
 
 def paged_prefill(
@@ -261,16 +290,11 @@ def paged_prefill(
         raise ValueError(f"prefill length {S} must be a multiple of the "
                          f"block size {pool.block_size}")
     x = params.tok_embeddings[tokens.long()]
-    cos, sin = params.rope_cos[:S], params.rope_sin[:S]
     mask = _causal_mask(S, x.device)[None] if attn_impl == "plain" else None
-    for li in range(cfg.n_layers):
-        w = {name: t[li] for name, t in params.layers.items()}
-        q, k, v = _project(x, w, cfg, cos, sin)
-        k, v = _write_prompt_rows(pool, li, k.transpose(1, 2), v.transpose(1, 2),
-                                  table_row)
-        att = _prompt_attention(q, k, v, 0, mask, attn_impl, mesh)
-        x = _finish_block(x, att, w, cfg, mesh)
-    return _logits_row(params, cfg, x, logits_at, mesh), pool
+    attend = _PagedPrompt(pool, table_row, 0, None, mask, attn_impl, mesh)
+    x = run_blocks(params, x, BlockInputs(cfg, params.rope_cos[:S], params.rope_sin[:S],
+                                          attend, mesh))
+    return output_head(params, cfg, x, logits_at, mesh)[:, 0], pool
 
 
 def paged_prefill_shared(
@@ -303,12 +327,9 @@ def paged_prefill_shared(
     if S % bs or shared_len % bs:
         raise ValueError(f"suffix length {S} and shared length {shared_len} must "
                          f"be multiples of the block size {bs}")
-    KV, D = pool.k.shape[2], cfg.head_dim      # a rank's KV heads under a mesh
     M = table_row.shape[0]
     dev = tokens.device
     x = params.tok_embeddings[tokens.long()]
-    cos = params.rope_cos[shared_len:shared_len + S]
-    sin = params.rope_sin[shared_len:shared_len + S]
     # suffix chunk i writes to table_row[shared_len // bs + i]; slots past
     # the row's entries are trash
     padded = torch.cat([table_row, torch.full((M,), TRASH_BLOCK, dtype=table_row.dtype,
@@ -324,27 +345,11 @@ def paged_prefill_shared(
         prefix_mask = torch.where(t_pool < shared_len, 0.0, float("-inf"))
         mask = torch.cat([prefix_mask, _causal_mask(S, dev)], dim=1).float()[None]
         idx = table_row.long()
-
-    def gather_prefix(buf, scale=None):
-        g = buf[idx]                                       # [n, KV, bs, D]
-        if scale is not None:
-            g = _dequant(g, scale[idx])
-        return g.transpose(0, 1).reshape(1, KV, idx.shape[0] * bs, D)
-
-    for li in range(cfg.n_layers):
-        w = {name: t[li] for name, t in params.layers.items()}
-        q, k, v = _project(x, w, cfg, cos, sin)
-        k, v = _write_prompt_rows(pool, li, k.transpose(1, 2), v.transpose(1, 2),
-                                  chunk_blocks)
-        if pool.quantized:
-            pk = gather_prefix(pool.k[li], pool.k_scale[li])
-            pv = gather_prefix(pool.v[li], pool.v_scale[li])
-        else:
-            pk, pv = gather_prefix(pool.k[li]), gather_prefix(pool.v[li])
-        att = _prompt_attention(q, torch.cat([pk, k], dim=2), torch.cat([pv, v], dim=2),
-                                shared_len, mask, attn_impl, mesh)
-        x = _finish_block(x, att, w, cfg, mesh)
-    return _logits_row(params, cfg, x, logits_at, mesh), pool
+    attend = _PagedPrompt(pool, chunk_blocks, shared_len, idx, mask, attn_impl, mesh)
+    x = run_blocks(params, x, BlockInputs(cfg, params.rope_cos[shared_len:shared_len + S],
+                                          params.rope_sin[shared_len:shared_len + S],
+                                          attend, mesh))
+    return output_head(params, cfg, x, logits_at, mesh)[:, 0], pool
 
 
 def paged_decode_step(
@@ -364,38 +369,13 @@ def paged_decode_step(
     _check_impl(attn_impl)
     if mesh is not None:
         _check_shards(params, cfg, pool, mesh)
-    B = tokens.shape[0]
     bs = pool.block_size
     x = params.tok_embeddings[tokens.long()]                   # [B, 1, dim]
     pos = positions.long()
-    cos = params.rope_cos[pos][:, None, :]                     # [B, 1, D/2]
-    sin = params.rope_sin[pos][:, None, :]
     blocks = torch.gather(tables.long(), 1, (pos // bs)[:, None])[:, 0]
-    offsets = pos % bs
-    for li in range(cfg.n_layers):
-        w = {name: t[li] for name, t in params.layers.items()}
-        q, k, v = _project(x, w, cfg, cos, sin)
-        scales = {}
-        if pool.quantized:
-            kq, ks = quantize_kv_rows(k[:, 0])                 # [B, KV, D], [B, KV]
-            vq, vs = quantize_kv_rows(v[:, 0])
-            for buf, rows in ((pool.k, kq), (pool.v, vq), (pool.k_scale, ks),
-                              (pool.v_scale, vs)):
-                _write_rows(buf[li], rows, blocks, offsets)
-            scales = {"pool_ks": pool.k_scale, "pool_vs": pool.v_scale}
-        else:
-            _write_rows(pool.k[li], k[:, 0], blocks, offsets)
-            _write_rows(pool.v[li], v[:, 0], blocks, offsets)
-        if attn_impl == "flash":
-            # K6 reads the layer's blocks straight from the stacked pool
-            att = tp_paged_flash_decode(mesh, q, pool.k, pool.v, tables, positions,
-                                        layer=li, **scales)
-        else:
-            layer_scales = ({} if not pool.quantized else
-                            {"pool_ks": pool.k_scale[li], "pool_vs": pool.v_scale[li]})
-            att = _gathered_attention(q, pool.k[li], pool.v[li], tables, positions,
-                                      **layer_scales)
-        x = _finish_block(x, att, w, cfg, mesh)
+    attend = _PagedStep(pool, tables, positions, blocks, pos % bs, attn_impl, mesh)
+    x = run_blocks(params, x, BlockInputs(cfg, params.rope_cos[pos][:, None, :],
+                                          params.rope_sin[pos][:, None, :], attend, mesh))
     return output_head(params, cfg, x, None, mesh)[:, 0], pool
 
 
@@ -420,7 +400,7 @@ def paged_decode_step_spec(
     path."""
     if mesh is not None:
         _check_shards(params, cfg, pool, mesh)
-    B, S = tokens.shape
+    S = tokens.shape[1]
     bs = pool.block_size
     max_pos = tables.shape[1] * bs - 1
     dev = tokens.device
@@ -429,27 +409,8 @@ def paged_decode_step_spec(
                            max=max_pos)                        # [B, S]
     cos, sin = params.rope_cos[pos_rows], params.rope_sin[pos_rows]
     blocks = torch.gather(tables.long(), 1, pos_rows // bs).reshape(-1)   # [B*S]
-    offsets = (pos_rows % bs).reshape(-1)
-
-    def write(buf, rows):
-        # rows [B, S, KV(, D)] as B*S single rows
-        _write_rows(buf, rows.reshape((B * S,) + tuple(rows.shape[2:])), blocks, offsets)
-
-    for li in range(cfg.n_layers):
-        w = {name: t[li] for name, t in params.layers.items()}
-        q, k, v = _project(x, w, cfg, cos, sin)
-        layer_scales = {}
-        if pool.quantized:
-            kq, ks = quantize_kv_rows(k)                       # [B,S,KV,D], [B,S,KV]
-            vq, vs = quantize_kv_rows(v)
-            for buf, rows in ((pool.k, kq), (pool.v, vq), (pool.k_scale, ks),
-                              (pool.v_scale, vs)):
-                write(buf[li], rows)
-            layer_scales = {"pool_ks": pool.k_scale[li], "pool_vs": pool.v_scale[li]}
-        else:
-            write(pool.k[li], k)
-            write(pool.v[li], v)
-        att = _gathered_attention(q, pool.k[li], pool.v[li], tables, positions,
-                                  **layer_scales)
-        x = _finish_block(x, att, w, cfg, mesh)
+    attend = _PagedStep(pool, tables, positions, blocks, (pos_rows % bs).reshape(-1),
+                        "plain", mesh)
+    x = run_blocks(params, x, BlockInputs(cfg, params.rope_cos[pos_rows],
+                                          params.rope_sin[pos_rows], attend, mesh))
     return output_head(params, cfg, x, None, mesh), pool

@@ -43,7 +43,7 @@ from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import (
     q4_matmul,
     q4_matmul_plain,
 )
-from llama_nuts_and_bolts_tpu_torch.models.llama.model import quantize_kv_rows
+from llama_nuts_and_bolts_tpu_torch.ops import quantize_kv_rows
 from llama_nuts_and_bolts_tpu_torch.quant import quantize_tensor_q4
 
 H, KV, D = 32, 8, 128

@@ -47,6 +47,20 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     assert bad == []
 
 
+def test_kernels_and_ops_import_no_higher_layer():
+    """``kernels/`` and ``ops/`` sit under the model and the runtime: none
+    of their modules imports ``models/`` or ``runtime/``, inside functions
+    either (the kernels' tuning scripts take ``quantize_kv_rows`` from
+    ``ops/``)."""
+    files = sorted((PORT / "kernels").rglob("*.py")) + sorted((PORT / "ops").rglob("*.py"))
+    assert {"k4_clusters.py", "k6_splits.py", "rmsnorm.py"} <= {f.name for f in files}
+    bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
+           for f in files for line, mod in imported_modules(f)
+           if mod.split(".")[:2] in (["llama_nuts_and_bolts_tpu_torch", "models"],
+                                     ["llama_nuts_and_bolts_tpu_torch", "runtime"])]
+    assert bad == []
+
+
 def port_names(path):
     """Each ``(line, module, name)`` of a ``from llama_nuts_and_bolts_tpu_torch...
     import name`` in ``path``, inside functions too."""

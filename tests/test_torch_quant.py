@@ -28,7 +28,7 @@ from llama_nuts_and_bolts_tpu_torch.models.llama.convert import (
     tensor_from_numpy,
     tensor_to_numpy,
 )
-from llama_nuts_and_bolts_tpu_torch.ops import linear
+from llama_nuts_and_bolts_tpu_torch.ops import linear, quantize_kv_rows
 from llama_nuts_and_bolts_tpu_torch.utils.testing import compare_tensor
 
 
@@ -98,7 +98,7 @@ def test_unpack_q4_is_exact(shape):
 def test_quantize_kv_rows_bytes_equal_jax(shape):
     rows = bf16(np.random.default_rng(11), *shape, scale=3.0)
     rows[0, 0, 0] = 0                                   # an all-zero row: eps scale
-    q, s = model.quantize_kv_rows(tensor_from_numpy(rows, "cpu"))
+    q, s = quantize_kv_rows(tensor_from_numpy(rows, "cpu"))
     jq, js = jmodel.quantize_kv_rows(jnp.asarray(rows))
     np.testing.assert_array_equal(raw(q), raw(jq))
     np.testing.assert_array_equal(raw(s), raw(js))
