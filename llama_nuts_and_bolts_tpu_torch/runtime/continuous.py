@@ -8,10 +8,14 @@ decoding.
 
   * Prefill targets one slot: it runs on a view of the slot's cache rows and
     writes them in place (the plain attention path, as in the JAX package).
-  * Free and finished slots keep stepping with a pad token; their cache
-    writes are harmless -- a slot's garbage at position p is overwritten by
-    the step that consumes the real token at p before any query row >= p
-    runs.
+  * Free slots keep stepping with a pad token, fed position 0 on every
+    step (:meth:`ContinuousBatcher._next_positions`): their results are
+    never read, so the decode attention hands such a row one key. Its write
+    lands at position 0 of its own cache row (the paged pool: the trash
+    block), and an admission's prefill, queued after every step dispatched
+    while the slot was free, writes that row again. A finished request's
+    garbage at position p is overwritten by the step that consumes the
+    real token at p before any query row >= p runs.
   * Per-request sampling: each slot carries its own (temperature, top-k,
     top-p, seed); a row's token depends only on its seed, prompt and
     position, never on its batch neighbours (``ops/sampling.py``).
@@ -105,11 +109,14 @@ attempt, under the request's id), ``batcher.prepare`` (block growth, the static
 inputs written), ``batcher.launch`` (the replays and samples, queued),
 ``batcher.readback`` (the host waits for the card) and ``batcher.deliver``
 (the emit loop); a step's ``graphed`` counts its decode steps replayed from
-a captured graph, and an admission's ``flash`` whether its prefill attended
-on K1. The counters beside ``decode_steps`` (``graph_steps``,
-``rows_stepped``, ``prefill_tokens``, ``prefill_padded_tokens``, ``prefill_cached_tokens``,
-``prefill_flash``, ``admissions``, ``admission_stalls``, ``queue_wait_s``) are the
-server's ``/metrics``.
+a captured graph, its ``keys`` the keys its decode attention is handed (each
+row's fed position + 1, over its steps or its verify) and ``free_keys`` the
+free slots' part of them; an admission's ``flash`` whether its prefill
+attended on K1. The counters beside ``decode_steps`` (``graph_steps``,
+``rows_stepped``, ``keys_stepped``, ``free_keys_stepped``, ``prefill_tokens``,
+``prefill_padded_tokens``, ``prefill_cached_tokens``, ``prefill_flash``,
+``admissions``, ``admission_stalls``, ``queue_wait_s``) are the server's
+``/metrics``.
 """
 
 from __future__ import annotations
@@ -334,6 +341,10 @@ class ContinuousBatcher:
         self.graph_steps = 0            # ... of them replayed from a captured graph
         self.verify_steps = 0           # batched speculative verify steps
         self.rows_stepped = 0           # live rows, summed over the decode steps
+        # keys the decode attention is handed (fed position + 1 a row), plain
+        # steps and verifies, and the free slots' part of them
+        self.keys_stepped = 0
+        self.free_keys_stepped = 0
         self.prefill_tokens = 0         # prompt rows computed by admissions
         self.prefill_padded_tokens = 0  # their buckets' padding rows
         self.prefill_cached_tokens = 0  # prompt rows the prefix cache gave
@@ -573,10 +584,11 @@ class ContinuousBatcher:
         return time.perf_counter_ns()
 
     def _release_slot(self, slot: int) -> None:
-        """Free the slot; it keeps stepping with a pad token (see the module
-        docstring)."""
+        """Free the slot; it keeps stepping with a pad token, fed position 0
+        from now on (:meth:`_next_positions`)."""
         self.slots[slot] = None
         self._feed[slot] = 0
+        self._pos[slot] = 0
         self._clear_sampling(slot)
         self._proposers[slot] = None
 
@@ -655,15 +667,36 @@ class ContinuousBatcher:
 
     # -------------------------------------------------------------- decode
 
+    def _next_positions(self, pos: np.ndarray) -> np.ndarray:
+        """The slots' positions after one step fed at ``pos [B]``: an
+        occupied slot's advances by one, capped at ``_pos_cap``; a free
+        slot's is held at 0, so the step's attention hands its row one key
+        (its result is never read). The one rule for both batchers' steps
+        and verifies."""
+        occupied = np.array([r is not None for r in self.slots])
+        return np.where(occupied, np.minimum(pos + 1, self._pos_cap), 0).astype(np.int32)
+
+    def _count_keys(self, fed: np.ndarray) -> None:
+        """Count the keys the decode attention is handed at the fed positions
+        ``[steps, B]`` (a row's position + 1), and the free slots' part, on
+        the running step's span and the counters."""
+        keys = fed.astype(np.int64) + 1
+        free = np.array([r is None for r in self.slots])
+        n, n_free = int(keys.sum()), int(keys[:, free].sum())
+        self._step.counts.update(keys=n, free_keys=n_free)
+        self.keys_stepped += n
+        self.free_keys_stepped += n_free
+
     def _advance_quantum(self, k: int):
-        """Advance every slot's position ``k`` steps (capped); returns the
-        fed positions of each step ``[k, B]``, the emitted tokens' positions
-        ``epos [k, B]`` and per-step force-finish flags (none here)."""
+        """Advance the slots' positions ``k`` steps (:meth:`_next_positions`);
+        returns the fed positions of each step ``[k, B]``, the emitted
+        tokens' positions ``epos [k, B]`` and per-step force-finish flags
+        (none here)."""
         fed = np.zeros((k, self.n_slots), np.int32)
         epos = np.zeros((k, self.n_slots), np.int32)
         for j in range(k):
             fed[j] = self._pos
-            self._pos = np.minimum(self._pos + 1, self._pos_cap).astype(np.int32)
+            self._pos = self._next_positions(self._pos)
             epos[j] = self._pos
         return fed, epos, [[False] * self.n_slots for _ in range(k)]
 
@@ -710,8 +743,8 @@ class ContinuousBatcher:
         """Queue one quantum of ``step_quantum`` decode steps, each a replay
         of the step graph over the static buffers and a sample of its
         logits; nothing waits for the device. The running step's span counts
-        its steps, their live rows and the steps replayed from a captured
-        graph (``graphed``)."""
+        its steps, their live rows, the steps replayed from a captured graph
+        (``graphed``) and the keys handed to the attention (:meth:`_count_keys`)."""
         step = self._step
         k = self.step_quantum
         live = sum(r is not None for r in self.slots)
@@ -744,6 +777,7 @@ class ContinuousBatcher:
         step.counts["rows"] = live * k          # a step dispatches once
         step.counts["steps"] = k
         step.counts["graphed"] = graphed
+        self._count_keys(fed)
         self._last_tok = tok[:, None]
         self._inflight.append(("q", fetched, force, epos, list(self.slots)))
 
@@ -782,7 +816,9 @@ class ContinuousBatcher:
     def _step_once(self) -> None:
         """One step under a ``batcher.step`` span, which counts the decode
         steps it dispatched (``steps``), those replayed from a captured graph
-        (``graphed``) and their live rows (``rows``), if it dispatched any."""
+        (``graphed``), their live rows (``rows``) and the keys their
+        attention was handed (``keys``, ``free_keys``), if it dispatched
+        any; a verify counts no plain step and its forward's keys."""
         with SPANS.span("batcher.step") as self._step:
             if self.speculate_k:
                 self._step_speculative()
@@ -822,7 +858,10 @@ class ContinuousBatcher:
         """One batched verify step of ``tokens [B, K+1]`` at ``positions``:
         the greedy argmax of every row ``[B, K+1]`` (the verification chain),
         each slot's row-0 sample (for slots that do not speculate) and its
-        logprob info, all on the host."""
+        logprob info, all on the host. The step's span counts no plain
+        decode step and the keys handed at ``positions``."""
+        self._step.counts.update(rows=0, steps=0, graphed=0)
+        self._count_keys(positions[None])
         with SPANS.span("batcher.launch", parent=self._step.id):
             toks = torch.from_numpy(tokens.astype(np.int32)).to(self.device)
             pos = torch.from_numpy(positions.astype(np.int32)).to(self.device)
@@ -884,20 +923,21 @@ class ContinuousBatcher:
                     drafts = prop.propose(K)
                     draft_lists[slot] = drafts
                     step_tokens[slot, 1:1 + len(drafts)] = drafts
-            # a free slot's position climbs to the cache's end; its rows are
-            # garbage wherever they land, so they land in the last K+1
+            # a free slot's position is 0, so its K+1 garbage rows land in
+            # 0..K of its own row, which an admission's prefill writes again
             positions = np.minimum(self._pos, self.cache.max_seq - K - 1)
             preds, sampled0, lp = self._verify(step_tokens, positions)
             self._deliver_chains(draft_lists, preds, sampled0, lp)
 
     def _deliver_chains(self, draft_lists, preds, sampled0, lp, end_hook=None) -> None:
         """Emit every slot's tokens after a verify step (``batcher.deliver``);
-        a free slot's position climbs by one."""
+        a free slot's position is held (:meth:`_next_positions`)."""
         with SPANS.span("batcher.deliver", parent=self._step.id):
+            held = self._next_positions(self._pos)
             for slot in range(self.n_slots):
                 p0 = int(self._pos[slot])
                 if self.slots[slot] is None:
-                    self._pos[slot] = min(p0 + 1, self._pos_cap)
+                    self._pos[slot] = held[slot]
                     continue
                 chain = self._accepted_chain(slot, draft_lists[slot], preds, sampled0)
                 self._replay_chain(slot, chain, p0, lp, end_hook=end_hook)

@@ -18,7 +18,9 @@ Scheduling policy (host side, O(slots) per step):
   * decode growth takes one block each time a request crosses a block
     boundary, at dispatch time; if the pool is dry then, the request ends
     gracefully after its current token (FINISHED_BY_REACHING_SEQ_LEN);
-  * free slots keep stepping with a pad token into the TRASH block;
+  * free slots keep stepping with a pad token at position 0 of an all-TRASH
+    table (``runtime/continuous.py``'s rule), so the decode attention walks
+    one entry of the trash block for such a row and its write lands there;
   * ``submit`` refuses a prompt the pool can never hold.
 
 Under the engine's tensor-parallel mesh each rank holds its KV heads of the
@@ -186,6 +188,9 @@ class PagedBatcher(ContinuousBatcher):
         return self._stalled.popleft() if self._stalled else super()._next_waiting()
 
     def _release_slot(self, slot: int) -> None:
+        """Free the slot and its blocks: its table is all ``TRASH_BLOCK``
+        and its position 0, where its pad token's writes land in the trash
+        block."""
         self.allocator.free(self._slot_blocks[slot])
         self._slot_blocks[slot] = []
         self.tables[slot, :] = TRASH_BLOCK
@@ -258,20 +263,21 @@ class PagedBatcher(ContinuousBatcher):
         return True
 
     def _advance_quantum(self, k: int):
-        """Advance every slot ``k`` positions and back each active slot's new
-        write positions with blocks before the quantum is dispatched.
-        ``force[j][slot]`` means the pool could not back the position after
-        step j's token, which is then that request's last (later tokens are
-        dropped; their writes went to the trash block)."""
+        """Advance the slots ``k`` positions (``_next_positions``: a free
+        slot's stays 0) and back each active slot's new write positions with
+        blocks before the quantum is dispatched. ``force[j][slot]`` means
+        the pool could not back the position after step j's token, which is
+        then that request's last (later tokens are dropped; their writes went
+        to the trash block)."""
         bs = self.block_size
         fed = np.zeros((k, self.n_slots), np.int32)
         epos = np.zeros((k, self.n_slots), np.int32)
         force = [[False] * self.n_slots for _ in range(k)]
         for j in range(k):
             fed[j] = self._pos
+            self._pos = self._next_positions(self._pos)
+            epos[j] = self._pos
             for slot in range(self.n_slots):
-                self._pos[slot] = min(int(self._pos[slot]) + 1, self._pos_cap)
-                epos[j, slot] = self._pos[slot]
                 if self.slots[slot] is None:
                     continue
                 bi = int(self._pos[slot]) // bs

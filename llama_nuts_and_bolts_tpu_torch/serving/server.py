@@ -506,6 +506,12 @@ class LlamaHTTPServer:
                 # wait = wait seconds / admissions
                 "# TYPE llama_batch_rows_stepped_total counter",
                 f"llama_batch_rows_stepped_total {b.rows_stepped}",
+                # keys the decode attention is handed, and the free slots'
+                # part of them (one a free row a step)
+                "# TYPE llama_batch_keys_stepped_total counter",
+                f"llama_batch_keys_stepped_total {b.keys_stepped}",
+                "# TYPE llama_batch_free_keys_stepped_total counter",
+                f"llama_batch_free_keys_stepped_total {b.free_keys_stepped}",
                 "# TYPE llama_batch_prefill_tokens_total counter",
                 f"llama_batch_prefill_tokens_total {b.prefill_tokens}",
                 "# TYPE llama_batch_prefill_padded_tokens_total counter",

@@ -365,6 +365,8 @@ def test_spans_and_counters_of_the_dense_batcher(speculate_k, quantum):
     counts = [sp[5] or {"rows": 0, "steps": 0} for sp in steps]
     assert cb.rows_stepped == sum(live) == sum(c["rows"] for c in counts)
     assert cb.decode_steps == sum(c["steps"] for c in counts)
+    assert cb.keys_stepped == sum(c.get("keys", 0) for c in counts) > 0
+    assert cb.free_keys_stepped == sum(c.get("free_keys", 0) for c in counts)
     # the CPU runs the step graph's body eagerly: no step is graphed
     assert cb.graph_steps == 0 and all(c["graphed"] == 0 for c in counts if c["steps"])
     assert (cb.decode_steps > 0) == (speculate_k == 0)
@@ -391,9 +393,9 @@ def step_graph_checks(cb, eager_step):
 
       * the body's logits are bit-equal to the eager step's on fresh copies
         of the same inputs;
-      * each step's positions are the host's, and a live row's feed token is
-        its request's token at that position (the prefill's first token, or
-        the previous step's);
+      * each step's positions are the host's, a free row's is 0, and a live
+        row's feed token is its request's token at that position (the
+        prefill's first token, or the previous step's);
       * the static tables equal the host's after each dispatch;
       * each step's tokens are the sampler's on the eager logits, with the
         rows' seeds and settings, and each live row's token is the one its
@@ -449,6 +451,7 @@ def step_graph_checks(cb, eager_step):
                 st["eager"], seeds, st["fed"], temp, topk, topp))
             for slot, req in enumerate(st["slots"]):
                 if req is None:
+                    assert st["fed"][slot] == 0, slot
                     continue
                 i = int(st["fed"][slot]) - len(req.prompt)
                 stream = streams[req.rid]
@@ -486,3 +489,209 @@ def test_the_plain_step_runs_on_the_static_buffers(quantum):
     assert [len(streams[r.rid]) for r in reqs] == [30, 6, 20, 9]
     n, _ = check(streams)
     assert n == cb.decode_steps and cb.graph_steps == 0
+
+
+# ------------------------------------------------- a free slot's position
+
+def recorded_steps(cb):
+    """Each replay of ``cb``'s step graph: which slots were free, the fed
+    positions and the logits it left."""
+    graph = cb._step_graph
+    bufs, replay, steps = graph.slot, graph.replay, []
+
+    def replayed():
+        replay()
+        steps.append(([r is None for r in cb.slots], bufs.pos.clone(), bufs.logits.clone()))
+
+    graph.replay = replayed
+    return steps
+
+
+def climb_free_slots(cb):
+    """Feed ``cb``'s free slots climbing positions, as before they were held
+    at 0: a step advances every slot by one (capped), and before each
+    dispatch the test drives each free slot's position by hand, from the
+    middle of the cache up to its last."""
+    cap, dispatch, n = cb._pos_cap, cb._dispatch, [0]
+    cb._next_positions = lambda pos: np.minimum(pos + 1, cap).astype(np.int32)
+
+    def climbed():
+        for slot, req in enumerate(cb.slots):
+            if req is None:
+                cb._pos[slot] = min(cap // 2 + 3 * n[0] + slot, cap)
+        n[0] += 1
+        dispatch()
+
+    cb._dispatch = climbed
+
+
+def mixed_schedule(cb):
+    """Requests joining mid-flight and leaving, greedy and sampled rows
+    mixed, on a batcher with a slot to spare; each request's tokens."""
+    reqs = [cb.submit(PROMPTS[1], max_new_tokens=20),
+            cb.submit(PROMPTS[0], max_new_tokens=5, temperature=1.2, seed=42)]
+    for _ in range(3):
+        cb.step()
+    reqs += [cb.submit(PROMPTS[3], max_new_tokens=14, temperature=0.9, top_k=40, seed=7),
+             cb.submit(PROMPTS[2], max_new_tokens=6)]
+    cb.run_until_idle()
+    return [toks(drain(r)) for r in reqs]
+
+
+def assert_live_rows_bit_equal(make):
+    """The same schedule on two batchers from ``make()``, free rows held at
+    0 and climbing: every step's live rows get bit-equal logits at the same
+    positions, and every request the same tokens."""
+    runs = []
+    for climb in (False, True):
+        cb = make()
+        steps = recorded_steps(cb)
+        if climb:
+            climb_free_slots(cb)
+        runs.append((steps, mixed_schedule(cb)))
+    (held, streams), (climbed, climbed_streams) = runs
+    assert streams == climbed_streams and len(held) == len(climbed) > 0
+    moved = 0
+    for (free, pos, logits), (free_c, pos_c, logits_c) in zip(held, climbed):
+        live = [i for i, f in enumerate(free) if not f]
+        assert free == free_c
+        assert torch.equal(pos[live], pos_c[live])
+        assert torch.equal(logits[live], logits_c[live])
+        assert all(int(pos[i]) == 0 for i, f in enumerate(free) if f)
+        moved += sum(int(pos_c[i]) > 0 for i, f in enumerate(free) if f)
+    assert moved > 0
+
+
+@pytest.mark.parametrize("quantum", [1, 2])
+def test_live_rows_are_bit_equal_with_free_rows_held_or_climbing(quantum):
+    """The dense step over random weights (:func:`assert_live_rows_bit_equal`)."""
+    assert_live_rows_bit_equal(
+        lambda: ContinuousBatcher(random_engine(), n_slots=4, step_quantum=quantum))
+
+
+def watch_free_positions(cb):
+    """Every position ``cb`` feeds a free slot, in plain steps and verifies,
+    and for each release the quanta then in flight and the slot's position
+    after it."""
+    seen, releases = [], []
+    advance, verify, release = cb._advance_quantum, cb._verify, cb._release_slot
+
+    def advanced(k):
+        free = [r is None for r in cb.slots]
+        fed, epos, force = advance(k)
+        seen.extend(int(p) for row in fed for p, f in zip(row, free) if f)
+        return fed, epos, force
+
+    def verified(tokens, positions):
+        seen.extend(int(p) for p, r in zip(positions, cb.slots) if r is None)
+        return verify(tokens, positions)
+
+    def released(slot):
+        in_flight = cb._quanta_in_flight()
+        release(slot)
+        releases.append((in_flight, int(cb._pos[slot])))
+
+    cb._advance_quantum, cb._verify, cb._release_slot = advanced, verified, released
+    return seen, releases
+
+
+def free_slot_schedule(cb):
+    """Two requests on three slots, a third joining later: every step has a
+    free slot, and every stream equals the sequential engine's."""
+    eng, caps = cb.engine, (9, 4, 7)
+    reqs = [cb.submit(PROMPTS[0], max_new_tokens=9), cb.submit(PROMPTS[4], max_new_tokens=4)]
+    for _ in range(3):
+        cb.step()
+    reqs.append(cb.submit(PROMPTS[2], max_new_tokens=7))
+    cb.run_until_idle()
+    for r, n in zip(reqs, caps):
+        assert toks(drain(r)) == toks(sequential(eng, r.prompt, n))
+
+
+def assert_free_slots_fed_0(cb, speculate_k):
+    seen, releases = watch_free_positions(cb)
+    free_slot_schedule(cb)
+    assert seen and set(seen) == {0}
+    assert len(releases) == 3 and all(pos == 0 for _, pos in releases)
+    if not speculate_k:
+        assert all(n > 0 for n, _ in releases)          # released with quanta in flight
+
+
+@pytest.mark.parametrize("quantum,speculate_k", [(1, 0), (3, 0), (1, 2)])
+def test_a_free_slot_is_fed_position_0(quantum, speculate_k):
+    """Across quanta of 1 and 3 steps, after a release with quanta in
+    flight, and in the speculative verify: a free slot is fed position 0,
+    and a release leaves it at 0."""
+    assert_free_slots_fed_0(ContinuousBatcher(make_engine(), n_slots=3, step_quantum=quantum,
+                                              speculate_k=speculate_k), speculate_k)
+
+
+def seated_after_a_release(make):
+    """A request seated into slot 0 the step after its first holder was
+    released with quanta in flight (a neighbour decoding in slot 1) streams
+    what it streams alone on a fresh batcher."""
+    cb = make()
+    first = cb.submit(PROMPTS[1], max_new_tokens=7)
+    cb.submit(PROMPTS[4], max_new_tokens=30)
+    late = cb.submit(PROMPTS[0], max_new_tokens=30)
+    _, releases = watch_free_positions(cb)
+    cb.run_until_idle()
+    assert first.slot == late.slot == 0 and releases[0][0] > 0
+    alone = make()
+    again = alone.submit(PROMPTS[0], max_new_tokens=30)
+    alone.run_until_idle()
+    assert again.slot == 0
+    got, want = toks(drain(late)), toks(drain(again))
+    assert len(got) == 30 and got == want
+
+
+@pytest.mark.parametrize("quantum", [1, 3])
+def test_a_request_seated_after_a_release_in_flight_streams_as_alone(quantum):
+    """The dense batcher over random weights (:func:`seated_after_a_release`):
+    the released row's position-0 writes and its last request's garbage
+    rows never reach the new request."""
+    seated_after_a_release(
+        lambda: ContinuousBatcher(random_engine(), n_slots=2, step_quantum=quantum))
+
+
+def hand_counted_keys(cb):
+    """One request of 3 prompt tokens and 6 new ones on 3 slots in quanta of
+    2: five quanta are dispatched before its last token is read back (two
+    in flight behind each delivery), so the live row is fed positions 3 to
+    12 and two free rows position 0 ten times: (4 + ... + 13) + 2 x 10 =
+    105 keys, 20 of them free."""
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
+
+    t0 = time.perf_counter_ns()
+    req = cb.submit([1, 2, 3], max_new_tokens=6)
+    cb.run_until_idle()
+    assert len(drain(req)) == 6
+    counts = [sp[5] for sp in SPANS.between(t0, time.perf_counter_ns() + 1)
+              if sp[0] == "batcher.step" and sp[5]]
+    assert cb.decode_steps == 10
+    assert cb.keys_stepped == sum(c["keys"] for c in counts) == 105
+    assert cb.free_keys_stepped == sum(c["free_keys"] for c in counts) == 20
+
+
+def test_keys_and_free_keys_on_a_hand_counted_schedule():
+    hand_counted_keys(ContinuousBatcher(make_engine(), n_slots=3, step_quantum=2))
+
+
+def test_a_verify_counts_its_keys_by_hand():
+    """Speculating, K = 2, one request of 3 prompt tokens and 4 new ones on 3
+    slots: its proposer finds no n-gram to draft, so three verifies feed it
+    positions 3, 4, 5 and two free rows position 0: (4 + 5 + 6) + 2 x 3 =
+    21 keys, 6 of them free; a verify counts no plain step."""
+    from llama_nuts_and_bolts_tpu_torch.runtime.profiling import SPANS
+
+    cb = ContinuousBatcher(make_engine(), n_slots=3, speculate_k=2)
+    t0 = time.perf_counter_ns()
+    req = cb.submit([1, 2, 3], max_new_tokens=4)
+    cb.run_until_idle()
+    assert toks(drain(req)) == [4, 5, 6, 0]
+    counts = [sp[5] for sp in SPANS.between(t0, time.perf_counter_ns() + 1)
+              if sp[0] == "batcher.step" and sp[5]]
+    assert cb.verify_steps == 3 and cb.spec_stats["drafted"] == 0
+    assert [(c["keys"], c["free_keys"], c["steps"], c["rows"]) for c in counts] == [
+        (6, 2, 0, 0), (7, 2, 0, 0), (8, 2, 0, 0)]
+    assert (cb.keys_stepped, cb.free_keys_stepped) == (21, 6)

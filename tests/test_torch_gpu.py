@@ -614,6 +614,20 @@ def test_k6_refuses_block_sizes_it_cannot_copy(cuda):
 # ------------------------------------------------------------ decode graphs
 
 
+def byte_vocab():
+    """A byte-level vocabulary of 256 ranks and Llama 3's special tokens:
+    ``(ranks, vocab)``."""
+    from llama_nuts_and_bolts_tpu_torch.tokenizer import TiktokenModel, Vocabulary
+    from llama_nuts_and_bolts_tpu_torch.tokenizer.tiktoken_io import build_special_tokens
+
+    ranks = {bytes([i]): i for i in range(256)}
+    special = build_special_tokens(len(ranks))
+    return ranks, Vocabulary.from_tiktoken(TiktokenModel(
+        mergeable_ranks=ranks, special_tokens=special, bos_id=special["<|begin_of_text|>"],
+        eos_id=special["<|end_of_text|>"],
+        stop_token_ids=[special["<|eom_id|>"], special["<|eot_id|>"]]))
+
+
 def tiny_engine(device, fused=True, mesh=None, cycle=0, kv_heads=1, **args):
     """A 2-layer model at the kernels' shape (head_dim 128, G = 4; one KV
     head, ``kv_heads`` for a mesh to cut), random bf16 weights in the fused
@@ -627,15 +641,8 @@ def tiny_engine(device, fused=True, mesh=None, cycle=0, kv_heads=1, **args):
     from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel
     from llama_nuts_and_bolts_tpu_torch.models.llama.model import init_random_params
     from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
-    from llama_nuts_and_bolts_tpu_torch.tokenizer import TiktokenModel, Vocabulary
-    from llama_nuts_and_bolts_tpu_torch.tokenizer.tiktoken_io import build_special_tokens
 
-    ranks = {bytes([i]): i for i in range(256)}
-    special = build_special_tokens(len(ranks))
-    vocab = Vocabulary.from_tiktoken(TiktokenModel(
-        mergeable_ranks=ranks, special_tokens=special, bos_id=special["<|begin_of_text|>"],
-        eos_id=special["<|end_of_text|>"],
-        stop_token_ids=[special["<|eom_id|>"], special["<|eot_id|>"]]))
+    ranks, vocab = byte_vocab()
     cfg = ModelArgs(dim=512 * kv_heads, n_layers=2, n_heads=4 * kv_heads, n_kv_heads=kv_heads,
                     vocab_size=512, multiple_of=32, norm_eps=1e-5, max_sequence_length=512)
     params = init_random_params(cfg, seed=0, device=device, fused=fused)
@@ -968,6 +975,73 @@ def prompt_ids(device, n, bucket, seed):
     tokens = torch.zeros((1, bucket), dtype=torch.int32, device=device)
     tokens[0, :n] = torch.randint(0, 512, (n,), generator=gen, device=device)
     return tokens
+
+
+def phi3_engine(device):
+    """An engine over :func:`phi3_model` at context 2048 whose vocabulary
+    stops nothing: requests run to their caps."""
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+
+    cfg, params = phi3_model(device)
+    ranks, vocab = byte_vocab()
+    vocab.stop_token_ids.clear()
+    model = LoadedModel(params=params, cfg=cfg, vocab=vocab, mergeable_ranks=ranks,
+                        tensor_meta={})
+    return InferenceEngine(model, InferenceArgs(sequence_length=2048), device=device)
+
+
+@pytest.mark.gpu
+def test_live_rows_are_bit_equal_with_free_rows_held_or_climbing_at_phi3_heads(cuda):
+    """Serve-chat's K6 geometry (32 slots, tables of 64 entries of 32
+    positions, phi-3's 40 / 10 heads, on 2 layers): two live rows, past
+    1000 and 300 positions, in the paged batcher's captured step graph,
+    with the 30 free rows fed position 0 and then positions climbing to
+    2047 over their all-trash tables: the live rows' logits bit-equal, the
+    free rows' not. CUDA-event times of both steps are printed, not held."""
+    import numpy as np
+
+    from llama_nuts_and_bolts_tpu_torch.models.llama.paged import TRASH_BLOCK
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+
+    b = PagedBatcher(phi3_engine(cuda), n_slots=32)
+    assert b.attn_impl == "flash" and b.max_blocks == 64
+    gen = torch.Generator().manual_seed(24)
+    for n in (1000, 300):
+        b.submit(torch.randint(0, 256, (n,), generator=gen).tolist(), max_new_tokens=64)
+    for _ in range(4):
+        b.step()
+    b._flush_inflight()
+    graph, bufs = b._step_graph, b._step_graph.slot
+    assert graph.graph is not None and [r is not None for r in b.slots[:3]] == [True, True, False]
+    assert (b.tables[2:] == TRASH_BLOCK).all() and not b._pos[2:].any()
+    held = b._pos.copy()
+    climbing = held.copy()
+    climbing[2:] = np.linspace(1400, 2047, 30).astype(np.int32)
+
+    def step(positions):
+        bufs.stage(positions[None], b.tables, b._feed)
+        bufs.set_positions(0)
+        graph.replay()
+        return bufs.logits.clone()
+
+    out = {}
+    for name, positions in (("held", held), ("climbing", climbing), ("held again", held)):
+        logits = step(positions)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = logits
+        print(f"step graph, free rows {name}: {start.elapsed_time(end) / 20:.4f} ms "
+              f"({torch.cuda.get_device_name()})")
+    # the free rows write their pad token's K/V to the trash block, all
+    # thirty at offset 0 when held, in no fixed order: only live rows compare
+    assert torch.equal(out["held"][:2], out["climbing"][:2])
+    assert torch.equal(out["held"][:2], out["held again"][:2])
+    assert not torch.equal(out["held"][2:], out["climbing"][2:])
 
 
 @pytest.mark.gpu

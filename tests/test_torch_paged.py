@@ -625,6 +625,8 @@ def test_spans_and_counters_of_the_paged_batcher(speculate_k):
     counts = [sp[5] or {"rows": 0, "steps": 0} for sp in steps]
     assert cb.rows_stepped == sum(live) == sum(c["rows"] for c in counts)
     assert cb.decode_steps == sum(c["steps"] for c in counts)
+    assert cb.keys_stepped == sum(c.get("keys", 0) for c in counts) > 0
+    assert cb.free_keys_stepped == sum(c.get("free_keys", 0) for c in counts)
     # the CPU runs the step graph's body eagerly: no step is graphed
     assert cb.graph_steps == 0 and all(c["graphed"] == 0 for c in counts if c["steps"])
     admits = {sp[3]: sp[5] for sp in spans if sp[0] == "batcher.admit"}
@@ -691,6 +693,53 @@ def test_the_plain_paged_step_runs_on_the_static_buffers(quantum):
     short = [len(streams[r.rid]) < r.max_new_tokens for r in reqs]
     assert forced > 0 and any(short)
     assert cb.allocator.available == cb.allocator.n_blocks - 1
+
+
+# ------------------------------------------------- a free slot's position
+
+@pytest.mark.parametrize("impl", ["plain", "flash"])
+def test_paged_live_rows_are_bit_equal_with_free_rows_held_or_climbing(impl):
+    """The paged step over random weights, on the gather path and on K6's
+    plain version (tests/test_torch_continuous.py's
+    ``assert_live_rows_bit_equal``): a free row's all-trash table walked to
+    its climbing position or to 0 changes no live row's logits."""
+    from tests.test_torch_continuous import assert_live_rows_bit_equal, random_engine
+
+    assert_live_rows_bit_equal(lambda: PagedBatcher(
+        random_engine(), n_slots=4, block_size=BS, prefix_cache=False, attn_impl=impl))
+
+
+@pytest.mark.parametrize("quantum,speculate_k", [(1, 0), (3, 0), (1, 2)])
+def test_a_free_paged_slot_is_fed_position_0(quantum, speculate_k):
+    """The paged batcher's plain steps, quanta of 3 and verifies feed a free
+    slot position 0 (tests/test_torch_continuous.py's
+    ``assert_free_slots_fed_0``); its table stays all trash."""
+    from tests.test_torch_continuous import assert_free_slots_fed_0
+
+    cb = make_paged(n_slots=3, step_quantum=quantum, speculate_k=speculate_k)
+    assert_free_slots_fed_0(cb, speculate_k)
+    assert (cb.tables == paged.TRASH_BLOCK).all() and not cb._pos.any()
+
+
+@pytest.mark.parametrize("impl,quantum", [("plain", 1), ("flash", 1), ("flash", 3)])
+def test_a_paged_request_seated_after_a_release_in_flight_streams_as_alone(impl, quantum):
+    """The paged batcher over random weights (tests/test_torch_continuous.py's
+    ``seated_after_a_release``): blocks freed with quanta in flight and
+    taken again by the next request, the trash block's position-0 writes,
+    never reach it."""
+    from tests.test_torch_continuous import random_engine, seated_after_a_release
+
+    seated_after_a_release(lambda: PagedBatcher(
+        random_engine(), n_slots=2, block_size=BS, prefix_cache=False, attn_impl=impl,
+        step_quantum=quantum))
+
+
+def test_paged_keys_and_free_keys_on_a_hand_counted_schedule():
+    """The dense batcher's hand count (tests/test_torch_continuous.py's
+    ``hand_counted_keys``) holds for the pool: 105 keys, 20 free."""
+    from tests.test_torch_continuous import hand_counted_keys
+
+    hand_counted_keys(make_paged(n_slots=3, step_quantum=2))
 
 
 # ------------------------------------------------ the admission prefill on K1
