@@ -32,6 +32,9 @@ class ModelArgs:
     rope_scale_factor: float = 8.0
     rope_high_freq_factor: float = 4.0
     max_sequence_length: int = 2048
+    # a mixture of experts in place of the SwiGLU feed-forward: 0 is dense
+    n_experts: int = 0
+    n_experts_per_tok: int = 0
 
     @property
     def kv_heads(self) -> int:
@@ -77,7 +80,7 @@ class ModelArgs:
 _JSON_FIELDS = {
     "dim", "n_layers", "n_heads", "n_kv_heads", "vocab_size", "multiple_of",
     "ffn_dim_multiplier", "norm_eps", "use_scaled_rope", "rope_theta",
-    "rope_scale_factor", "rope_high_freq_factor",
+    "rope_scale_factor", "rope_high_freq_factor", "n_experts", "n_experts_per_tok",
 }
 
 
@@ -92,11 +95,25 @@ def load_model_args(path: str, max_sequence_length: Optional[int] = None) -> Mod
     for src, dst in aliases.items():
         if src in raw and dst not in raw:
             raw[dst] = raw[src]
+    # Mistral's params.json gives the experts in a "moe" block
+    moe = raw.get("moe") or {}
+    for src, dst in (("num_experts", "n_experts"),
+                     ("num_experts_per_tok", "n_experts_per_tok")):
+        if src in moe and dst not in raw:
+            raw[dst] = moe[src]
     known = {k: v for k, v in raw.items() if k in _JSON_FIELDS}
     args = ModelArgs(**known)
     if max_sequence_length is not None:
         args = args.with_(max_sequence_length=max_sequence_length)
     return args
+
+
+def refuse_experts(n_experts: int, what: str) -> None:
+    """``what`` runs dense models only: a model with ``n_experts`` experts a
+    layer raises a ``ValueError`` that names what it lacks."""
+    if n_experts:
+        raise ValueError(f"{what} does not take a model with experts ({n_experts} a "
+                         "layer): expert parallelism and quantized experts are not built")
 
 
 def find_model_dir(candidates) -> Optional[str]:

@@ -38,6 +38,7 @@ from llama_nuts_and_bolts_tpu_torch.models.llama.model import (
     layer_weight_shapes,
     rope_tables,
 )
+from llama_nuts_and_bolts_tpu_torch.ops.moe import RoutingLog
 from llama_nuts_and_bolts_tpu_torch.tokenizer import Vocabulary, load_tiktoken_model
 from llama_nuts_and_bolts_tpu_torch.utils.logging import get_logger
 
@@ -137,6 +138,9 @@ def build_params_from_checkpoint(tensors: Dict[str, CheckpointTensor],
     tensor-parallel rank's slices (module docstring)."""
     if quant not in (None, "int8", "int4"):
         raise ValueError(f"unsupported quant mode {quant!r}")
+    if cfg.n_experts:
+        raise ValueError(f"a checkpoint of a model with experts ({cfg.n_experts} a layer): "
+                         "the loader reads the dense block's tensor names only")
     if fused and (quant is not None or sharding_fn is not None):
         raise ValueError("the fused decode layout is for plain single-device bf16 "
                          "weights (quantized layouts keep their own packing; "
@@ -241,6 +245,9 @@ class LoadedModel:
     vocab: Vocabulary
     mergeable_ranks: Dict[bytes, int]
     tensor_meta: Dict[str, Tuple[Tuple[int, ...], str]]  # name -> (shape, dtype)
+    # a model with experts: an ``ops/moe.py::RoutingLog`` the batchers record
+    # each served row's experts into (None: nothing recorded)
+    routing_log: Optional[RoutingLog] = None
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:

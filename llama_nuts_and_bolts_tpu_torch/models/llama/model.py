@@ -84,9 +84,11 @@ from llama_nuts_and_bolts_tpu_torch.models.llama.rope import (
     precompute_rope_tables,
 )
 from llama_nuts_and_bolts_tpu_torch.ops import (
+    Routing,
     attention_mask,
     attention_mask_per_row,
     dequantize_kv_rows,
+    expert_ffn,
     gqa_attention,
     linear,
     linear_t,
@@ -202,6 +204,7 @@ class BlockInputs:
     sin: torch.Tensor
     attend: Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
     mesh: Any = None                    # (dp, sp, tp) DeviceMesh (parallel/)
+    routing: Optional[Routing] = None   # a model with experts: rows routed, ids
 
 
 @dataclass
@@ -361,6 +364,21 @@ def prepare_forward(params: LlamaParams, cfg: ModelArgs, tokens: torch.Tensor,
     return x, BlockInputs(cfg=cfg, cos=cos, sin=sin, attend=attend, mesh=mesh)
 
 
+def expert_routing(cfg: ModelArgs, routing: Optional[Routing], B: int, S: int,
+                   last: Optional[int], device) -> Optional[Routing]:
+    """The :class:`Routing` of a forward's ``[B, S]`` rows for a model with
+    experts (None for a dense one): ``routing``'s ids and rows, and with
+    ``last`` (a prompt's last real row) none of the rows past it, which pad
+    a bucket."""
+    if not cfg.n_experts:
+        return None
+    routing = routing or Routing()
+    if last is None or S == 1:
+        return routing
+    real = (torch.arange(S, device=device) <= last).expand(B, S).reshape(-1)
+    return Routing(routing.ids, real if routing.live is None else routing.live & real)
+
+
 def layer_weights(params: LlamaParams, li: int) -> Dict[str, Any]:
     """Layer ``li``'s views of the stacked weights."""
     return {name: t[li] for name, t in params.layers.items()}
@@ -396,7 +414,9 @@ def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
     (:func:`layer_weights`): attention (``inp.attend`` writes the new K/V
     rows into its cache in place and attends), then the SwiGLU
     feed-forward, each with its residual. Under ``inp.mesh`` the heads and
-    FFN width are this rank's and each half ends in an all-reduce. It reads
+    FFN width are this rank's and each half ends in an all-reduce. A model
+    with experts (``cfg.n_experts``) runs ``ops/moe.py``'s expert layer in
+    place of the SwiGLU, its rows and ids ``inp.routing``'s. It reads
     nothing back to the host, so a captured decode step runs it."""
     cfg, mesh = inp.cfg, inp.mesh
     B, S = x.shape[:2]
@@ -415,18 +435,18 @@ def decoder_block(w: Dict[str, Any], li: int, x: torch.Tensor,
         v = linear(h, w["wv"]).reshape(B, S, KV, D)
     q = apply_rope(q, inp.cos, inp.sin)
     k = apply_rope(k, inp.cos, inp.sin)
-    att = inp.attend(li, q, k, v)
+    att = inp.attend(li, q, k, v).reshape(B, S, H * D)
 
+    x = x + (linear_t(att, w["wo"]) if fused else _row_linear(att, w["wo"], mesh))
+    h2 = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
+    if cfg.n_experts:
+        return x + expert_ffn(h2, w, cfg.n_experts_per_tok, inp.routing, li)
     if fused:
-        x = x + linear_t(att.reshape(B, S, H * D), w["wo"])
-        h2 = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
         gu = linear_t(h2, w["w_gate_up"])
         F_ = cfg.ffn_hidden_dim
         gate, up = gu[..., :F_], gu[..., F_:]
         act = F.silu(gate.float()).to(gu.dtype) * up
         return x + linear_t(act, w["w_down"])
-    x = x + _row_linear(att.reshape(B, S, H * D), w["wo"], mesh)
-    h2 = rms_norm(x, w["ffn_norm"], cfg.norm_eps)
     act = swiglu_act(h2, w["w_gate"], w["w_up"])
     return x + _row_linear(act, w["w_down"], mesh)
 
@@ -477,6 +497,7 @@ def forward(
     logits_at: Optional[int] = None,
     mesh=None,                     # (dp, sp, tp) DeviceMesh: params/cache are shards
     seq_parallel: bool = False,    # tokens are this rank's S/sp prompt rows
+    routing: Optional[Routing] = None,   # a model with experts: rows routed, ids
 ) -> Tuple[torch.Tensor, KVCache]:
     """One forward pass (prefill when S>1, decode step when S==1).
 
@@ -487,9 +508,12 @@ def forward(
     at S=1, as in the JAX package; its rows' positions plus S must fit the
     cache (checked for CPU tensors; the batchers keep them in range).
     ``runtime/profiling.py::narrated_forward`` runs the same three parts,
-    a layer at a time. Under ``mesh`` see the module docstring."""
+    a layer at a time. Under ``mesh`` see the module docstring. A model
+    with experts routes ``routing``'s rows (every row by default), and with
+    ``logits_at`` none past it (:func:`expert_routing`)."""
     x, inp = prepare_forward(params, cfg, tokens, start_pos, cache, attn_impl, mesh,
                              seq_parallel)
+    inp.routing = expert_routing(cfg, routing, *tokens.shape, logits_at, x.device)
     x = run_blocks(params, x, inp)
     return output_head(params, cfg, x, logits_at, mesh, inp.attend.seq_parallel), cache
 
@@ -499,7 +523,12 @@ def forward(
 
 
 def layer_weight_shapes(cfg: ModelArgs) -> Dict[str, Tuple[int, ...]]:
-    d, f = cfg.dim, cfg.ffn_hidden_dim
+    """A layer's weights in the checkpoint layout ``[out, in]``; a model with
+    experts has the router and the stacked experts (``ops/moe.py``) in place
+    of ``w_gate``, ``w_up``, ``w_down``."""
+    d, f, E = cfg.dim, cfg.ffn_hidden_dim, cfg.n_experts
+    ffn = ({"router": (E, d), "e_gate": (E, f, d), "e_up": (E, f, d), "e_down": (E, d, f)}
+           if E else {"w_gate": (f, d), "w_up": (f, d), "w_down": (d, f)})
     return {
         "attn_norm": (d,),
         "ffn_norm": (d,),
@@ -507,24 +536,24 @@ def layer_weight_shapes(cfg: ModelArgs) -> Dict[str, Tuple[int, ...]]:
         "wk": (cfg.kv_heads * cfg.head_dim, d),
         "wv": (cfg.kv_heads * cfg.head_dim, d),
         "wo": (d, cfg.n_heads * cfg.head_dim),
-        "w_gate": (f, d),
-        "w_up": (f, d),
-        "w_down": (d, f),
+        **ffn,
     }
 
 
 def fused_layer_weight_shapes(cfg: ModelArgs) -> Dict[str, Tuple[int, ...]]:
     """Fused decode layout: qkv and gate+up concatenated along the OUT dim,
-    every matmul weight stored transposed ``[in, out]``."""
-    d, f = cfg.dim, cfg.ffn_hidden_dim
+    every matmul weight stored transposed ``[in, out]``; each expert's gate
+    and up concatenated alike (the router keeps ``[E, dim]``)."""
+    d, f, E = cfg.dim, cfg.ffn_hidden_dim, cfg.n_experts
     qkv_out = (cfg.n_heads + 2 * cfg.kv_heads) * cfg.head_dim
+    ffn = ({"router": (E, d), "e_gate_up": (E, d, 2 * f), "e_down": (E, f, d)}
+           if E else {"w_gate_up": (d, 2 * f), "w_down": (f, d)})
     return {
         "attn_norm": (d,),
         "ffn_norm": (d,),
         "wqkv": (d, qkv_out),
         "wo": (cfg.n_heads * cfg.head_dim, d),
-        "w_gate_up": (d, 2 * f),
-        "w_down": (f, d),
+        **ffn,
     }
 
 
@@ -535,14 +564,20 @@ def fuse_decode_params(params: LlamaParams) -> LlamaParams:
         return params
     if any(hasattr(w, "q") or hasattr(w, "packed") for w in lw.values()):
         raise ValueError("fuse_decode_params supports plain (bf16) weights only")
-    t = lambda a: a.transpose(1, 2).contiguous()  # noqa: E731
+    t = lambda a: a.transpose(-2, -1).contiguous()  # noqa: E731
+    if "router" in lw:
+        ffn = {"router": lw["router"],
+               "e_gate_up": t(torch.cat([lw["e_gate"], lw["e_up"]], dim=2)),
+               "e_down": t(lw["e_down"])}
+    else:
+        ffn = {"w_gate_up": t(torch.cat([lw["w_gate"], lw["w_up"]], dim=1)),
+               "w_down": t(lw["w_down"])}
     layers = {
         "attn_norm": lw["attn_norm"],
         "ffn_norm": lw["ffn_norm"],
         "wqkv": t(torch.cat([lw["wq"], lw["wk"], lw["wv"]], dim=1)),
         "wo": t(lw["wo"]),
-        "w_gate_up": t(torch.cat([lw["w_gate"], lw["w_up"]], dim=1)),
-        "w_down": t(lw["w_down"]),
+        **ffn,
     }
     return LlamaParams(tok_embeddings=params.tok_embeddings, layers=layers,
                        norm=params.norm, output=params.output.t().contiguous(),

@@ -33,6 +33,10 @@ slots x context.
     what is paged is only where a layer's new K/V rows go and which
     attention reads them, the attention object each function builds once
     (``_PagedPrompt`` for a prompt, ``_PagedStep`` for a batched step).
+  * A model with experts takes each function's ``routing``
+    (``ops/moe.py::Routing``): the expert ids its layers write, and for a step
+    the rows that route (a batcher masks its free slots). A prefill routes
+    no padding row past ``logits_at`` (``model.py::expert_routing``).
   * Under a tensor-parallel ``mesh`` (``parallel/``) the params and the pool
     are this rank's shards (``shard_params``, ``shard_pool``): the heads and
     KV heads are the local ones; decode attention runs K6 through
@@ -57,10 +61,12 @@ from llama_nuts_and_bolts_tpu_torch.models.llama.model import (
     BlockInputs,
     LlamaParams,
     _check_shards,
+    expert_routing,
     output_head,
     run_blocks,
 )
 from llama_nuts_and_bolts_tpu_torch.ops import (
+    Routing,
     dequantize_kv_rows,
     gqa_attention,
     quantize_kv_rows,
@@ -275,6 +281,7 @@ def paged_prefill(
     table_row: torch.Tensor,    # int32 [max_blocks]: this request's blocks
     mesh=None,                  # tensor-parallel DeviceMesh: params/pool are shards
     attn_impl: str = "plain",   # "plain" | "flash"
+    routing: Optional[Routing] = None,
 ) -> Tuple[torch.Tensor, PagedKVPool]:
     """Prefill a fresh request (positions 0..S-1) into its pool blocks.
     Never reads the pool. Returns (logits ``[1, vocab]`` at ``logits_at``,
@@ -293,7 +300,8 @@ def paged_prefill(
     mask = _causal_mask(S, x.device)[None] if attn_impl == "plain" else None
     attend = _PagedPrompt(pool, table_row, 0, None, mask, attn_impl, mesh)
     x = run_blocks(params, x, BlockInputs(cfg, params.rope_cos[:S], params.rope_sin[:S],
-                                          attend, mesh))
+                                          attend, mesh, expert_routing(
+                                              cfg, routing, 1, S, logits_at, x.device)))
     return output_head(params, cfg, x, logits_at, mesh)[:, 0], pool
 
 
@@ -307,6 +315,7 @@ def paged_prefill_shared(
     table_row: torch.Tensor,    # int32 [max_blocks]: shared + owned blocks
     mesh=None,                  # tensor-parallel DeviceMesh: params/pool are shards
     attn_impl: str = "plain",   # "plain" | "flash"
+    routing: Optional[Routing] = None,
 ) -> Tuple[torch.Tensor, PagedKVPool]:
     """Suffix-only prefill for a prefix-cache hit: the first ``shared_len``
     positions already live in the table row's first blocks (written by an
@@ -348,7 +357,8 @@ def paged_prefill_shared(
     attend = _PagedPrompt(pool, chunk_blocks, shared_len, idx, mask, attn_impl, mesh)
     x = run_blocks(params, x, BlockInputs(cfg, params.rope_cos[shared_len:shared_len + S],
                                           params.rope_sin[shared_len:shared_len + S],
-                                          attend, mesh))
+                                          attend, mesh, expert_routing(
+                                              cfg, routing, 1, S, logits_at, dev)))
     return output_head(params, cfg, x, logits_at, mesh)[:, 0], pool
 
 
@@ -361,6 +371,7 @@ def paged_decode_step(
     tables: torch.Tensor,       # int32 [B, max_blocks]
     attn_impl: str = "plain",   # "plain" | "flash"
     mesh=None,                  # tensor-parallel DeviceMesh: params/pool are shards
+    routing: Optional[Routing] = None,
 ) -> Tuple[torch.Tensor, PagedKVPool]:
     """One batched decode step over paged caches. Returns (logits ``[B,
     vocab]``, the pool, written in place). Rows whose table is all trash
@@ -375,7 +386,9 @@ def paged_decode_step(
     blocks = torch.gather(tables.long(), 1, (pos // bs)[:, None])[:, 0]
     attend = _PagedStep(pool, tables, positions, blocks, pos % bs, attn_impl, mesh)
     x = run_blocks(params, x, BlockInputs(cfg, params.rope_cos[pos][:, None, :],
-                                          params.rope_sin[pos][:, None, :], attend, mesh))
+                                          params.rope_sin[pos][:, None, :], attend, mesh,
+                                          expert_routing(cfg, routing, *tokens.shape, None,
+                                                         x.device)))
     return output_head(params, cfg, x, None, mesh)[:, 0], pool
 
 
@@ -387,6 +400,7 @@ def paged_decode_step_spec(
     pool: PagedKVPool,
     tables: torch.Tensor,       # int32 [B, max_blocks]
     mesh=None,                  # tensor-parallel DeviceMesh: params/pool are shards
+    routing: Optional[Routing] = None,
 ) -> Tuple[torch.Tensor, PagedKVPool]:
     """Speculative verification step over paged caches: row j of slot b runs
     at position ``positions[b] + j`` (clamped to the table's last slot, as
@@ -412,5 +426,7 @@ def paged_decode_step_spec(
     attend = _PagedStep(pool, tables, positions, blocks, (pos_rows % bs).reshape(-1),
                         "plain", mesh)
     x = run_blocks(params, x, BlockInputs(cfg, params.rope_cos[pos_rows],
-                                          params.rope_sin[pos_rows], attend, mesh))
+                                          params.rope_sin[pos_rows], attend, mesh,
+                                          expert_routing(cfg, routing, *tokens.shape, None,
+                                                         dev)))
     return output_head(params, cfg, x, None, mesh), pool

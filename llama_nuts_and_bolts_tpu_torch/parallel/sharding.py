@@ -49,6 +49,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from llama_nuts_and_bolts_tpu_torch.io.params import refuse_experts
 from llama_nuts_and_bolts_tpu_torch.parallel.mesh import (
     MESH_AXES,
     axis_rank,
@@ -253,7 +254,9 @@ def shard_pool(pool, mesh):
 
 def check_tp_shape(cfg, tp: int) -> None:
     """A rank keeps whole heads and whole GQA groups: ``tp`` must divide the
-    KV heads (and so the query heads)."""
+    KV heads (and so the query heads). A model with experts runs on no mesh
+    (any axis): the engine and every mesh forward check here."""
+    refuse_experts(cfg.n_experts, "a (dp, sp, tp) mesh")
     if cfg.kv_heads % tp or cfg.n_heads % tp:
         raise ValueError(f"tp={tp} must divide the KV heads ({cfg.kv_heads}) and the "
                          f"query heads ({cfg.n_heads}): each rank keeps whole GQA groups")

@@ -28,13 +28,17 @@ from dataclasses import dataclass
 import torch
 
 from llama_nuts_and_bolts_tpu_torch.device import exact_div, resolve_device
-from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
+from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs, refuse_experts
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import (
     LlamaParams,
     layer_weight_shapes,
     rope_tables,
 )
-from llama_nuts_and_bolts_tpu_torch.quant.quantize import QUANT_KEYS, stack_quantized
+from llama_nuts_and_bolts_tpu_torch.quant.quantize import (
+    QUANT_KEYS,
+    expert_count,
+    stack_quantized,
+)
 
 DEFAULT_GROUP = 256
 
@@ -122,6 +126,7 @@ def quantize_params_q4(params: LlamaParams, group_size: int = DEFAULT_GROUP,
                        quantize_output: bool = True) -> LlamaParams:
     """int4-quantize the matmul weight groups of checkpoint-layout params,
     one layer at a time."""
+    refuse_experts(expert_count(params), "int4 weights")
     layers = dict(params.layers)
     for key in QUANT_KEYS:
         w = layers[key]
@@ -139,6 +144,7 @@ def init_random_params_q4(cfg: ModelArgs, seed: int = 0, device=None,
     """Random packed-int4 params made directly as bytes from a seeded
     ``torch.Generator``, one layer at a time (~4.9 GB for the full 32-layer
     8B with its bf16 embedding). Scales are ``1 / (7 sqrt(in))``."""
+    refuse_experts(cfg.n_experts, "int4 weights")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 

@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import torch
 
 from llama_nuts_and_bolts_tpu_torch.device import exact_div, resolve_device
-from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
+from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs, refuse_experts
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import (
     LlamaParams,
     layer_weight_shapes,
@@ -73,6 +73,7 @@ def quantize_params(params: LlamaParams, quantize_output: bool = True) -> LlamaP
     """int8-quantize the matmul weight groups of checkpoint-layout params,
     one layer at a time (the bytes do not depend on the batching: every row
     is quantized on its own)."""
+    refuse_experts(expert_count(params), "int8 weights")
     layers = dict(params.layers)
     for key in QUANT_KEYS:
         w = layers[key]
@@ -84,11 +85,18 @@ def quantize_params(params: LlamaParams, quantize_output: bool = True) -> LlamaP
                        rope_cos=params.rope_cos, rope_sin=params.rope_sin)
 
 
+def expert_count(params: LlamaParams) -> int:
+    """Experts a layer of ``params`` (0: a dense model)."""
+    router = params.layers.get("router")
+    return 0 if router is None else router.shape[1]
+
+
 def init_random_params_q8(cfg: ModelArgs, seed: int = 0, device=None) -> LlamaParams:
     """Random int8 params made directly as int8 from a seeded
     ``torch.Generator``, one layer at a time, so the full 32-layer 8B
     architecture is built without a bf16 copy. Values are uniform on
     [-127, 127] (a byte, -128 clipped), scales ``1 / (127 sqrt(in))``."""
+    refuse_experts(cfg.n_experts, "int8 weights")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 

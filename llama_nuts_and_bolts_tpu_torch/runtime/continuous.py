@@ -112,8 +112,16 @@ inputs written), ``batcher.launch`` (the replays and samples, queued),
 a captured graph, its ``keys`` the keys its decode attention is handed (each
 row's fed position + 1, over its steps or its verify) and ``free_keys`` the
 free slots' part of them; an admission's ``flash`` whether its prefill
-attended on K1. The counters beside ``decode_steps`` (``graph_steps``,
-``rows_stepped``, ``keys_stepped``, ``free_keys_stepped``, ``prefill_tokens``,
+attended on K1. For a model with experts a step's and an admission's
+``expert_rows`` (routed (row, expert) pairs) and ``experts_hit`` (experts a
+row chose), each summed over the layers, are counted from the experts each
+row chose (the forward's routing ids, read back with its tokens) and added
+to the span that dispatched them (a free slot's rows and a prefill's
+padding route no expert); a model that carries a routing log
+(``LoadedModel.routing_log``) has each delivered row's experts recorded in
+it, by request and position. The counters beside ``decode_steps``
+(``graph_steps``, ``rows_stepped``, ``keys_stepped``, ``free_keys_stepped``,
+``expert_rows``, ``experts_hit``, ``prefill_tokens``,
 ``prefill_padded_tokens``, ``prefill_cached_tokens``, ``prefill_flash``,
 ``admissions``, ``admission_stalls``, ``queue_wait_s``) are the server's
 ``/metrics``.
@@ -132,6 +140,7 @@ import numpy as np
 import torch
 
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import KVCache, forward
+from llama_nuts_and_bolts_tpu_torch.ops.moe import IDS_DTYPE, Routing, expert_stats
 from llama_nuts_and_bolts_tpu_torch.ops.sampling import (
     greedy,
     sample_tokens_batched,
@@ -352,6 +361,11 @@ class ContinuousBatcher:
         self.admissions = 0
         self.admission_stalls = 0       # admission attempts the pool turned back
         self.queue_wait_s = 0.0         # submit to admission, summed
+        # a model with experts: routed (row, expert) pairs and experts with a
+        # row, each summed over the layers, of the steps and admissions
+        self.expert_rows = 0
+        self.experts_hit = 0
+        self._routing_log = getattr(engine.model, "routing_log", None)
         self._step = None               # the running step's ``batcher.step`` span
         # per-slot feed token and the position it is written at
         self._feed = np.zeros(n_slots, dtype=np.int32)
@@ -360,8 +374,11 @@ class ContinuousBatcher:
         self.pending: "queue.Queue[Request]" = queue.Queue()
         self._lock = threading.Lock()
         # work in flight, oldest first, each with its host copies (_to_host):
-        #   ("q", (tokens [k, B], logprob info?), force, epos, slots snapshot)
-        #   ("admit", slot, req, (first token [1], logprob info?), position)
+        #   ("q", (tokens [k, B], routing ids [k, L, B, top]?, logprob info?),
+        #    force, epos, slots snapshot, the step span's counts, fed [k, B])
+        #   ("admit", slot, req, (first token [1], routing ids [L, rows, top]?,
+        #    logprob info?), position, the admission span's counts, the
+        #    position of the prefill's first row)
         self._inflight: list = []
         # the last dispatched step's sampled tokens [B, 1], on the device:
         # the next step's feed; None = feed from the host
@@ -488,11 +505,13 @@ class ContinuousBatcher:
         bucket = prefill_bucket(plen, self.seq_len)
         self._seated(req, span, 0, plen, bucket)
         self._set_sampling(slot, req)
-        first, lp = self._prefill_slot(slot, req, bucket)
-        self._occupy(slot, req, first, lp)
+        routing = self._new_routing(bucket)
+        first, lp = self._prefill_slot(slot, req, bucket, routing)
+        self._occupy(slot, req, first, lp, routing, span)
         return True
 
-    def _prefill_slot(self, slot: int, req: Request, bucket: int):
+    def _prefill_slot(self, slot: int, req: Request, bucket: int,
+                      routing: Optional[Routing] = None):
         """Prefill ``req`` into slot ``slot``'s rows of the shared cache (a
         view, written in place) in a ``bucket`` of rows; returns its first
         token and logprob info, on the device."""
@@ -505,22 +524,31 @@ class ContinuousBatcher:
                        k_scale=None if c.k_scale is None else c.k_scale[:, rows],
                        v_scale=None if c.v_scale is None else c.v_scale[:, rows])
         logits, _ = forward(self.engine.model.params, self.cfg, padded.to(self.device),
-                            0, view, logits_at=plen - 1, mesh=self.mesh)
+                            0, view, logits_at=plen - 1, mesh=self.mesh, routing=routing)
         return self._sample(logits[:, 0], [slot], [plen - 1])
 
-    def _occupy(self, slot: int, req: Request, first, lp) -> None:
+    def _occupy(self, slot: int, req: Request, first, lp,
+                routing: Optional[Routing] = None, span=None, start: int = 0) -> None:
         """Seat an admitted request. Its first token stays on the device: the
         next dispatch feeds it, and its delivery rides the in-flight queue,
-        so admission never waits for the prefill. Speculating, the first
-        token is read and emitted now: its proposer needs it."""
+        so admission never waits for the prefill; a model with experts reads
+        the prefill's routing ids back with it (its rows from position
+        ``start`` on), counted into the admission ``span``. Speculating, the
+        first token is read and emitted now: its proposer needs it."""
         plen = len(req.prompt)
         req.slot = slot
         self.slots[slot] = req
         self._pos[slot] = plen
         self._splice[slot] = True
+        if self._routing_log is not None:
+            self._routing_log.begin(req.rid, req.prompt)
+        routed = [] if routing is None else [routing.ids]
         if self.speculate_k:
             with SPANS.span("batcher.readback", parent=self._step.id):
                 tok = int(first[0])
+                if routed:
+                    self._prompt_routing(span.counts, req, start,
+                                         routed[0].cpu().numpy())
             self._feed[slot] = tok
             self._first_dev[slot] = None
             if self._speculates(req):
@@ -531,8 +559,41 @@ class ContinuousBatcher:
             return
         self._first_dev[slot] = first[0]
         self._inflight.append(("admit", slot, req,
-                               self._to_host(first, *(lp if req.want_logprobs else ())),
-                               plen))
+                               self._to_host(first, *routed,
+                                             *(lp if req.want_logprobs else ())),
+                               plen, None if span is None else span.counts, start))
+
+    def _new_routing(self, rows: int) -> Optional[Routing]:
+        """Fresh routing ids ``[L, rows, k]`` for an admission's prefill or a
+        verify of a model with experts (read back with its tokens), else
+        None."""
+        cfg = self.cfg
+        if not cfg.n_experts:
+            return None
+        return Routing(torch.zeros((cfg.n_layers, rows, cfg.n_experts_per_tok),
+                                   dtype=IDS_DTYPE, device=self.device))
+
+    def _prompt_routing(self, counts: Optional[Dict[str, int]], req: Request, start: int,
+                        ids: np.ndarray) -> None:
+        """Count a prefill's read-back routing ``ids [L, rows, k]`` into the
+        admission span's ``counts``, and log its prompt rows (positions
+        ``start`` on; the rest pad the bucket)."""
+        self._count_experts(counts, ids)
+        if self._routing_log is not None:
+            n = len(req.prompt) - start
+            self._routing_log.add(req.rid, start, ids[:, :n].transpose(1, 0, 2))
+
+    def _count_experts(self, counts: Optional[Dict[str, int]], ids: np.ndarray) -> None:
+        """Add the experts hit and routed pairs of read-back routing ids
+        (``[..., L, rows, k]``, ``ops/moe.py::expert_stats``) to a span's
+        ``counts`` (``experts_hit``, ``expert_rows``) and to the batcher's
+        counters."""
+        hit, rows = expert_stats(ids, self.cfg.n_experts)
+        if counts is not None:
+            counts["experts_hit"] = counts.get("experts_hit", 0) + hit
+            counts["expert_rows"] = counts.get("expert_rows", 0) + rows
+        self.experts_hit += hit
+        self.expert_rows += rows
 
     @staticmethod
     def _speculates(req: Request) -> bool:
@@ -626,12 +687,15 @@ class ContinuousBatcher:
     def _process_entry(self, entry) -> None:
         """Read an in-flight entry's tokens back (``batcher.readback``: the
         host waits for the card) and deliver them (``batcher.deliver``)."""
+        experts = bool(self.cfg.n_experts)
         if entry[0] == "admit":
-            _tag, slot, req, fetched, pos = entry
+            _tag, slot, req, fetched, pos, counts, start = entry
             if self.slots[slot] is not req:      # cancelled before its first token
                 return
             with SPANS.span("batcher.readback", parent=self._step.id):
                 first, *lp = self._from_host(fetched)
+                if experts:
+                    self._prompt_routing(counts, req, start, lp.pop(0))
                 tok = int(first[0])
                 lp = tuple(lp) or None
             with SPANS.span("batcher.deliver", parent=self._step.id):
@@ -640,10 +704,15 @@ class ContinuousBatcher:
                     self._record_logprobs(slot, tok, lp)
                 self._emit(slot, tok, pos)
             return
-        _tag, fetched, force, epos, snapshot = entry
+        _tag, fetched, force, epos, snapshot, counts, fed = entry
+        ids = None
         with SPANS.span("batcher.readback", parent=self._step.id):
             toks, *lp = self._from_host(fetched)
+            if experts:
+                ids = lp.pop(0)
+                self._count_experts(counts, ids)
             lp = tuple(lp) or None
+        log = self._routing_log if ids is not None else None
         with SPANS.span("batcher.deliver", parent=self._step.id):
             for j in range(toks.shape[0]):
                 for slot in range(self.n_slots):
@@ -653,6 +722,8 @@ class ContinuousBatcher:
                         continue
                     tok = int(toks[j, slot])
                     self._feed[slot] = tok
+                    if log is not None:
+                        log.add(snapshot[slot].rid, int(fed[j, slot]), ids[j, :, slot][None])
                     if lp is not None:
                         self._record_logprobs(slot, tok, tuple(a[j] for a in lp), row=slot)
                     self._emit(slot, tok, int(epos[j, slot]), force_finish=force[j][slot])
@@ -704,21 +775,34 @@ class ContinuousBatcher:
         """The static buffers of the plain decode step and its graph: one a
         batcher, over its cache or pool, ``n_slots``, ``max_blocks`` and
         attention path, captured at the first dispatch on a card."""
-        bufs = StepBuffers(self.device, self.n_slots, self.cfg.vocab_size, self.step_quantum,
-                           max_blocks, depth=self.PIPELINE_DEPTH + 1)
-        self._step_graph = StepGraph(self.engine, bufs, self._step_fn())
+        cfg = self.cfg
+        bufs = StepBuffers(self.device, self.n_slots, cfg.vocab_size, self.step_quantum,
+                           max_blocks, depth=self.PIPELINE_DEPTH + 1,
+                           routing_shape=((cfg.n_layers, self.n_slots, cfg.n_experts_per_tok)
+                                          if cfg.n_experts else None))
+        self._step_graph = StepGraph(self.engine, bufs, self._step_fn(bufs.ids))
 
-    def _step_fn(self):
+    @staticmethod
+    def _step_routing(ids: Optional[torch.Tensor],
+                      positions: torch.Tensor) -> Optional[Routing]:
+        """A step's routing for a model with experts (``ids`` given): the
+        experts chosen into ``ids``, and only the occupied slots' rows routed.
+        A free slot is fed position 0 (:meth:`_next_positions`) and an
+        occupied one never is (its prompt came first), so ``positions > 0``
+        is the occupied rows, read from the step's static positions."""
+        return None if ids is None else Routing(ids, positions > 0)
+
+    def _step_fn(self, ids: Optional[torch.Tensor] = None):
         """The plain decode step as a function of the static buffers:
-        ``(feed, positions, tables)`` to ``[B, vocab]`` fp32 logits. It holds
-        the model, the cache and the mesh, not the batcher, which holds its
-        graph."""
+        ``(feed, positions, tables)`` to ``[B, vocab]`` fp32 logits (a model
+        with experts writes its routing ``ids`` too). It holds the model,
+        the cache and the mesh, not the batcher, which holds its graph."""
         params, cfg, cache = self.engine.model.params, self.cfg, self.cache
         impl, mesh = self._decode_impl, self.mesh
 
         def step(feed, positions, _tables):
             logits, _ = forward(params, cfg, feed, positions, cache, attn_impl=impl,
-                                mesh=mesh)
+                                mesh=mesh, routing=self._step_routing(ids, positions))
             return logits[:, -1]
 
         return step
@@ -758,18 +842,21 @@ class ContinuousBatcher:
             self._load_feed(bufs.feed)
         with SPANS.span("batcher.launch", parent=step.id):
             rows = list(range(self.n_slots))
-            out_toks, out_lp = [], []
+            out_toks, out_lp, routed = [], [], []
             for j in range(k):
                 if j:
                     bufs.feed.copy_(tok[:, None])
                 bufs.set_positions(j)
                 graph.replay()
+                if bufs.ids is not None:
+                    routed.append(bufs.ids.clone())
                 tok, lp = self._sample(bufs.logits, rows, fed[j])
                 out_toks.append(tok)
                 out_lp.append(lp)
             wanted = any(r is not None and r.want_logprobs for r in self.slots)
             lp = tuple(torch.stack(parts) for parts in zip(*out_lp)) if wanted else ()
-            fetched = self._to_host(torch.stack(out_toks), *lp)
+            routed = [torch.stack(routed)] if routed else []
+            fetched = self._to_host(torch.stack(out_toks), *routed, *lp)
         graphed = k if graph.graph is not None else 0
         self.decode_steps += k
         self.graph_steps += graphed
@@ -779,7 +866,8 @@ class ContinuousBatcher:
         step.counts["graphed"] = graphed
         self._count_keys(fed)
         self._last_tok = tok[:, None]
-        self._inflight.append(("q", fetched, force, epos, list(self.slots)))
+        self._inflight.append(("q", fetched, force, epos, list(self.slots), step.counts,
+                               fed))
 
     def step(self) -> None:
         """Admit, then dispatch one quantum while up to ``PIPELINE_DEPTH``
@@ -848,10 +936,11 @@ class ContinuousBatcher:
 
     # --------------------------------------------------------- speculation
 
-    def _verify_logits(self, toks: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def _verify_logits(self, toks: torch.Tensor, positions: torch.Tensor,
+                       routing: Optional[Routing] = None) -> torch.Tensor:
         """``[B, K+1, vocab]`` fp32 logits of one verify forward."""
         logits, _ = forward(self.engine.model.params, self.cfg, toks, positions,
-                            self.cache, mesh=self.mesh)
+                            self.cache, mesh=self.mesh, routing=routing)
         return logits
 
     def _verify(self, tokens: np.ndarray, positions: np.ndarray):
@@ -865,12 +954,18 @@ class ContinuousBatcher:
         with SPANS.span("batcher.launch", parent=self._step.id):
             toks = torch.from_numpy(tokens.astype(np.int32)).to(self.device)
             pos = torch.from_numpy(positions.astype(np.int32)).to(self.device)
-            logits = self._verify_logits(toks, pos)
+            routing = self._new_routing(toks.numel())
+            if routing is not None:
+                # a free slot's rows (fed at position 0) route no expert
+                routing.live = (pos > 0)[:, None].expand(toks.shape).reshape(-1)
+            logits = self._verify_logits(toks, pos, routing)
             sampled0, lp = self._sample(logits[:, 0], list(range(self.n_slots)), positions)
             preds = greedy(logits)
         self.verify_steps += 1
         wanted = any(r is not None and r.want_logprobs for r in self.slots)
         with SPANS.span("batcher.readback", parent=self._step.id):
+            if routing is not None:
+                self._count_experts(self._step.counts, routing.ids.cpu().numpy())
             return preds.cpu().numpy(), sampled0.cpu().numpy(), self._host_lp(lp, wanted)
 
     def _accepted_chain(self, slot: int, drafts, preds, sampled0) -> List[int]:

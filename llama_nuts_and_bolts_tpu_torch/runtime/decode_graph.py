@@ -80,6 +80,7 @@ from llama_nuts_and_bolts_tpu_torch.kernels.paged_attention import (
 )
 from llama_nuts_and_bolts_tpu_torch.kernels.q4_matmul import q4_matmul
 from llama_nuts_and_bolts_tpu_torch.models.llama.model import forward
+from llama_nuts_and_bolts_tpu_torch.ops.moe import IDS_DTYPE
 from llama_nuts_and_bolts_tpu_torch.ops.sampling import (
     draw_token,
     exponential_noise,
@@ -410,13 +411,16 @@ class VerifyGraph(_SlotGraph):
 class StepBuffers:
     """The static device state of a batcher's plain decode step (see the
     module docstring): ``feed [n_slots, 1]``, ``pos [n_slots]``, ``tables
-    [n_slots, max_blocks]`` (None for the dense cache) and ``logits
-    [n_slots, vocab]``, allocated once. :meth:`stage` takes a quantum's host
-    inputs through pinned memory, ``depth`` buffers in turn, each written
-    again only once an event says its last copy has run."""
+    [n_slots, max_blocks]`` (None for the dense cache), ``logits
+    [n_slots, vocab]`` and, for a model with experts, the routing ``ids``
+    ``routing_shape = [L, n_slots, k]`` the step writes, allocated once.
+    :meth:`stage` takes a quantum's host inputs through pinned memory,
+    ``depth`` buffers in turn, each written again only once an event says
+    its last copy has run."""
 
     def __init__(self, device: torch.device, n_slots: int, vocab: int, quantum: int,
-                 max_blocks: int = 0, depth: int = 3) -> None:
+                 max_blocks: int = 0, depth: int = 3,
+                 routing_shape: Optional[Tuple[int, int, int]] = None) -> None:
         cuda = device.type == "cuda"
         self.device = device
         self.feed = torch.zeros((n_slots, 1), dtype=torch.int32, device=device)
@@ -424,6 +428,9 @@ class StepBuffers:
         self.tables = (torch.zeros((n_slots, max_blocks), dtype=torch.int32, device=device)
                        if max_blocks else None)
         self.logits = torch.zeros((n_slots, vocab), dtype=torch.float32, device=device)
+        # a model with experts: the experts each row chose, a layer
+        self.ids = (torch.zeros(routing_shape, dtype=IDS_DTYPE, device=device)
+                    if routing_shape else None)
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
         # the quantum's positions, a row a step, which set_positions copies
         # into ``pos`` before the step's replay

@@ -244,13 +244,15 @@ class PagedBatcher(ContinuousBatcher):
         # .copy(): the table row mutates under later bookkeeping
         table_row = torch.from_numpy(self.tables[slot].copy()).to(self.device)
         self._set_sampling(slot, req)
+        routing = self._new_routing(bucket)
         if shared:
             logits, _ = paged_prefill_shared(params, self.cfg, padded, shared_len,
                                              len(suffix) - 1, self.pool, table_row,
-                                             mesh=self.mesh, attn_impl=impl)
+                                             mesh=self.mesh, attn_impl=impl, routing=routing)
         else:
             logits, _ = paged_prefill(params, self.cfg, padded, plen - 1, self.pool,
-                                      table_row, mesh=self.mesh, attn_impl=impl)
+                                      table_row, mesh=self.mesh, attn_impl=impl,
+                                      routing=routing)
         # the sampled token's global position: a cache hit never changes
         # a seeded stream
         first, lp = self._sample(logits, [slot], [plen - 1])
@@ -259,7 +261,7 @@ class PagedBatcher(ContinuousBatcher):
             # decode-grown blocks never do (unhashed)
             for bi in range(len(shared), plen // bs):
                 self.allocator.register(hashes[bi], blocks[bi])
-        self._occupy(slot, req, first, lp)
+        self._occupy(slot, req, first, lp, routing, span, start=shared_len)
         return True
 
     def _advance_quantum(self, k: int):
@@ -293,21 +295,23 @@ class PagedBatcher(ContinuousBatcher):
     def _host_tables(self) -> np.ndarray:
         return self.tables
 
-    def _step_fn(self):
+    def _step_fn(self, ids: Optional[torch.Tensor] = None):
         params, cfg, pool = self.engine.model.params, self.cfg, self.pool
         impl, mesh = self.attn_impl, self.mesh
 
         def step(feed, positions, tables):
             logits, _ = paged_decode_step(params, cfg, feed, positions, pool, tables, impl,
-                                          mesh=mesh)
+                                          mesh=mesh,
+                                          routing=self._step_routing(ids, positions))
             return logits
 
         return step
 
-    def _verify_logits(self, toks, positions) -> torch.Tensor:
+    def _verify_logits(self, toks, positions, routing=None) -> torch.Tensor:
         tables = torch.from_numpy(self.tables.copy()).to(self.device)
         logits, _ = paged_decode_step_spec(self.engine.model.params, self.cfg, toks,
-                                           positions, self.pool, tables, mesh=self.mesh)
+                                           positions, self.pool, tables, mesh=self.mesh,
+                                           routing=routing)
         return logits
 
     def _back_positions(self, slot: int, upto_pos: int) -> int:

@@ -58,7 +58,9 @@ _tracing = 0
 class _Span:
     """One span being timed: the handle of ``with SPANS.span(...) as s``.
     ``s.id`` is the parent of the spans inside, ``s.t0`` its start;
-    ``s.counts`` may be added to until the block ends. Made by
+    ``s.counts`` may be added to until the block ends, and later through the
+    same dict, which the recorded span holds when it is not empty (a
+    batcher adds a step's routing counts when its tokens are read back). Made by
     :meth:`SpanRecorder.span` without an ``__init__`` call, and entered and
     left with two clock reads: the hot path makes several a step."""
 

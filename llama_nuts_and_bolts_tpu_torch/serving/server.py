@@ -512,6 +512,12 @@ class LlamaHTTPServer:
                 f"llama_batch_keys_stepped_total {b.keys_stepped}",
                 "# TYPE llama_batch_free_keys_stepped_total counter",
                 f"llama_batch_free_keys_stepped_total {b.free_keys_stepped}",
+                # a model with experts: routed (row, expert) pairs and experts
+                # with a row, each summed over the layers (0 for a dense one)
+                "# TYPE llama_batch_expert_rows_total counter",
+                f"llama_batch_expert_rows_total {b.expert_rows}",
+                "# TYPE llama_batch_experts_hit_total counter",
+                f"llama_batch_experts_hit_total {b.experts_hit}",
                 "# TYPE llama_batch_prefill_tokens_total counter",
                 f"llama_batch_prefill_tokens_total {b.prefill_tokens}",
                 "# TYPE llama_batch_prefill_padded_tokens_total counter",

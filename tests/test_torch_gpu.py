@@ -1544,3 +1544,107 @@ def test_server_tp_refuses_more_ranks_than_cards(cuda):
     n = torch.cuda.device_count()
     with pytest.raises(RuntimeError, match=f"--tp {n + 1} needs {n + 1} CUDA devices"):
         serving.main(["--tiny", "--tp", str(n + 1), "--continuous", "2"])
+
+
+# Mixtral's widths on 2 layers: 4096 wide, 32 / 8 heads of 128, 8 experts
+# of 14336, top 2, vocab 32000 (portbench/configs/mixtral-8x7b-v0.1.json)
+MIXTRAL_2L = dict(dim=4096, n_layers=2, n_heads=32, n_kv_heads=8, vocab_size=32000,
+                  multiple_of=1024, ffn_dim_multiplier=1.3, norm_eps=1e-5, rope_theta=1e6,
+                  max_sequence_length=2048, n_experts=8, n_experts_per_tok=2)
+
+
+def mixtral_engine(device):
+    """An engine over random bf16 weights at :data:`MIXTRAL_2L` (split
+    layout, as the paged batcher serves it) whose vocabulary stops nothing."""
+    from llama_nuts_and_bolts_tpu_torch.io.params import ModelArgs
+    from llama_nuts_and_bolts_tpu_torch.models.llama import LoadedModel
+    from llama_nuts_and_bolts_tpu_torch.models.llama.model import init_random_params
+    from llama_nuts_and_bolts_tpu_torch.runtime import InferenceArgs, InferenceEngine
+    from llama_nuts_and_bolts_tpu_torch.tokenizer import Vocabulary
+
+    cfg = ModelArgs(**MIXTRAL_2L)
+    vocab = Vocabulary(token_to_id={}, id_to_token=[b""] * cfg.vocab_size,
+                       special_token_to_id={}, special_ids=set(), bos_id=-1, eos_id=-1,
+                       stop_token_ids=set())
+    model = LoadedModel(params=init_random_params(cfg, seed=25, device=device), cfg=cfg,
+                        vocab=vocab, mergeable_ranks={}, tensor_meta={})
+    return InferenceEngine(model, InferenceArgs(sequence_length=2048), device=device)
+
+
+@pytest.mark.gpu
+def test_moe_captured_paged_step_replays_bit_equal_to_the_eager_step(cuda):
+    """The expert layer in the paged batcher's captured step (8 slots):
+    every replay against the eager ``paged_decode_step`` on fresh copies of
+    its inputs, with the same routing (the free slots' rows masked): the
+    live rows' logits and the routing ids bit-equal over a run where
+    requests join and leave, and every decode step replayed from the graph;
+    each step's routed rows are its live rows x 2 x the layers. (A slot just
+    freed feeds its request's last token at position 0, where the free rows'
+    writes to the trash block land in no fixed order: free rows do not
+    compare.)"""
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+
+    b = PagedBatcher(mixtral_engine(cuda), n_slots=8)
+    graph = b._step_graph
+    bufs = graph.slot
+    ids = torch.zeros_like(bufs.ids)
+    step = b._step_fn(ids)
+    equal, routed, replay = [], [], graph.replay
+
+    def replayed():
+        replay()
+        live = bufs.pos > 0
+        ref = step(bufs.feed.clone(), bufs.pos.clone(), bufs.tables.clone())
+        equal.append(torch.equal(bufs.logits[live], ref[live])
+                     and torch.equal(bufs.ids, ids))
+        routed.append((int((bufs.ids < 8).sum()), int(live.sum())))
+
+    graph.replay = replayed
+    gen = torch.Generator().manual_seed(26)
+    reqs = [b.submit(torch.randint(0, 32000, (n,), generator=gen).tolist(), max_new_tokens=m)
+            for n, m in ((700, 24), (90, 9))]
+    for _ in range(4):
+        b.step()
+    reqs += [b.submit(torch.randint(0, 32000, (n,), generator=gen).tolist(), max_new_tokens=m)
+             for n, m in ((1500, 17), (33, 12))]
+    b.run_until_idle()
+    torch.cuda.synchronize()
+    assert [len(list(r.tokens(timeout=120))) for r in reqs] == [24, 9, 17, 12]
+    assert len(equal) == b.decode_steps > 20 and all(equal)
+    assert all(rows == live * 2 * 2 for rows, live in routed)
+    assert b.graph_steps == b.decode_steps and b._step_graph.warmup_steps == 1
+
+
+@pytest.mark.gpu
+def test_moe_unrouted_experts_poisoned_with_nan_leave_every_row_finite(cuda):
+    """A captured step of two live rows among eight slots reads only the
+    experts its live rows chose: every expert no live row chose in a layer
+    filled with NaN, the replay's logits are finite on every row, the live
+    rows' bit-equal to those before."""
+    from llama_nuts_and_bolts_tpu_torch.runtime.paged import PagedBatcher
+
+    b = PagedBatcher(mixtral_engine(cuda), n_slots=8)
+    gen = torch.Generator().manual_seed(27)
+    for n in (400, 60):
+        b.submit(torch.randint(0, 32000, (n,), generator=gen).tolist(), max_new_tokens=32)
+    for _ in range(3):
+        b.step()
+    b._flush_inflight()
+    graph, bufs = b._step_graph, b._step_graph.slot
+    assert graph.graph is not None and sum(r is not None for r in b.slots) == 2
+    bufs.stage(b._pos[None], b.tables, b._feed)
+    bufs.set_positions(0)
+    graph.replay()
+    before, chosen = bufs.logits.clone(), bufs.ids.clone()
+    hit = torch.stack([torch.bincount(layer[layer < 8].long(), minlength=8)
+                       for layer in chosen])
+    assert 0 < int((hit > 0).sum()) < hit.numel()
+    layers = b.engine.model.params.layers
+    for li in range(hit.shape[0]):
+        for e in torch.nonzero(hit[li] == 0)[:, 0].tolist():
+            for key in ("e_gate", "e_up", "e_down"):
+                layers[key][li, e] = float("nan")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.isfinite(bufs.logits).all()
+    assert torch.equal(bufs.logits[:2], before[:2]) and torch.equal(bufs.ids, chosen)

@@ -120,12 +120,13 @@ def test_metrics_expose_the_batchers_counters(paged_server):
     """Occupancy, the keys handed to the decode attention (and the free
     slots' part), prefill rows and padding, prefix-cache rows, admissions,
     queue wait, graphed steps and prefills on K1 (none of either on the
-    CPU): /metrics reads the batcher's own counters, and a chat with a
+    CPU), routed expert rows and experts hit (none for a dense model): /metrics reads the batcher's own counters, and a chat with a
     shared system prompt moves them."""
     srv, url = paged_server
     names = ("rows_stepped", "keys_stepped", "free_keys_stepped", "prefill_tokens",
              "prefill_padded_tokens", "prefill_cached_tokens", "admissions",
-             "admission_stalls", "graph_steps", "prefill_flash")
+             "admission_stalls", "graph_steps", "prefill_flash", "expert_rows",
+             "experts_hit")
     before = get(url + "/metrics")
     post(url + "/v1/chat/completions", chat("first watch"))
     post(url + "/v1/chat/completions", chat("third watch"))
@@ -144,6 +145,8 @@ def test_metrics_expose_the_batchers_counters(paged_server):
     assert grew["keys_stepped"] > grew["free_keys_stepped"] >= 0
     assert metric(text, "llama_batch_graph_steps_total") == 0
     assert metric(text, "llama_batch_prefill_flash_total") == 0
+    # a dense model routes nothing
+    assert grew["expert_rows"] == grew["experts_hit"] == 0
 
 
 def test_completions_logprobs_and_seeded_sampling(paged_server):
